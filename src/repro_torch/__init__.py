@@ -1,0 +1,12 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for one NVIDIA H100.
+
+Same layout as the JAX package (``core/``, ``data/``, ``fl/``,
+``kernels/``, ``models/``, ``optim/``, ``obs/``) and the same names, so
+each module's counterpart is easy to find.  The port imports ``torch``
+and ``numpy`` only, never ``jax`` and nothing of ``repro``: what it needs
+from the JAX package's numpy-only modules is copied here.
+
+Entry points (``FederatedTrainer``, ``RoundEngine``, ``ClientBank``,
+``LROAController``, ``SystemParams``) default to ``device="cuda"``; pass
+``device="cpu"`` to run the plain PyTorch path, as the tests do.
+"""

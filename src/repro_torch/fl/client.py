@@ -1,0 +1,131 @@
+"""Client-side local training: E epochs of mini-batch SGD (Algorithm 1,
+l.9) for K clients at once — the port of ``repro.fl.client``'s batched
+path (``batched_local_sgd`` over ``_local_sgd_body``).
+
+The K clients' parameters and momentum are ``[K, ...]`` stacks, and each
+SGD step is ONE ``torch.func.vmap(torch.func.grad_and_value(loss_fn))``
+call over them.  The function returns the stacked updates
+``theta^{t,E} - theta^t`` (Algorithm 1, l.10) and per-client losses for
+the server's eq.-(4) aggregation.
+
+Padding / bucketing contract (the JAX package's, verbatim): every client
+in the ``[K, B, ...]`` batch is cyclically tiled to the bank's bucket of
+``B`` rows, and
+
+* each epoch's order is a *stable* argsort of uniform keys; with
+  ``num_examples`` given, padded rows (``j >= n_i``) get the sentinel key
+  2.0 and sort last, so an epoch samples without replacement from the
+  client's true examples;
+* ``num_steps`` masks the parameters, the momentum and the loss of every
+  step past a client's true ``max(n_i // bs, 1)`` steps, with ``where``;
+* the epoch loss is ``sum / num_steps`` (masked) or the mean over steps
+  (unmasked), and the client loss is the mean over epochs.
+
+The uniform keys come in as ``sort_keys`` ``[K, E, B]`` or are drawn from
+a ``torch.Generator``.  The JAX package draws them from threefry keys,
+which torch cannot reproduce, so parity tests pass the reference's keys
+in as data.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.optim import SGD, apply_updates
+
+Params = Dict[str, torch.Tensor]
+LossFn = Callable[[Params, Dict[str, torch.Tensor]], torch.Tensor]
+
+#: sort key of padded rows: after every uniform key in [0, 1)
+_PAD_KEY = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientConfig:
+    local_epochs: int = 2
+    batch_size: int = 32
+    momentum: float = 0.9
+
+
+def _keep(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor
+          ) -> torch.Tensor:
+    """``where(mask, new, old)`` with the ``[K]`` mask broadcast over the
+    trailing axes of a ``[K, ...]`` leaf."""
+    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)),
+                       new, old)
+
+
+def batched_local_sgd(loss_fn: LossFn, params: Params, xs: torch.Tensor,
+                      ys: torch.Tensor, lr, cfg: ClientConfig,
+                      steps_per_epoch: int,
+                      num_steps: Optional[torch.Tensor] = None,
+                      num_examples: Optional[torch.Tensor] = None,
+                      sort_keys: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[Params, torch.Tensor]:
+    """E epochs of shuffled mini-batch SGD for a stacked ``[K, B, ...]``
+    client batch, all K clients starting from ``params``.
+
+    ``num_steps`` / ``num_examples`` (``[K]`` int tensors or None) carry
+    each client's true per-epoch step count and dataset size (see the
+    module docstring); ``sort_keys`` (``[K, E, B]`` floats in [0, 1), or
+    None to draw them from ``generator``) fixes every epoch's order.
+    Returns stacked deltas (leaves ``[K, ...]``) and per-client losses
+    ``[K]``.
+    """
+    k, n = xs.shape[0], xs.shape[1]
+    bs = cfg.batch_size
+    used = steps_per_epoch * bs
+    dev = xs.device
+    if sort_keys is None:
+        sort_keys = torch.rand((k, cfg.local_epochs, n), generator=generator,
+                               device=dev)
+    if tuple(sort_keys.shape) != (k, cfg.local_epochs, n):
+        raise ValueError(f"sort_keys must be [{k}, {cfg.local_epochs}, {n}],"
+                         f" got {tuple(sort_keys.shape)}")
+    opt = SGD(momentum=cfg.momentum)
+    p = {name: v.unsqueeze(0).expand((k,) + tuple(v.shape)).clone()
+         for name, v in params.items()}
+    m = opt.init(p)
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    step_fn = vmap(grad_and_value(loss_fn))
+    rows = torch.arange(k, device=dev)[:, None]
+    padded = (None if num_examples is None else
+              torch.arange(n, device=dev)[None, :] >= num_examples[:, None])
+    keep = (None if num_steps is None else
+            torch.arange(steps_per_epoch, device=dev)[None, :]
+            < num_steps[:, None])                       # [K, steps]
+
+    epoch_losses = []
+    for e in range(cfg.local_epochs):
+        scores = sort_keys[:, e]
+        if padded is not None:
+            scores = torch.where(padded, _PAD_KEY, scores)
+        perm = torch.argsort(scores, dim=1, stable=True)[:, :used]
+        xe = xs[rows, perm].reshape((k, steps_per_epoch, bs) + xs.shape[2:])
+        ye = ys[rows, perm].reshape((k, steps_per_epoch, bs) + ys.shape[2:])
+        losses = []
+        for s in range(steps_per_epoch):
+            grads, loss = step_fn(p, {"x": xe[:, s], "y": ye[:, s]})
+            updates, new_m = opt.update(grads, m, lr)
+            new_p = apply_updates(p, updates)
+            if keep is None:
+                p, m = new_p, new_m
+            else:
+                ks = keep[:, s]
+                p = {name: _keep(ks, new_p[name], v) for name, v in p.items()}
+                m = {name: _keep(ks, new_m[name], v) for name, v in m.items()}
+                loss = torch.where(ks, loss, 0.0)
+            losses.append(loss)
+        losses = torch.stack(losses, dim=1)              # [K, steps]
+        if num_steps is None:
+            epoch_losses.append(losses.mean(dim=1))
+        else:
+            epoch_losses.append(losses.sum(dim=1)
+                                / num_steps.to(torch.float32))
+    deltas = {name: p[name] - v for name, v in params.items()}
+    return deltas, torch.stack(epoch_losses, dim=1).mean(dim=1)

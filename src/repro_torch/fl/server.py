@@ -1,0 +1,133 @@
+"""Server-side FL logic: sampling K-with-replacement and the unbiased
+aggregation rule (paper eq. (4)) — the port of ``repro.fl.server``.
+
+    theta^{t+1} = theta^t
+                  + sum_{n in K^t} w_n / (K q_n^t) (theta_n^{t,E} - theta^t)
+
+Parameters are ``dict[str, Tensor]``; stacked client deltas carry a
+leading ``[K, ...]`` axis on every leaf.
+
+* ``sample_clients`` / ``aggregation_weights`` are numpy, verbatim from
+  the JAX package, so the same ``np.random.Generator`` state gives the
+  same selection.
+* ``aggregate_stacked`` is the plain form: a broadcast-multiply plus a
+  sum over the client axis in f32, per leaf.
+* ``aggregate_fused`` is the round engine's path.  On a CUDA device the
+  whole model is ravelled to one ``[N]`` vector (``ParamRavel``), reduced
+  by the hand-written ``fl_aggregate`` kernel in one launch, and
+  unravelled; on the CPU it is ``aggregate_stacked`` per leaf (the JAX
+  package's off-TPU branch), which the tests hold against the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+Params = Dict[str, torch.Tensor]
+
+
+def sample_clients(rng: np.random.Generator, q: np.ndarray,
+                   sample_count: int) -> np.ndarray:
+    """Draw K client indices with replacement according to q (Alg. 1, l.5)."""
+    q = np.asarray(q, np.float64)
+    q = q / q.sum()
+    return rng.choice(q.shape[0], size=sample_count, replace=True, p=q)
+
+
+def aggregation_weights(selected: np.ndarray, q: np.ndarray, w: np.ndarray,
+                        sample_count: int) -> np.ndarray:
+    """Per-draw coefficients w_n / (K q_n) for the selected multiset."""
+    sel = np.asarray(selected)
+    return (np.asarray(w)[sel] /
+            (float(sample_count) * np.asarray(q)[sel])).astype(np.float32)
+
+
+def stack_deltas(deltas: Sequence[Params]) -> Params:
+    """List of K update dicts -> one dict with leading [K, ...] leaves."""
+    return {name: torch.stack([d[name] for d in deltas])
+            for name in deltas[0]}
+
+
+def aggregate_stacked(global_params: Params, stacked_deltas: Params,
+                      coeffs: torch.Tensor) -> Params:
+    """eq. (4) over deltas stacked on a leading K axis: per leaf,
+    ``p + sum_k c_k d_k`` as a broadcast-multiply and a sum over axis 0,
+    in f32, cast back to the leaf's dtype."""
+    c32 = coeffs.to(torch.float32)
+    out = {}
+    for name, p in global_params.items():
+        d = stacked_deltas[name].to(torch.float32)
+        c = c32.reshape((d.shape[0],) + (1,) * (d.dim() - 1))
+        out[name] = (p.to(torch.float32) + torch.sum(c * d, dim=0)).to(
+            p.dtype)
+    return out
+
+
+class ParamRavel:
+    """Ravel/unravel adapter between a params dict and one flat vector.
+
+    Built once from a template dict (names in sorted order, as JAX
+    flattens a dict; shapes; dtypes).  ``ravel`` concatenates every leaf
+    (cast to f32) into one ``[N]`` vector so the fused kernel streams the
+    whole model in one pass, ``ravel_stacked`` maps ``[K, ...]`` leaves
+    to ``[K, N]``, and ``unravel`` splits, reshapes and casts back.
+    """
+
+    def __init__(self, template: Params):
+        self.names = sorted(template)
+        self.shapes = [tuple(template[n].shape) for n in self.names]
+        self.dtypes = [template[n].dtype for n in self.names]
+        self.sizes = [int(np.prod(s)) if s else 1 for s in self.shapes]
+        self.offsets = np.cumsum([0] + self.sizes).tolist()
+        self.total = self.offsets[-1]
+
+    def ravel(self, tree: Params) -> torch.Tensor:
+        return torch.cat([tree[n].to(torch.float32).reshape(-1)
+                          for n in self.names])
+
+    def ravel_stacked(self, tree: Params) -> torch.Tensor:
+        k = tree[self.names[0]].shape[0]
+        return torch.cat([tree[n].to(torch.float32).reshape(k, -1)
+                          for n in self.names], dim=1)
+
+    def unravel(self, vec: torch.Tensor) -> Params:
+        return {n: vec[self.offsets[i]:self.offsets[i + 1]]
+                .reshape(self.shapes[i]).to(self.dtypes[i])
+                for i, n in enumerate(self.names)}
+
+
+def aggregate_fused(global_params: Params, stacked_deltas: Params,
+                    coeffs: torch.Tensor, impl: str = "auto",
+                    adapter: ParamRavel | None = None) -> Params:
+    """eq. (4) through the fused flat-vector kernel on CUDA.
+
+    On a CUDA device (``impl`` 'auto' or 'cuda') the model is ravelled to
+    one ``[N]`` vector, reduced by ONE ``fl_aggregate`` kernel launch, and
+    unravelled; on the CPU it is :func:`aggregate_stacked` per leaf.
+    ``impl='cuda'`` on CPU tensors raises (see ``kernels.ops``).
+    """
+    device = next(iter(global_params.values())).device
+    coeffs = coeffs.to(device=device, dtype=torch.float32)
+    if not ops.use_cuda_kernel(impl, device):
+        return aggregate_stacked(global_params, stacked_deltas, coeffs)
+    if adapter is None:
+        adapter = ParamRavel(global_params)
+    theta = adapter.ravel(global_params)
+    deltas = adapter.ravel_stacked(stacked_deltas)
+    return adapter.unravel(ops.fl_aggregate(theta, deltas,
+                                            coeffs.contiguous(), impl=impl))
+
+
+def fedavg_reference(global_params: Params, deltas: Sequence[Params],
+                     w_sel: np.ndarray) -> Params:
+    """Plain FedAvg (weights proportional to data sizes) for comparison."""
+    coeffs = np.asarray(w_sel, np.float32)
+    coeffs = coeffs / coeffs.sum()
+    device = next(iter(global_params.values())).device
+    return aggregate_stacked(global_params, stack_deltas(deltas),
+                             torch.as_tensor(coeffs, device=device))

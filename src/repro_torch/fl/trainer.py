@@ -1,0 +1,218 @@
+"""The FL loop (Algorithm 1) under LROA control, with wall-clock latency
+and energy accounting — the port of ``repro.fl.trainer``'s fused path.
+
+All N clients' bucketed data is uploaded to the device once, into a
+single-bucket :class:`~repro_torch.fl.client_bank.ClientBank`, when the
+trainer is built.  Per round t:
+
+  1. observe channel gains h^t (ChannelProcess)                      [host]
+  2. the controller decides (f^t, p^t, q^t) — Algorithm 2 for LROA [device]
+  3. sample K draws with replacement by q^t                         [host]
+  4. + 5. ``RoundEngine.round_step``: gather the K selected clients from
+     the bank, train them as one batch (E epochs of masked mini-batch
+     SGD), and apply the unbiased eq.-(4) aggregation through one launch
+     of the hand-written CUDA ``fl_aggregate`` kernel            [device]
+  6. the queues update; latency += max_{n in K^t} T_n^t (eq. 10)   [device]
+
+The same ``seed`` gives the JAX trainer's channel gains and selections
+(numpy streams).  The model init and the per-client epoch keys come from
+``torch.Generator``s; ``sort_keys_fn`` replaces the latter (the parity
+tests pass the reference's keys through it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import system_model as sm
+from repro_torch.core.controller import realized_round_time
+from repro_torch.fl import client as fl_client
+from repro_torch.fl import server as fl_server
+from repro_torch.fl.environment import ChannelProcess
+from repro_torch.fl.round_engine import RoundEngine
+from repro_torch.obs import trace as obs_trace
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    round: int
+    wall_time: float          # realised latency of this round (eq. 10)
+    cum_time: float
+    mean_loss: float
+    selected: List[int]
+    q_min: float
+    q_max: float
+    queue_mean: float
+    energy_mean: float        # realised mean energy this round
+    test_accuracy: Optional[float] = None
+
+
+@dataclasses.dataclass
+class FLRunResult:
+    records: List[RoundRecord]
+    params: Params
+    controller_name: str
+
+    @property
+    def total_time(self) -> float:
+        return self.records[-1].cum_time if self.records else 0.0
+
+
+class FederatedTrainer:
+    """Synchronous FL driver on one device (fused round engine path)."""
+
+    def __init__(self, task, params: sm.SystemParams, controller,
+                 channel: ChannelProcess, client_data: Sequence[tuple],
+                 client_cfg: fl_client.ClientConfig,
+                 lr_schedule: Callable[[int], float],
+                 test_data: Optional[tuple] = None,
+                 eval_every: int = 10, seed: int = 0,
+                 bank_mode: str = "auto", impl: str = "auto", device="cuda",
+                 sort_keys_fn: Optional[Callable[[int], np.ndarray]] = None):
+        if len(client_data) != params.num_devices:
+            raise ValueError(f"{len(client_data)} client datasets for "
+                             f"{params.num_devices} devices")
+        self.device = torch.device(device)
+        if params.device.type != self.device.type:
+            raise ValueError(f"SystemParams live on {params.device}, the "
+                             f"trainer on {self.device}")
+        self.task = task
+        self.params = params
+        self.controller = controller
+        self.channel = channel
+        self.client_cfg = client_cfg
+        self.lr_schedule = lr_schedule
+        self.eval_every = eval_every
+        self.engine = RoundEngine(task, client_cfg, impl=impl,
+                                  device=self.device)
+        # the ONE upload of client data: every round reads the bank
+        self.bank = self.engine.make_bank(client_data, tiered=bank_mode)
+        self.test_data = None
+        if test_data is not None:
+            x = torch.as_tensor(np.asarray(test_data[0], np.float32),
+                                device=self.device)
+            self.test_data = (task.device_layout(x), torch.as_tensor(
+                np.asarray(test_data[1]).astype(np.int64),
+                device=self.device))
+        self._np_rng = np.random.default_rng(seed)
+        self._key_gen = torch.Generator(device=self.device)
+        self._key_gen.manual_seed(seed)
+        init_gen = torch.Generator(device=self.device)
+        init_gen.manual_seed(seed + 1)
+        self.global_params = task.init(init_gen)
+        self._sort_keys_fn = sort_keys_fn
+        self.w = params.data_weights.cpu().numpy()
+        self._records: List[RoundRecord] = []
+        #: the most recent round's (f, p, q) decision
+        self.last_decision = None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- warmup -----------------------------------------------------------
+
+    def warmup(self) -> None:
+        """Run every code path a round takes once — the kernel build, the
+        cuDNN/cuBLAS set-up, the solver — without changing any trainer
+        state: a round on a copy of the params with zero lr and zero
+        coefficients, keys from a throwaway generator, one decision."""
+        k = self.params.sample_count
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        keys = torch.rand((k, self.client_cfg.local_epochs,
+                           self.bank.bucket_examples), generator=gen,
+                          device=self.device)
+        p = {name: v.clone() for name, v in self.global_params.items()}
+        self.engine.round_step(p, self.bank, np.zeros(k, np.int64),
+                               np.zeros(k, np.float32), 0.0, keys)
+        self.controller.decide(torch.ones(self.params.num_devices,
+                                          device=self.device))
+        if self.test_data is not None:
+            self.evaluate()
+        self._sync()
+
+    # -- evaluation -------------------------------------------------------
+
+    def evaluate(self) -> float:
+        if self.test_data is None:
+            return float("nan")
+        x, y = self.test_data
+        with torch.no_grad():
+            m = self.task.metrics(self.global_params, {"x": x, "y": y})
+        return float(m["accuracy"])
+
+    # -- one round --------------------------------------------------------
+
+    def _client_sort_keys(self, count: int) -> torch.Tensor:
+        """[count, E, B] uniform epoch-order keys for this round's
+        clients: from ``sort_keys_fn`` when given, else the trainer's
+        generator."""
+        shape = (count, self.client_cfg.local_epochs,
+                 self.bank.bucket_examples)
+        if self._sort_keys_fn is not None:
+            return torch.as_tensor(np.asarray(self._sort_keys_fn(count),
+                                              np.float32),
+                                   device=self.device).reshape(shape)
+        return torch.rand(shape, generator=self._key_gen,
+                          device=self.device)
+
+    def run_round(self, t: int) -> RoundRecord:
+        with obs_trace.span("trainer.round", t=int(t)):
+            return self._run_round_impl(t)
+
+    def _run_round_impl(self, t: int) -> RoundRecord:
+        k = self.params.sample_count
+        h = torch.as_tensor(self.channel.sample(), device=self.device)
+        with obs_trace.span("controller.decide"):
+            decision = self.last_decision = self.controller.decide(h)
+            q = decision.q.cpu().numpy()
+        selected = fl_server.sample_clients(self._np_rng, q, k)
+        lr = float(self.lr_schedule(t))
+        coeffs = fl_server.aggregation_weights(selected, q, self.w, k)
+        self.global_params, losses = self.engine.round_step(
+            self.global_params, self.bank, selected, coeffs, lr,
+            self._client_sort_keys(len(selected)))
+        losses = losses.cpu().numpy()
+
+        wall = realized_round_time(self.params, h, decision, selected)
+        e_round = sm.round_energy(self.params, h, decision.p,
+                                  decision.f).cpu().numpy()
+        queues = self.controller.step_queues(h, decision)
+
+        cum = (self._records[-1].cum_time if self._records else 0.0) + wall
+        rec = RoundRecord(
+            round=t, wall_time=wall, cum_time=cum,
+            mean_loss=float(np.mean(losses)),
+            selected=[int(i) for i in selected],
+            q_min=float(q.min()), q_max=float(q.max()),
+            queue_mean=float(queues.mean()),
+            energy_mean=float(e_round[np.unique(selected)].mean()),
+        )
+        if self.test_data is not None and (t % self.eval_every == 0):
+            rec.test_accuracy = self.evaluate()
+        self._records.append(rec)
+        return rec
+
+    # -- full run ---------------------------------------------------------
+
+    def run(self, num_rounds: int, verbose: bool = False) -> FLRunResult:
+        self._records = []
+        for t in range(num_rounds):
+            rec = self.run_round(t)
+            if verbose and (t % max(num_rounds // 10, 1) == 0):
+                print(f"[{getattr(self.controller, 'name', '?')}] round {t} "
+                      f"loss {rec.mean_loss:.4f} wall {rec.wall_time:.1f}s "
+                      f"cum {rec.cum_time:.0f}s acc {rec.test_accuracy}")
+        if self.test_data is not None and self._records:
+            self._records[-1].test_accuracy = self.evaluate()
+        params = {name: v.clone() for name, v in self.global_params.items()}
+        return FLRunResult(records=self._records, params=params,
+                           controller_name=getattr(self.controller, "name",
+                                                   "unknown"))

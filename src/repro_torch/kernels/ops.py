@@ -1,0 +1,58 @@
+"""Public wrappers around the port's kernels, with one dispatch rule.
+
+``impl`` mirrors ``repro.kernels.ops.use_pallas_kernel``:
+
+* ``'cuda'`` forces the hand-written kernel (CUDA tensors required);
+* ``'auto'`` takes the kernel when the tensors lie on a CUDA device and
+  the plain version (``kernels.ref``) when they lie on the CPU;
+* ``'ref'`` takes the plain version, on the CPU only.
+
+Nothing falls back: ``impl='cuda'`` on CPU tensors raises, ``impl='ref'``
+on CUDA tensors raises (on the card the plain version runs only as the
+kernel's yardstick, called from ``kernels.ref`` directly), and a failed
+build or launch raises from the kernel wrapper.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+IMPLS = ("auto", "cuda", "ref")
+
+
+def use_cuda_kernel(impl: str, device: torch.device) -> bool:
+    """THE kernel-dispatch predicate: True when the call must launch the
+    CUDA kernel for tensors on ``device``; raises where the request and
+    the device disagree."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    on_cuda = torch.device(device).type == "cuda"
+    if impl == "cuda" and not on_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got device "
+                         f"{device}")
+    if impl == "ref" and on_cuda:
+        raise ValueError("impl='ref' is the CPU path; on a CUDA device the "
+                         "kernel runs (impl='auto' or 'cuda')")
+    return on_cuda
+
+
+def fl_aggregate(theta: torch.Tensor, deltas: torch.Tensor,
+                 coeffs: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Fused eq.-(4) aggregation over flattened parameters:
+    theta [N] + sum_k coeffs[k] * deltas[k] ([K, N]), in theta's dtype."""
+    if use_cuda_kernel(impl, theta.device):
+        from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+        return fl_aggregate_cuda(theta, deltas, coeffs)
+    return ref.aggregate_reference(theta, deltas, coeffs)
+
+
+def fl_delta_reduce(deltas: torch.Tensor, coeffs: torch.Tensor,
+                    impl: str = "auto") -> torch.Tensor:
+    """Partial eq.-(4) reduce ``sum_k coeffs[k] * deltas[k]`` -> f32 [N]
+    (no theta add): the per-shard term of a client-sharded aggregation."""
+    if use_cuda_kernel(impl, deltas.device):
+        from repro_torch.kernels.fl_aggregate import fl_delta_reduce_cuda
+        return fl_delta_reduce_cuda(deltas, coeffs)
+    return ref.delta_reduce_reference(deltas, coeffs)
