@@ -7,24 +7,42 @@ Phases, one result line each (exits non-zero on any failure; no phase's
 error is caught):
 
 1. device — ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build — compiles the hand-written CUDA kernel from ``src/`` (first use
-   builds into ``build/torch_ext/``);
-3. kernel against plain — ``fl_aggregate`` and ``fl_delta_reduce`` against
-   their plain PyTorch versions (``kernels/ref.py``) at the slice's model
-   size and the other smoke points, with the kernel's median time (CUDA
-   events, L2 flushed before every launch), the plain version's, one
-   ``torch.addmv`` call's (f32 only) and the bound (bytes over the card's
-   HBM rate, operations over its f32 rate, the larger);
-4. reference — a small trainer run on the card against the same run on
-   the CPU (the CPU path is held against the JAX package by the tests);
+2. build — compiles the three hand-written CUDA kernels from ``src/``
+   (one ``nvcc`` per source, all started together, into
+   ``build/torch_ext/``) and times each;
+3. kernel against plain — each kernel against its plain PyTorch version
+   (``kernels/ref.py``) at its main path's shapes and at the sweep of
+   ``tests/test_kernels.py``, with the kernel's median time (CUDA events,
+   L2 flushed before every launch), the plain version's, one PyTorch
+   call's where one computes the same function, and the bound (bytes
+   over the card's HBM rate, operations over its peak rate for the
+   dtype, the larger):
+   ``kernel`` (``fl_aggregate``/``fl_delta_reduce``, yardstick
+   ``torch.addmv``), ``kernel.flash_attention`` (yardstick
+   ``scaled_dot_product_attention`` at the causal point without window
+   or soft-cap), ``kernel.ssd_chunk`` (no single PyTorch call);
+4. reference — a small LROA trainer run on the card against the same
+   run on the CPU; reference.lm — the smoke gemma2-27b (flash, binding
+   window) and mamba2-130m served greedily on the card and on the CPU
+   with the same parameters: equal tokens, logits within 1e-4 (the CPU
+   path is held against the JAX package by the tests);
 5. main path — the paper-scale CNN testbed (N = 120 Dirichlet-0.5
    clients, K = 8, E = 2, batch 16, ``bank_mode='single'``): ``warmup()``,
    then 3 LROA rounds through ``FederatedTrainer.run_round``, checking
    finite losses, q on the simplex, moved queues, changed params and
-   exactly one ``fl_aggregate`` launch per round;
-6. profile — one more round under ``torch.profiler`` (device time by
-   kernel, launches, the device's busy share);
-7. the ``kernels`` JSON line, then the last line
+   exactly one ``fl_aggregate`` launch per round; profile — one more
+   round under ``torch.profiler``;
+6. serve.gemma2 — gemma2-27b at full width and depth (46 layers, bf16
+   parameters and activations, ``attn_impl='flash'``), random weights
+   from a seed: ``greedy_generate`` of 16 tokens after 2 prompts of 4352
+   tokens (4096 + 256, so the 4096 window binds and the local rings
+   wrap), exactly 46 flash launches in prefill and none in decode, finite
+   logits; profile.serve — one more prefill and one decode step under
+   ``torch.profiler``;
+7. serve.mamba2 — mamba2-130m at full size (f32): 4 prompts of 2048
+   tokens, 32 greedy tokens, exactly 24 SSD-chunk launches in prefill and
+   none in decode;
+8. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Float32 matmuls and convolutions run in full f32 (TF32 off), so the card
@@ -34,6 +52,8 @@ and ``repro_torch`` only.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -47,10 +67,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# published peaks (NVIDIA data sheets, dense): HBM bytes/s and float32
-# (non-tensor-core) FLOP/s, matched on the name nvidia-smi reports
-PEAKS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+# published peaks (NVIDIA data sheets, dense): HBM bytes/s, float32
+# (non-tensor-core) FLOP/s and bf16 tensor-core FLOP/s, matched on the
+# name nvidia-smi reports
+PEAKS = (("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100", 3.35e12, 67e12, 989e12))
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # (N, K, dtype): the slice's CNN, the 11.17M-parameter model that
 # paper_default_params accounts for, a ragged N, and K = 1
@@ -75,9 +97,9 @@ def require(cond: bool, what: str) -> None:
 
 
 def peaks(name: str):
-    for key, hbm, f32 in PEAKS:
+    for key, hbm, f32, bf16 in PEAKS:
         if key in name:
-            return hbm, f32
+            return hbm, f32, bf16
     raise RuntimeError(f"no published peaks for card {name!r}")
 
 
@@ -270,7 +292,7 @@ def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     per_round, rounds = [], []
-    fk.reset_launch_counts()
+    _reset_launch_counts()
     with trace.installed(trace.MemorySink()) as sink:
         t_all = time.perf_counter()
         for t in range(ROUNDS):
@@ -321,6 +343,345 @@ def phase_profile(trainer, t: int) -> None:
     """One more round under ``torch.profiler``: device time by kernel,
     launches, and the device's busy share of the round's wall time (the
     profiler slows the host side, so the share is a lower bound)."""
+    _, prof = _profiled(lambda: trainer.run_round(t))
+    log("profile", round_s=prof.pop("wall_s"), **prof)
+
+
+# ---------------------------------------------------------------------------
+# the LM slice: flash attention, SSD chunk, serving
+# ---------------------------------------------------------------------------
+
+# (B, H, Hkv, S, D) of gemma2-27b's prefill in serve.gemma2, and its
+# attention scale and soft-cap
+GEMMA_ATTN = (2, 32, 16, 4352, 128)
+GEMMA_SCALE, GEMMA_CAP = 144.0 ** -0.5, 50.0
+# (B, H, Hkv, Sq, Sk, D) and masks of tests/test_kernels.py
+FLASH_SWEEP = ((1, 2, 2, 33, 33, 16), (2, 4, 2, 64, 64, 32),
+               (1, 8, 1, 48, 80, 64))
+FLASH_MASKS = ((True, 0, 0.0), (True, 16, 0.0), (False, 0, 0.0),
+               (True, 0, 20.0))
+# (B, S, nh, hd, N, chunk): mamba2-130m's prefill in serve.mamba2, then
+# the points of tests/test_kernels.py
+SSD_MAIN = (4, 2048, 24, 64, 128, 256)
+SSD_SWEEP = ((1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
+             (1, 48, 1, 32, 16, 16))
+GEMMA_SERVE = dict(batch=2, prompt_len=4352, new_tokens=16, seed=1)
+MAMBA_SERVE = dict(batch=4, prompt_len=2048, new_tokens=32, seed=1)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through: the work the flash
+    kernel must do for these inputs."""
+    i = np.arange(sq)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _dname(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _bound(nbytes: float, flops: float, hbm: float, peak: float):
+    t_bytes, t_ops = nbytes / hbm, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float
+                ) -> list:
+    """The flash kernel against ``ref.mha_reference`` at gemma2-27b's
+    prefill (global and local layers, and the plain causal point that
+    ``scaled_dot_product_attention`` is timed at) and at the sweep of
+    tests/test_kernels.py in f32 and bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, h, hkv, s, d = GEMMA_ATTN
+    points = [dict(label=label, shape=(b, h, hkv, s, s, d),
+                   dtype=torch.bfloat16, causal=True, window=window,
+                   softcap=cap, scale=GEMMA_SCALE, iters=10)
+              for label, window, cap in (("gemma2.global", 0, GEMMA_CAP),
+                                         ("gemma2.local", 4096, GEMMA_CAP),
+                                         ("gemma2.causal_plain", 0, 0.0))]
+    for shape in FLASH_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal, window, cap in FLASH_MASKS:
+                points.append(dict(label="sweep", shape=shape, dtype=dtype,
+                                   causal=causal, window=window, softcap=cap,
+                                   scale=None, iters=10))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    rows = []
+    for pt in points:
+        b, h, hkv, sq, sk, d = pt["shape"]
+        dtype = pt["dtype"]
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                   for shape in ((b, h, sq, d), (b, hkv, sk, d),
+                                 (b, hkv, sk, d)))
+        kw = dict(causal=pt["causal"], window=pt["window"],
+                  softcap=pt["softcap"], scale=pt["scale"])
+        out = fa.flash_attention_cuda(q, k, v, **kw)
+        want = ref.mha_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = TOL[dtype]
+        ok = torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)
+        err = float((out.float() - want.float()).abs().max())
+        del want
+        size = q.element_size()
+        nbytes = 2 * (b * h * sq * d + b * hkv * sk * d) * size
+        flops = 4.0 * b * h * d * visible_pairs(sq, sk, pt["causal"],
+                                                pt["window"])
+        bound_ms, bound_by = _bound(
+            nbytes, flops, hbm,
+            bf16_peak if dtype == torch.bfloat16 else f32_peak)
+        library_ms = None
+        if pt["label"] == "gemma2.causal_plain":
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=pt["scale"],
+                enable_gqa=True), iters=pt["iters"], flush=flush)
+        row = dict(
+            label=pt["label"], shape=list(pt["shape"]), dtype=_dname(dtype),
+            causal=pt["causal"], window=pt["window"], softcap=pt["softcap"],
+            tol=tol, max_abs_err=err,
+            ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                       iters=pt["iters"], flush=flush),
+            plain_ms=time_ms(lambda: ref.mha_reference(q, k, v, **kw),
+                             iters=3 if sq > 1024 else pt["iters"],
+                             flush=flush),
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            gflop=flops * 1e-9, mbytes=nbytes * 1e-6)
+        log("kernel.flash_attention", **row)
+        require(ok, f"flash kernel disagrees with its plain version at "
+                    f"{row['shape']} {row['dtype']} causal={pt['causal']} "
+                    f"window={pt['window']} softcap={pt['softcap']} "
+                    f"(err {err}, tol {tol})")
+        rows.append(row)
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ssd(flush, hbm: float, f32_peak: float, bf16_peak: float) -> list:
+    """The SSD-chunk kernel against ``ref.ssd_chunk_batched_reference`` at
+    mamba2-130m's prefill (f32, and the same shape in bf16) and at the
+    sweep of tests/test_kernels.py, within 5x the kernel tolerances."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+
+    points = [("mamba2", SSD_MAIN, torch.float32),
+              ("mamba2.bf16", SSD_MAIN, torch.bfloat16)]
+    points += [("sweep", dims, dtype) for dims in SSD_SWEEP
+               for dtype in (torch.float32, torch.bfloat16)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    rows = []
+    for label, dims, dtype in points:
+        b, s, nh, hd, n, chunk = dims
+        x = torch.randn((b, s, nh, hd), device="cuda", generator=gen)
+        dt = torch.nn.functional.softplus(torch.randn(
+            (b, s, nh), device="cuda", generator=gen))
+        a_log = torch.log(torch.linspace(1.0, 16.0, nh, device="cuda"))
+        bm = torch.randn((b, s, n), device="cuda", generator=gen)
+        cm = torch.randn((b, s, n), device="cuda", generator=gen)
+        ins = [t.to(dtype) for t in (x, dt, a_log, bm, cm)]
+        y, states = sk.ssd_chunk_cuda(*ins, chunk=chunk)
+        wy, wstates = ref.ssd_chunk_batched_reference(*ins, chunk)
+        torch.cuda.synchronize()
+        tol = 5 * TOL[dtype]
+        ok = (torch.allclose(y.float(), wy.float(), atol=tol, rtol=tol)
+              and torch.allclose(states, wstates, atol=tol, rtol=tol))
+        err = max(float((y.float() - wy.float()).abs().max()),
+                  float((states - wstates).abs().max()))
+        del wy, wstates
+        size = ins[0].element_size()
+        nc = s // chunk
+        nbytes = (2 * b * s * nh * hd + b * s * nh + nh + 2 * b * s * n) \
+            * size + b * nc * nh * hd * n * 4
+        pairs = chunk * (chunk + 1) // 2
+        flops = 2.0 * b * nh * nc * (pairs * (n + hd) + chunk * hd * n)
+        bound_ms, bound_by = _bound(
+            nbytes, flops, hbm,
+            bf16_peak if dtype == torch.bfloat16 else f32_peak)
+        row = dict(
+            label=label, dims=list(dims), dtype=_dname(dtype), tol=tol,
+            max_abs_err=err,
+            ms=time_ms(lambda: sk.ssd_chunk_cuda(*ins, chunk=chunk),
+                       iters=10, flush=flush),
+            plain_ms=time_ms(lambda: ref.ssd_chunk_batched_reference(
+                *ins, chunk), iters=3 if s > 1024 else 10, flush=flush),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            gflop=flops * 1e-9, gflop_full_squares=2.0 * b * nh * nc * (
+                chunk * chunk * (n + hd) + chunk * hd * n) * 1e-9,
+            mbytes=nbytes * 1e-6)
+        log("kernel.ssd_chunk", **row)
+        require(ok, f"ssd kernel disagrees with its plain version at "
+                    f"{list(dims)} {_dname(dtype)} (err {err}, tol {tol})")
+        rows.append(row)
+        del x, dt, a_log, bm, cm, ins, y, states
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the smoke configs of tests/test_torch_lm.py: gemma2 on the flash path
+# with GQA and a window shorter than the prompt (it binds in prefill and
+# the local ring wraps in decode), and mamba2
+LM_REFERENCE = (("gemma2-27b", dict(attn_impl="flash", flash_block_q=16,
+                                    flash_block_kv=16, num_kv_heads=2,
+                                    window_size=16)),
+                ("mamba2-130m", {}))
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    return {**fk.LAUNCHES, **fa.LAUNCHES, **sk.LAUNCHES}
+
+
+def _reset_launch_counts() -> None:
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    for mod in (fk, fa, sk):
+        mod.reset_launch_counts()
+
+
+def phase_reference_lm(devices=("cpu", "cuda")) -> None:
+    """The smoke LMs served greedily on the card and on the CPU with the
+    same parameters (drawn on the CPU, copied to the card): equal tokens,
+    logits within 1e-4 in f32.  The card's prefill launches one kernel
+    per attention (flash) or SSD layer, the CPU's none.  Also run by
+    ``tests/test_torch_cuda.py``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_tokens
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.launch.steps import build_model
+    from repro_torch.models.transformer import tree_map
+
+    for arch, over in LM_REFERENCE:
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        params = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        prompts = torch.as_tensor(synthetic_lm_tokens(
+            3, 24, cfg.vocab_size, seed=1))
+        runs = []
+        for device in devices:
+            model = build_model(cfg, device=device)
+            p = tree_map(lambda t, device=device: t.to(device), params)
+            _reset_launch_counts()
+            toks, logits = greedy_generate(model, p, prompts.to(device), 16)
+            runs.append((toks.cpu(), [lg.cpu() for lg in logits],
+                         _launch_counts()))
+        (tc, lc, _), (tg, lg, _) = runs
+        err = max(float((a - b).abs().max()) for a, b in zip(lc, lg))
+        kernel = "ssd_chunk" if cfg.family == "ssm" else "flash_attention"
+        launches = {d: n[kernel] for d, (_, _, n) in zip(devices, runs)}
+        log("reference.lm", arch=arch, tokens_equal=bool(torch.equal(tc, tg)),
+            logits_max_abs_err=err, tol=1e-4, launches=launches)
+        require(torch.equal(tc, tg), f"{arch}: card and CPU tokens equal")
+        require(err <= 1e-4, f"{arch}: card and CPU logits within 1e-4")
+        for device, n in launches.items():
+            want = cfg.num_layers if device == "cuda" else 0
+            require(n == want, f"{arch}: {want} {kernel} launches on "
+                               f"{device}, got {n}")
+
+
+def serve(arch: str, cfg, spec: dict, kernel: str, device="cuda") -> dict:
+    """One greedy generation through the port's serving entry points,
+    with the kernel counts set to 0 just before it and read after
+    prefill and after decode.  On the card every prefill layer of the
+    model launches ``kernel`` once and decode launches nothing; on the CPU
+    (a rehearsal at a small size) nothing launches."""
+    from repro_torch.data import synthetic_lm_tokens
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.launch.steps import build_model
+    from repro_torch.models.transformer import param_bytes, param_count
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    prompts = torch.as_tensor(synthetic_lm_tokens(
+        spec["batch"], spec["prompt_len"], cfg.vocab_size,
+        seed=spec["seed"]), device=device)
+    t_tokens = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    sync()
+    t_init = time.perf_counter() - t0
+    log(f"serve.{arch}.setup", params=param_count(params),
+        params_bytes=param_bytes(params), init_s=t_init,
+        prompt_tokens_s=t_tokens, layers=cfg.num_layers,
+        dtype=cfg.dtype, attn_impl=cfg.attn_impl)
+
+    marks = {}
+
+    def mark(name):
+        sync()
+        marks[name] = (time.perf_counter(), _launch_counts())
+
+    sync()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, logits = greedy_generate(model, params, prompts,
+                                   spec["new_tokens"], mark=mark)
+    (t_pre, n_pre), (t_dec, n_dec) = marks["prefill"], marks["decode"]
+    prefill_s, decode_s = t_pre - t0, t_dec - t_pre
+    launches_decode = {k: n_dec[k] - n_pre[k] for k in n_dec}
+    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+    b, new = spec["batch"], spec["new_tokens"]
+    summary = dict(
+        batch=b, prompt_len=spec["prompt_len"], new_tokens=new,
+        prefill_s=prefill_s, decode_s=decode_s,
+        decode_ms_per_token=decode_s / (new - 1) * 1e3,
+        prefill_tokens_per_s=b * spec["prompt_len"] / prefill_s,
+        decode_tokens_per_s=b * (new - 1) / decode_s,
+        tokens_per_s=b * new / (prefill_s + decode_s),
+        peak_mem_bytes=torch.cuda.max_memory_allocated() if on_card
+        else None,
+        launches_prefill=n_pre, launches_decode=launches_decode,
+        logits_finite=finite, tokens=toks[:, :8].tolist())
+    log(f"serve.{arch}", **summary)
+    require(finite, f"{arch}: finite logits")
+    require(tuple(toks.shape) == (b, new), f"{arch}: {new} tokens each")
+    want = cfg.num_layers if on_card else 0
+    require(n_pre[kernel] == want,
+            f"{arch}: {want} {kernel} launches in prefill, got "
+            f"{n_pre[kernel]}")
+    require(all(n == 0 for n in launches_decode.values()),
+            f"{arch}: no kernel launches in decode, got {launches_decode}")
+    summary.update(model=model, params=params, prompts=prompts)
+    return summary
+
+
+def phase_serve_gemma2() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import dryrun_config
+
+    return serve("gemma2", dryrun_config(get_config("gemma2-27b")),
+                 GEMMA_SERVE, "flash_attention")
+
+
+def phase_serve_mamba2() -> dict:
+    from repro_torch.configs import get_config
+
+    return serve("mamba2", get_config("mamba2-130m"), MAMBA_SERVE,
+                 "ssd_chunk")
+
+
+def _profiled(fn):
+    """Run ``fn`` once under ``torch.profiler``: (its result, wall s, the
+    device's busy s, kernel launches, the 8 kernels with the most device
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -328,50 +689,103 @@ def phase_profile(trainer, t: int) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run_round(t)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    busy = sum(e.self_device_time_total for e in kernels) * 1e-6
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
-    log("profile", round_s=wall, device_busy_s=busy_us * 1e-6,
-        device_busy_share=busy_us * 1e-6 / wall,
+    return out, dict(
+        wall_s=wall, device_busy_s=busy, device_busy_share=busy / wall,
         kernel_launches=sum(e.count for e in kernels),
         top=[dict(name=e.key[:80], launches=e.count,
-                  device_s=e.self_device_time_total * 1e-6)
-             for e in top])
+                  device_s=e.self_device_time_total * 1e-6) for e in top])
 
 
-def kernels_line(points: list, main_summary: dict, smi: str) -> dict:
-    """The ``kernels`` record: each kernel of the main path with its
-    launches there and its numbers at the main path's shape."""
+def phase_profile_serve(run: dict) -> None:
+    """One more gemma2 prefill, then one decode step from its caches,
+    each under ``torch.profiler``: the device's busy share, launches, and
+    the kernels with the most device time."""
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    model, params, prompts = run["model"], run["params"], run["prompts"]
+    prefill = make_prefill_step(model.cfg)
+    step = make_serve_step(model.cfg)
+    (logits, cache), pre = _profiled(
+        lambda: prefill(params, {"tokens": prompts}))
+    cache = pad_cache(model, cache, prompts.shape[1] + 1)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    _, dec = _profiled(lambda: step(params, cache, {
+        "tokens": tok, "cache_index": prompts.shape[1]}))
+    log("profile.serve", prefill=pre, decode_step=dec)
+
+
+def kernels_line(points: list, main_summary: dict, flash: list, ssd: list,
+                 gemma: dict, mamba: dict, smi: str) -> dict:
+    """The ``kernels`` record: each kernel with its launches on its main
+    path (the LROA rounds, the gemma2 and the mamba2 generation) and its
+    numbers at that path's shapes."""
     m = next(p for p in points if (p["n"], p["k"]) == MAIN_POINT[:2]
              and p["dtype"] == "float32")
-    return {"kernels": [{
-        "name": "fl_aggregate", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fl_aggregate.cu",
-        "replaces": "src/repro/kernels/fl_aggregate.py:35",
-        "status": "ported",
-        "launches": main_summary["launches"]["fl_aggregate"],
-        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-        "max_abs_err_all_points": max(p["max_abs_err"] for p in points),
-        "variants": {"fl_delta_reduce": {
-            "launches": main_summary["launches"]["fl_delta_reduce"],
-            "max_abs_err": m["reduce_max_abs_err"], "ms": m["reduce_ms"],
-            "plain_ms": m["reduce_plain_ms"],
-            "bound_ms": m["reduce_bound_ms"]}},
-        "card": smi}]}
+    fg = next(r for r in flash if r["label"] == "gemma2.global")
+    fl = next(r for r in flash if r["label"] == "gemma2.local")
+    fp = next(r for r in flash if r["label"] == "gemma2.causal_plain")
+    sm = next(r for r in ssd if r["label"] == "mamba2")
+
+    def entry(name, source, replaces, launches, row, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "status": "ported",
+                "launches": launches, "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "card": smi, **extra}
+
+    def total(run, kernel):
+        return run["launches_prefill"][kernel] + \
+            run["launches_decode"][kernel]
+
+    return {"kernels": [
+        entry("fl_aggregate", "src/repro_torch/kernels/csrc/fl_aggregate.cu",
+              "src/repro/kernels/fl_aggregate.py:35",
+              main_summary["launches"]["fl_aggregate"], m,
+              max_abs_err_all_points=max(p["max_abs_err"] for p in points),
+              variants={"fl_delta_reduce": {
+                  "launches": main_summary["launches"]["fl_delta_reduce"],
+                  "max_abs_err": m["reduce_max_abs_err"],
+                  "ms": m["reduce_ms"], "plain_ms": m["reduce_plain_ms"],
+                  "bound_ms": m["reduce_bound_ms"]}}),
+        entry("flash_attention",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:93",
+              total(gemma, "flash_attention"),
+              dict(fg, library_ms=fp["library_ms"]),
+              max_abs_err_all_points=max(r["max_abs_err"] for r in flash),
+              point="gemma2-27b global layer: B=2 H=32 Hkv=16 S=4352 D=128 "
+                    "bf16 causal softcap 50; library_ms: SDPA at the same "
+                    "shape, causal, no window or soft-cap",
+              variants={"local_window_4096": {
+                  k: fl[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+                  "causal_plain": {
+                  k: fp[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")}}),
+        entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+              "src/repro/kernels/ssd_scan.py:65",
+              total(mamba, "ssd_chunk"), sm,
+              max_abs_err_all_points=max(r["max_abs_err"] for r in ssd),
+              point="mamba2-130m prefill: B=4 S=2048 nh=24 hd=64 N=128 "
+                    "chunk=256 f32"),
+    ]}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -380,24 +794,43 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    hbm, f32_peak = peaks(kind)
+    hbm, f32_peak, bf16_peak = peaks(kind)
     print(smi, flush=True)
     log("device", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda,
-        hbm_bytes_per_s=hbm, f32_flops=f32_peak, tf32=False)
+        hbm_bytes_per_s=hbm, f32_flops=f32_peak, bf16_flops=bf16_peak,
+        tf32=False)
 
     t0 = time.perf_counter()
-    fk.build()
-    log("build", seconds=time.perf_counter() - t0)
+    per_kernel = _build.build_all(_build.KERNELS, verbose=True)
+    log("build", seconds=time.perf_counter() - t0, per_kernel=per_kernel)
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     points = phase_kernels(flush, hbm, f32_peak)
+    flash = phase_flash(flush, hbm, f32_peak, bf16_peak)
+    ssd = phase_ssd(flush, hbm, f32_peak, bf16_peak)
     del flush
     phase_reference()
+    phase_reference_lm()
     main_summary = phase_main_path()
-    phase_profile(main_summary.pop("trainer"), ROUNDS)
+    trainer = main_summary.pop("trainer")
+    phase_profile(trainer, ROUNDS)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    print(json.dumps(kernels_line(points, main_summary, smi)), flush=True)
+    gemma = phase_serve_gemma2()
+    phase_profile_serve(gemma)
+    for key in ("model", "params", "prompts"):
+        del gemma[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba = phase_serve_mamba2()
+    for key in ("model", "params", "prompts"):
+        del mamba[key]
+
+    print(json.dumps(kernels_line(points, main_summary, flash, ssd, gemma,
+                                  mamba, smi)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

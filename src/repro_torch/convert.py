@@ -8,13 +8,14 @@ the result on the card unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core import system_model as sm
 from repro_torch.models.cnn import CNNTask
+from repro_torch.models.config import ModelConfig
 
 
 def params_from_jax(np_params: Mapping[str, np.ndarray], task,
@@ -59,3 +60,52 @@ def system_params_from_numpy(src, device="cuda") -> sm.SystemParams:
         kwargs[name] = torch.as_tensor(
             np.asarray(getattr(src, name), np.float32), device=device)
     return sm.SystemParams(**kwargs)
+
+
+def _leaf(value, device, dtype) -> torch.Tensor:
+    a = np.asarray(value)
+    if dtype is None:
+        dtype = torch.bfloat16 if a.dtype.name == "bfloat16" else \
+            torch.float32
+    if a.dtype.name == "bfloat16":      # ml_dtypes: exact via f32
+        a = a.astype(np.float32)
+    return torch.as_tensor(np.array(a, order="C")).to(device=device,
+                                                      dtype=dtype)
+
+
+def lm_params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
+                       device="cuda", dtype=None) -> Dict[str, Any]:
+    """A JAX ``TransformerLM`` parameter tree (nested dicts of numpy
+    leaves) -> the port's tree, which has the same keys and layouts:
+    ``embed`` [V, d], ``blocks/b{j}`` with every leaf stacked over
+    ``num_groups``, ``final_norm``, optional ``lm_head`` [d, V] and
+    ``suffix_blocks/s{j}``; dense weights stay ``[in, out]``.  Leaves
+    keep their dtype (bf16 stays bf16) unless ``dtype`` is given.  The
+    tree's top level and the stacking are checked against ``cfg``."""
+    want = {"embed", "final_norm", "blocks"}
+    if not cfg.tie_embeddings:
+        want.add("lm_head")
+    if cfg.block_pattern_suffix:
+        want.add("suffix_blocks")
+    if set(np_params) != want:
+        raise ValueError(f"{cfg.name}: expected top-level keys "
+                         f"{sorted(want)}, got {sorted(np_params)}")
+    blocks = np_params["blocks"]
+    if set(blocks) != {f"b{j}" for j in range(len(cfg.block_pattern))}:
+        raise ValueError(f"{cfg.name}: blocks {sorted(blocks)} do not match "
+                         f"the pattern {cfg.block_pattern}")
+
+    def convert(tree, stacked: bool):
+        if isinstance(tree, Mapping):
+            return {k: convert(v, stacked) for k, v in tree.items()}
+        t = _leaf(tree, device, dtype)
+        if stacked and t.shape[0] != cfg.num_groups:
+            raise ValueError(f"{cfg.name}: a block leaf of shape "
+                             f"{tuple(t.shape)} is not stacked over "
+                             f"{cfg.num_groups} groups")
+        return t
+
+    out = {k: convert(v, k == "blocks") for k, v in np_params.items()}
+    if tuple(out["embed"].shape) != (cfg.padded_vocab, cfg.d_model):
+        raise ValueError(f"{cfg.name}: embed {tuple(out['embed'].shape)}")
+    return out

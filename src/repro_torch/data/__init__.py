@@ -8,4 +8,5 @@ from repro_torch.data.pipeline import (assign_tiers, bucket_examples,
                                        make_client_datasets, pad_client_data,
                                        stack_client_arrays, train_test_split,
                                        validate_client_data)
-from repro_torch.data.synthetic import synthetic_image_classification
+from repro_torch.data.synthetic import (synthetic_image_classification,
+                                        synthetic_lm_tokens)

@@ -4,6 +4,8 @@ imports nothing of the JAX package), same seeds, same arrays.
 * ``synthetic_image_classification`` — class-conditional Gaussian images with
   learnable structure (each class has a distinct low-rank template), so a
   small CNN/MLP genuinely improves with training, non-trivially.
+* ``synthetic_lm_tokens`` — Zipf-distributed token streams with a Markov
+  bigram skeleton (the LM serving path's prompts).
 """
 
 from __future__ import annotations
@@ -30,3 +32,19 @@ def synthetic_image_classification(
         np.float32)
     return x.reshape((num_examples, h, w, c)).astype(np.float32), y
 
+
+
+def synthetic_lm_tokens(num_sequences: int, seq_len: int, vocab_size: int,
+                        seed: int = 0) -> np.ndarray:
+    """Zipf unigram mixture with a deterministic bigram successor skeleton."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    unigram = (1.0 / ranks) / np.sum(1.0 / ranks)
+    successor = rng.permutation(vocab_size)
+    toks = np.empty((num_sequences, seq_len), np.int32)
+    toks[:, 0] = rng.choice(vocab_size, num_sequences, p=unigram)
+    for t in range(1, seq_len):
+        use_bigram = rng.random(num_sequences) < 0.5
+        draw = rng.choice(vocab_size, num_sequences, p=unigram)
+        toks[:, t] = np.where(use_bigram, successor[toks[:, t - 1]], draw)
+    return toks

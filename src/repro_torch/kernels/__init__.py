@@ -1,10 +1,13 @@
 """repro_torch.kernels — the port's hand-written CUDA kernels.
 
-* ``ops`` — the public wrappers (``fl_aggregate``, ``fl_delta_reduce``)
-  and the one dispatch rule ``use_cuda_kernel``;
-* ``fl_aggregate`` — the binding of ``csrc/fl_aggregate.cu`` and its
-  launch counter;
-* ``ref`` — the plain PyTorch versions the kernels are held against.
+* ``ops`` — the public wrappers (``fl_aggregate``, ``fl_delta_reduce``,
+  ``flash_attention``, ``ssd_chunk``) and the one dispatch rule
+  ``use_cuda_kernel``;
+* ``fl_aggregate``, ``flash_attention``, ``ssd_scan`` — the bindings of
+  ``csrc/fl_aggregate.cu``, ``csrc/flash_attention.cu`` and
+  ``csrc/ssd_chunk.cu``, each with its launch counter ``LAUNCHES``;
+* ``ref`` — the plain PyTorch versions the kernels are held against;
+* ``_build`` — ``nvcc`` at first use, one process per source.
 
 The kernel modules build their CUDA sources lazily, at the first launch,
 so importing this package needs neither ``nvcc`` nor a card."""

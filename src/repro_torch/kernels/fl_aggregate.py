@@ -57,12 +57,6 @@ def _library() -> ctypes.CDLL:
     return _LIB[0]
 
 
-def build() -> None:
-    """Compile and load the kernel now (it is otherwise built lazily at
-    the first launch)."""
-    _library()
-
-
 def _check(deltas: torch.Tensor, coeffs: torch.Tensor,
            theta: torch.Tensor | None, lib: ctypes.CDLL) -> None:
     tensors = {"deltas": deltas, "coeffs": coeffs}

@@ -1,4 +1,6 @@
-"""Public wrappers around the port's kernels, with one dispatch rule.
+"""Public wrappers around the port's kernels (``fl_aggregate``,
+``fl_delta_reduce``, ``flash_attention``, ``ssd_chunk``), with one
+dispatch rule.
 
 ``impl`` mirrors ``repro.kernels.ops.use_pallas_kernel``:
 
@@ -56,3 +58,30 @@ def fl_delta_reduce(deltas: torch.Tensor, coeffs: torch.Tensor,
         from repro_torch.kernels.fl_aggregate import fl_delta_reduce_cuda
         return fl_delta_reduce_cuda(deltas, coeffs)
     return ref.delta_reduce_reference(deltas, coeffs)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """q: [B, H, Sq, D]; k, v: [B, Hkv, Sk, D] -> [B, H, Sq, D] (the
+    kernel reads strided views, so ``[B, S, H, D]`` tensors may pass as
+    ``transpose(1, 2)``)."""
+    if use_cuda_kernel(impl, q.device):
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, scale=scale)
+    return ref.mha_reference(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+              b_in: torch.Tensor, c_in: torch.Tensor, *, chunk: int,
+              impl: str = "auto"):
+    """Intra-chunk SSD: x [B, S, nh, hd], dt [B, S, nh], a_log [nh],
+    b_in/c_in [B, S, N] -> (y_diag [B, S, nh, hd], states
+    [B, nc, nh, hd, N] f32)."""
+    if use_cuda_kernel(impl, x.device):
+        from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
+        return ssd_chunk_cuda(x, dt, a_log, b_in, c_in, chunk=chunk)
+    return ref.ssd_chunk_batched_reference(x, dt, a_log, b_in, c_in, chunk)

@@ -25,3 +25,93 @@ def delta_reduce_reference(deltas: torch.Tensor, coeffs: torch.Tensor
     """deltas: [K, N]; coeffs: [K] -> f32 [N], ``sum_k coeffs_k delta_k``."""
     return torch.tensordot(coeffs.to(torch.float32),
                            deltas.to(torch.float32), dims=1)
+
+
+NEG_INF = -2.0e38
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, softcap: float = 0.0,
+                  scale: float | None = None) -> torch.Tensor:
+    """q: [B, H, Sq, D]; k, v: [B, Hkv, Sk, D] (GQA when Hkv < H) ->
+    [B, H, Sq, D] in q's dtype.  Scale, then soft-cap, then mask, in f32;
+    the plain version of the flash-attention kernel."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, group, sq, d).to(torch.float32)
+    logits = torch.einsum("bngsd,bntd->bngst", qg,
+                          k.to(torch.float32)) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bngst,bntd->bngsd", p, v.to(torch.float32))
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def ssd_chunk_reference(x: torch.Tensor, dt: torch.Tensor,
+                        a_log: torch.Tensor, b_in: torch.Tensor,
+                        c_in: torch.Tensor):
+    """Intra-chunk SSD, one chunk, zero initial state.
+
+    x: [L, nh, hd]; dt: [L, nh]; a_log: [nh]; b_in/c_in: [L, N].
+    Returns (y_diag [L, nh, hd] in x's dtype, state [nh, hd, N] f32), the
+    state being the end-of-chunk summary
+    ``sum_j exp(cum_L - cum_j) dt_j (x_j ⊗ B_j)``.
+    """
+    length = x.shape[0]
+    f32 = torch.float32
+    a = -torch.exp(a_log.to(f32))
+    da = dt.to(f32) * a                                      # [L, nh]
+    cum = torch.cumsum(da, dim=0)                            # [L, nh]
+    seg = cum[:, None, :] - cum[None, :, :]                  # [i, j, nh]
+    tri = torch.tril(torch.ones((length, length), dtype=torch.bool,
+                                device=x.device))
+    # select, never multiply by a 0/1 mask: exp(seg) overflows above the
+    # diagonal, where seg > 0
+    decay = torch.where(tri[:, :, None], torch.exp(seg), 0.0)
+    scores = torch.einsum("in,jn->ij", c_in.to(f32), b_in.to(f32))
+    w = scores[:, :, None] * decay * dt[None].to(f32)
+    y = torch.einsum("ijh,jhd->ihd", w, x.to(f32))
+    decay_to_end = torch.exp(cum[-1:, :] - cum)              # [L, nh]
+    wx = x.to(f32) * (dt.to(f32) * decay_to_end)[..., None]
+    state = torch.einsum("lhd,ln->hdn", wx, b_in.to(f32))
+    return y.to(x.dtype), state
+
+
+def ssd_chunk_batched_reference(x: torch.Tensor, dt: torch.Tensor,
+                                a_log: torch.Tensor, b_in: torch.Tensor,
+                                c_in: torch.Tensor, chunk: int):
+    """:func:`ssd_chunk_reference` over every (batch, chunk), with the
+    signature of the SSD-chunk kernel: x [B, S, nh, hd], dt [B, S, nh],
+    a_log [nh], b_in/c_in [B, S, N], S a multiple of ``chunk`` ->
+    (y_diag [B, S, nh, hd], states [B, nc, nh, hd, N] f32)."""
+    bsz, s, nh, hd = x.shape
+    nc = s // chunk
+    f32 = torch.float32
+    xc = x.reshape(bsz, nc, chunk, nh, hd).to(f32)
+    dtc = dt.reshape(bsz, nc, chunk, nh).to(f32)
+    bc = b_in.reshape(bsz, nc, chunk, -1).to(f32)
+    cc = c_in.reshape(bsz, nc, chunk, -1).to(f32)
+    a = -torch.exp(a_log.to(f32))
+    cum = torch.cumsum(dtc * a, dim=2)                       # [B,nc,L,nh]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # [B,nc,i,j,nh]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    decay = torch.where(tri[:, :, None], torch.exp(seg), 0.0)
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    w = scores[..., None] * decay * dtc[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhd->bcihd", w, xc)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    wx = xc * (dtc * decay_to_end)[..., None]
+    states = torch.einsum("bclhd,bcln->bchdn", wx, bc)
+    return y.reshape(bsz, s, nh, hd).to(x.dtype), states

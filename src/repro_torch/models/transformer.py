@@ -1,0 +1,384 @@
+"""Decoder-only LM assembly, ported from ``repro.models.transformer`` for
+the block kinds this slice runs: ``global`` and ``local`` attention
+(gemma2's alternation) and ``ssd`` (Mamba-2).  ``recurrent`` blocks and
+the MoE / encoder-decoder / VLM families raise (ROADMAP.md §A, item
+L1).
+
+Parameters keep the JAX package's tree, so the parity tests convert it
+leaf for leaf (``repro_torch.convert.lm_params_from_jax``):
+
+  {"embed": [V, d], "blocks": {"b0": stacked tree, "b1": ...},
+   "final_norm": {...}, optional "lm_head": [d, V],
+   optional "suffix_blocks": {"s0": tree, ...}}
+
+where each ``blocks/b{j}`` leaf carries a leading ``num_groups`` axis
+(pattern position j of every group).  The JAX package scans over the
+groups; here the layers run as a Python loop, each reading its
+``[g]`` slice (a view).  Caches are stacked the same way.  Decode writes
+the caches in place and returns them.
+
+One code path serves train, prefill (which also returns the filled
+caches) and decode.  Prefill computes each attention layer's K/V and
+each SSD layer's scan once (the JAX package computes them a second time
+for the cache; the numbers are the same), so on the card a prefill
+launches the flash kernel exactly once per attention layer and the
+SSD-chunk kernel once per SSD layer, and decode launches neither.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.attention import UNPORTED
+from repro_torch.models.config import ModelConfig
+
+PyTree = Any
+KINDS = ("global", "local", "ssd")
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name ("float32", "bfloat16")."""
+    return getattr(torch, name)
+
+
+def tree_map(fn, tree: PyTree) -> PyTree:
+    """Apply ``fn`` to every tensor leaf of nested dicts / NamedTuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    return fn(tree)
+
+
+def tree_leaves(tree: PyTree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+# --------------------------------------------------------------------------
+# Per-kind block: init and apply (one layer)
+# --------------------------------------------------------------------------
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                dtype) -> Dict[str, PyTree]:
+    dev = gen.device
+    p: Dict[str, PyTree] = {"pre_norm": L.init_norm(cfg.d_model, cfg.norm,
+                                                    dtype, dev)}
+    if kind in ("global", "local"):
+        p["attn"] = attn.init_attention(gen, cfg, dtype)
+        p["mlp_norm"] = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                              dtype)
+        if cfg.post_attn_norm:
+            p["post_attn_norm"] = L.init_norm(cfg.d_model, cfg.norm, dtype,
+                                              dev)
+        if cfg.post_ffn_norm:
+            p["post_ffn_norm"] = L.init_norm(cfg.d_model, cfg.norm, dtype,
+                                             dev)
+    elif kind == "ssd":
+        p["ssd"] = ssm_lib.init_ssd(gen, cfg, dtype)
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is {UNPORTED}")
+    return p
+
+
+def _prefill_kv_cache(kv: Dict[str, torch.Tensor], cfg: ModelConfig,
+                      kind: str) -> Dict[str, torch.Tensor]:
+    """This layer's serving cache from its prefill K/V: local layers keep
+    the last ``window`` positions in a ring buffer (slot = pos % ring)."""
+    if kind == "global" and cfg.quantized_kv:
+        raise NotImplementedError(f"the int8 KV cache is {UNPORTED}")
+    if kind != "local" or not cfg.local_ring_cache:
+        return kv
+    s = kv["k"].shape[1]
+    ring = min(s, cfg.window_size)
+    ring_pos = torch.arange(s - ring, s, device=kv["k"].device) % ring
+    out = {}
+    for name, t in kv.items():
+        buf = torch.zeros((t.shape[0], ring) + t.shape[2:], dtype=t.dtype,
+                          device=t.device)
+        buf[:, ring_pos] = t[:, s - ring:]
+        out[name] = buf
+    return out
+
+
+def _apply_block(p: Dict[str, PyTree], x: torch.Tensor, cfg: ModelConfig,
+                 kind: str, *, rope, cache, cache_index: Optional[int],
+                 mode: str) -> Tuple[torch.Tensor, Optional[PyTree]]:
+    """One layer.  Returns (x, this layer's cache: the filled cache in
+    prefill, the updated cache in decode, None in train)."""
+    h = L.apply_norm(x, p["pre_norm"], cfg.norm, cfg.norm_eps)
+
+    if kind in ("global", "local"):
+        out, new_cache = attn.attention(
+            p["attn"], h, cfg, kind=kind, rope=rope,
+            kv_cache=cache if mode == "decode" else None,
+            cache_index=cache_index)
+        if mode == "prefill":
+            new_cache = _prefill_kv_cache(new_cache, cfg, kind)
+        elif mode == "train":
+            new_cache = None
+        if cfg.post_attn_norm:
+            out = L.apply_norm(out, p["post_attn_norm"], cfg.norm,
+                               cfg.norm_eps)
+        x = x + out
+        h2 = L.apply_norm(x, p["mlp_norm"], cfg.norm, cfg.norm_eps)
+        out2 = L.apply_mlp(p["mlp"], h2, cfg.activation, cfg.gated_mlp)
+        if cfg.post_ffn_norm:
+            out2 = L.apply_norm(out2, p["post_ffn_norm"], cfg.norm,
+                                cfg.norm_eps)
+        return x + out2, new_cache
+
+    if kind == "ssd":
+        out, new_cache = ssm_lib.apply_ssd(
+            p["ssd"], h, cfg, cache if mode == "decode" else None,
+            return_cache=mode == "prefill")
+        return x + out, new_cache
+
+    raise NotImplementedError(f"block kind {kind!r} is {UNPORTED}")
+
+
+def init_block_cache(batch: int, seq_len: int, cfg: ModelConfig, kind: str,
+                     dtype, device) -> PyTree:
+    if kind == "local":
+        # ring buffer: window-sized cache regardless of context length
+        ring = min(seq_len, cfg.window_size) if cfg.local_ring_cache \
+            else seq_len
+        return attn.init_kv_cache(batch, ring, cfg, dtype, device=device)
+    if kind == "global":
+        return attn.init_kv_cache(batch, seq_len, cfg, dtype,
+                                  quantized=cfg.quantized_kv, device=device)
+    if kind == "ssd":
+        return ssm_lib.init_ssm_cache(batch, cfg, dtype, device=device)
+    raise NotImplementedError(f"block kind {kind!r} is {UNPORTED}")
+
+
+# --------------------------------------------------------------------------
+# The model
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TransformerLM:
+    """A decoder-only LM over explicit parameter trees (see the module
+    docstring); ``device`` is where :meth:`init` and :meth:`init_cache`
+    place their tensors."""
+    cfg: ModelConfig
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        bad = sorted(set(self.cfg.all_blocks) - set(KINDS))
+        if bad:
+            raise NotImplementedError(
+                f"{self.cfg.name}: block kinds {bad} are {UNPORTED}")
+
+    def layers(self) -> Iterator[Tuple[str, Optional[int], str]]:
+        """(cache/param key, group index or None for a suffix block,
+        kind) for every layer, in order."""
+        cfg = self.cfg
+        for g in range(cfg.num_groups):
+            for j, kind in enumerate(cfg.block_pattern):
+                yield f"b{j}", g, kind
+        for j, kind in enumerate(cfg.block_pattern_suffix):
+            yield f"s{j}", None, kind
+
+    # -- params ------------------------------------------------------------
+
+    def init(self, gen: torch.Generator) -> PyTree:
+        """Random parameters from ``gen`` (on ``self.device``), drawn layer
+        by layer in f32 and cast to ``param_dtype`` as they are stored, so
+        no f32 copy of the whole model ever exists."""
+        cfg = self.cfg
+        if torch.device(gen.device) != torch.device(self.device):
+            raise ValueError(f"generator on {gen.device}, model on "
+                             f"{self.device}")
+        dtype = torch_dtype(cfg.param_dtype)
+        params: Dict[str, PyTree] = {
+            "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype),
+            "final_norm": L.init_norm(cfg.d_model, cfg.norm, dtype,
+                                      self.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(gen, cfg.d_model,
+                                             cfg.padded_vocab, dtype)
+        blocks: Dict[str, PyTree] = {}
+        for key, g, kind in self.layers():
+            if g is None:
+                continue
+            one = _init_block(gen, cfg, kind, dtype)
+            if g == 0:
+                blocks[key] = tree_map(lambda t: t.new_empty(
+                    (cfg.num_groups,) + t.shape), one)
+            tree_map_pair(lambda dst, src: dst[g].copy_(src), blocks[key],
+                          one)
+            del one
+        params["blocks"] = blocks
+        if cfg.block_pattern_suffix:
+            params["suffix_blocks"] = {
+                f"s{j}": _init_block(gen, cfg, kind, dtype)
+                for j, kind in enumerate(cfg.block_pattern_suffix)}
+        return params
+
+    # -- caches --------------------------------------------------------------
+
+    def init_cache(self, batch: int, seq_len: int,
+                   dtype=torch.float32) -> PyTree:
+        cfg = self.cfg
+        cache = {}
+        for j, kind in enumerate(cfg.block_pattern):
+            one = init_block_cache(batch, seq_len, cfg, kind, dtype,
+                                   self.device)
+            cache[f"b{j}"] = tree_map(lambda t: t.new_zeros(
+                (cfg.num_groups,) + t.shape), one)
+        for j, kind in enumerate(cfg.block_pattern_suffix):
+            cache[f"s{j}"] = init_block_cache(batch, seq_len, cfg, kind,
+                                              dtype, self.device)
+        return cache
+
+    # -- forward ---------------------------------------------------------------
+
+    @staticmethod
+    def _layer(tree: PyTree, g: Optional[int]) -> PyTree:
+        return tree if g is None else tree_map(lambda t: t[g], tree)
+
+    def _run_blocks(self, params, x, *, rope, cache, cache_index,
+                    mode: str):
+        cfg = self.cfg
+        caches_out: Dict[str, PyTree] = {}
+        for key, g, kind in self.layers():
+            group = params["blocks"] if g is not None \
+                else params["suffix_blocks"]
+            c_in = self._layer(cache[key], g) if mode == "decode" else None
+            x, nc = _apply_block(self._layer(group[key], g), x, cfg, kind,
+                                 rope=rope, cache=c_in,
+                                 cache_index=cache_index, mode=mode)
+            if mode == "train":
+                continue
+            if g is None:
+                caches_out[key] = nc
+                continue
+            if key not in caches_out:
+                caches_out[key] = cache[key] if mode == "decode" else \
+                    tree_map(lambda t: t.new_empty(
+                        (cfg.num_groups,) + t.shape), nc)
+            # decode's KV writes already landed in the stacked cache (views)
+            tree_map_pair(lambda dst, src: None if dst[g].data_ptr() ==
+                          src.data_ptr() else dst[g].copy_(src),
+                          caches_out[key], nc)
+        return x, caches_out
+
+    def _embed(self, params, tokens):
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        x = params["embed"][tokens].to(dtype)
+        if cfg.embedding_scale:
+            x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=dtype,
+                                            device=x.device))
+        return x
+
+    def logits(self, params, x):
+        """Final norm, the (tied) vocabulary projection in f32, the final
+        soft-cap and the padded-vocabulary mask."""
+        cfg = self.cfg
+        x = L.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            logits = x.to(torch.float32) @ params["embed"].to(
+                torch.float32).T
+        else:
+            logits = x.to(torch.float32) @ params["lm_head"].to(
+                torch.float32)
+        if cfg.final_logit_softcap > 0:
+            logits = L.softcap(logits, cfg.final_logit_softcap)
+        if cfg.padded_vocab != cfg.vocab_size:
+            iota = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
+        return logits
+
+    def hidden(self, params: PyTree, tokens: torch.Tensor, *,
+               positions: Optional[torch.Tensor] = None,
+               mode: str = "train") -> Tuple[torch.Tensor, Optional[PyTree]]:
+        """The residual stream after the last block (before the final
+        norm) and, in prefill, the filled caches."""
+        if mode not in ("train", "prefill"):
+            raise ValueError(f"mode must be 'train' or 'prefill', got "
+                             f"{mode!r}")
+        b, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device).expand(b, s)
+        rope = attn.make_rope_tables(self.cfg, positions)
+        x = self._embed(params, tokens)
+        x, caches = self._run_blocks(params, x, rope=rope, cache=None,
+                                     cache_index=None, mode=mode)
+        return x, (caches if mode == "prefill" else None)
+
+    def apply(self, params: PyTree, tokens: torch.Tensor, *,
+              positions: Optional[torch.Tensor] = None,
+              mode: str = "train"
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[PyTree]]:
+        """Full-sequence forward.  Returns (logits, aux_loss, cache|None)."""
+        x, caches = self.hidden(params, tokens, positions=positions,
+                                mode=mode)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self.logits(params, x), aux, caches
+
+    def decode_step(self, params: PyTree, cache: PyTree,
+                    tokens: torch.Tensor, cache_index: int
+                    ) -> Tuple[torch.Tensor, PyTree]:
+        """One-token decode.  tokens: [B, 1]; ``cache`` is updated in place
+        and returned."""
+        b, s = tokens.shape
+        assert s == 1
+        cache_index = int(cache_index)
+        positions = torch.full((b, 1), cache_index, dtype=torch.int64,
+                               device=tokens.device)
+        rope = attn.make_rope_tables(self.cfg, positions)
+        x = self._embed(params, tokens)
+        x, new_cache = self._run_blocks(params, x, rope=rope, cache=cache,
+                                        cache_index=cache_index,
+                                        mode="decode")
+        return self.logits(params, x), new_cache
+
+    # -- losses -------------------------------------------------------------
+
+    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        logits, aux, _ = self.apply(params, batch["tokens"])
+        nll = L.token_nll(logits, batch["labels"])
+        mask = batch.get("mask")
+        if mask is not None:
+            nll = nll * mask
+            denom = torch.clamp(mask.sum(), min=1.0)
+        else:
+            denom = nll.numel()
+        return nll.sum() / denom + self.cfg.router_aux_loss_coef * aux
+
+
+def tree_map_pair(fn, a: PyTree, b: PyTree) -> None:
+    """Call ``fn(a_leaf, b_leaf)`` over two trees of the same structure."""
+    if isinstance(a, dict):
+        for k in a:
+            tree_map_pair(fn, a[k], b[k])
+    elif isinstance(a, tuple) and hasattr(a, "_fields"):
+        for x, y in zip(a, b):
+            tree_map_pair(fn, x, y)
+    else:
+        fn(a, b)
+
+
+def param_count(params: PyTree) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def param_bytes(params: PyTree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+

@@ -5,10 +5,11 @@ They import no JAX, so the GPU machine runs them on their own:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_cuda.py
 
-The hand-written CUDA kernel is held against its plain PyTorch version
-(``kernels/ref.py``, which ``test_torch_aggregate.py`` holds against the
-JAX package), and a short trainer run on the card against the same run on
-the CPU.
+The hand-written CUDA kernels are held against their plain PyTorch
+versions (``kernels/ref.py``, which ``test_torch_aggregate.py`` and
+``test_torch_lm_kernels.py`` hold against the JAX package), bad inputs
+must raise, and short trainer and LM serving runs on the card are held
+against the same runs on the CPU.
 """
 
 import importlib.util
@@ -107,3 +108,128 @@ def test_trainer_on_the_card_matches_the_cpu(cuda):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     smoke.phase_reference()
+
+
+# (B, H, Hkv, Sq, Sk, D): tests/test_kernels.py, then a D = 128 and a
+# D = 256 point with several query and kv tiles and ragged ends (Sq <= Sk,
+# so every query row sees at least one key under every mask below)
+FLASH_CASES = [(1, 2, 2, 33, 33, 16), (2, 4, 2, 64, 64, 32),
+               (1, 8, 1, 48, 80, 64), (2, 4, 2, 200, 200, 128),
+               (1, 2, 1, 70, 130, 256)]
+FLASH_MASKS = [(True, 0, 0.0), (True, 16, 0.0), (False, 0, 0.0),
+               (True, 0, 20.0), (True, 100, 50.0)]
+# (B, S, nh, hd, N, chunk): tests/test_kernels.py, then mamba2's chunk
+SSD_CASES = [(1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
+             (1, 48, 1, 32, 16, 16), (1, 512, 2, 64, 128, 256)]
+
+
+def _randn(shape, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(
+        device, DTYPES[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain(cuda, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    for b, h, hkv, sq, sk, d in FLASH_CASES:
+        q = _randn((b, h, sq, d), sq, dtype, cuda)
+        k = _randn((b, hkv, sk, d), sk + 1, dtype, cuda)
+        v = _randn((b, hkv, sk, d), sk + 2, dtype, cuda)
+        for causal, window, cap in FLASH_MASKS:
+            kw = dict(causal=causal, window=window, softcap=cap)
+            before = fa.LAUNCHES["flash_attention"]
+            out = fa.flash_attention_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES["flash_attention"] == before + 1
+            assert out.dtype == q.dtype and out.shape == q.shape
+            torch.testing.assert_close(
+                out.float(), ref.mha_reference(q, k, v, **kw).float(),
+                atol=TOL[dtype], rtol=TOL[dtype])
+    # the model's [B, S, H, D] layout, read through strides
+    qs = _randn((2, 40, 4, 32), 1, dtype, cuda)
+    ks = _randn((2, 40, 2, 32), 2, dtype, cuda)
+    out = fa.flash_attention_cuda(qs.transpose(1, 2), ks.transpose(1, 2),
+                                  ks.transpose(1, 2))
+    assert out.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(
+        out.float(), ref.mha_reference(qs.transpose(1, 2),
+                                       ks.transpose(1, 2),
+                                       ks.transpose(1, 2)).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain(cuda, dtype):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+    for b, s, nh, hd, n, chunk in SSD_CASES:
+        x = _randn((b, s, nh, hd), s, dtype, cuda)
+        dt = torch.nn.functional.softplus(
+            _randn((b, s, nh), s + 1, "float32", cuda)).to(DTYPES[dtype])
+        a_log = torch.log(torch.linspace(1.0, 8.0, nh, device=cuda)).to(
+            DTYPES[dtype])
+        bm = _randn((b, s, n), s + 2, dtype, cuda)
+        cm = _randn((b, s, n), s + 3, dtype, cuda)
+        before = sk.LAUNCHES["ssd_chunk"]
+        y, states = sk.ssd_chunk_cuda(x, dt, a_log, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["ssd_chunk"] == before + 1
+        wy, wstates = ref.ssd_chunk_batched_reference(x, dt, a_log, bm, cm,
+                                                      chunk)
+        tol = 5 * TOL[dtype]
+        assert y.dtype == x.dtype and states.dtype == torch.float32
+        torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(states, wstates, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_lm_kernels_reject_bad_inputs(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    q = _randn((1, 2, 16, 32), 0, "float32", cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(q[..., :24].contiguous(),
+                                q[..., :24].contiguous(),
+                                q[..., :24].contiguous())
+    big = _randn((1, 1, 16, 272), 0, "float32", cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(2, 3), q.transpose(2, 3),
+                                q.transpose(2, 3))
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_cuda(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_cuda(q.cpu(), q, q)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        fa.flash_attention_cuda(q, q[:, :1].expand(1, 3, 16, 32)[:, :3],
+                                q[:, :1].expand(1, 3, 16, 32)[:, :3])
+    x = _randn((1, 32, 2, 8), 0, "float32", cuda)
+    dt = torch.ones((1, 32, 2), device=cuda)
+    a_log = torch.zeros(2, device=cuda)
+    bm = _randn((1, 32, 4), 1, "float32", cuda)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        sk.ssd_chunk_cuda(x, dt, a_log, bm, bm, chunk=12)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.ssd_chunk_cuda(x.transpose(2, 3).contiguous().transpose(2, 3),
+                          dt, a_log, bm, bm, chunk=8)
+    with pytest.raises(ValueError, match="dtype"):
+        sk.ssd_chunk_cuda(x, dt.bfloat16(), a_log, bm, bm, chunk=8)
+    with pytest.raises(ValueError, match="b_in"):
+        sk.ssd_chunk_cuda(x, dt, a_log, bm[:, :16], bm, chunk=8)
+
+
+@pytest.mark.cuda
+def test_lm_on_the_card_matches_the_cpu(cuda):
+    """The smoke gemma2-27b (flash, binding window) and mamba2-130m served
+    greedily on the card and on the CPU: the check ``chip_smoke.py``
+    runs."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.phase_reference_lm()
