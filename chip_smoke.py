@@ -7,9 +7,13 @@ Phases, one result line each (exits non-zero on any failure; no phase's
 error is caught):
 
 1. device — ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build — compiles the three hand-written CUDA kernels from ``src/``
+2. build — compiles the three hand-written CUDA sources from ``src/``
    (one ``nvcc`` per source, all started together, into
-   ``build/torch_ext/``) and times each;
+   ``build/torch_ext/``) and times each; build.ptxas — each kernel's
+   registers, shared memory and spills from ``-Xptxas -v``; build.sass —
+   the count of tensor-core instructions (``HGMMA``, ``HMMA``) in each
+   library's SASS, where ``cuobjdump`` is present (the bf16 flash kernel
+   must show ``HGMMA``);
 3. kernel against plain — each kernel against its plain PyTorch version
    (``kernels/ref.py``) at its main path's shapes and at the sweep of
    ``tests/test_kernels.py``, with the kernel's median time (CUDA events,
@@ -20,7 +24,12 @@ error is caught):
    ``kernel`` (``fl_aggregate``/``fl_delta_reduce``, yardstick
    ``torch.addmv``), ``kernel.flash_attention`` (yardstick
    ``scaled_dot_product_attention`` at the causal point without window
-   or soft-cap), ``kernel.ssd_chunk`` (no single PyTorch call);
+   or soft-cap; each element within (atol, rtol), the relative L2 error
+   of the output and of every query row within their limits; ``floor.sfu``, beside the bound, the
+   special-function-unit floor of one exp2 and, with the soft-cap, one
+   tanh per visible pair at the main-path points),
+   ``kernel.ssd_chunk`` (its two launches, scores and chunk, timed
+   together; no single PyTorch call);
 4. reference — a small LROA trainer run on the card against the same
    run on the CPU; reference.lm — the smoke gemma2-27b (flash, binding
    window) and mamba2-130m served greedily on the card and on the CPU
@@ -40,8 +49,9 @@ error is caught):
    logits; profile.serve — one more prefill and one decode step under
    ``torch.profiler``;
 7. serve.mamba2 — mamba2-130m at full size (f32): 4 prompts of 2048
-   tokens, 32 greedy tokens, exactly 24 SSD-chunk launches in prefill and
-   none in decode;
+   tokens, 32 greedy tokens, exactly 24 launches of each SSD kernel
+   (``ssd_scores`` and ``ssd_chunk``, 48 in all) in prefill and none in
+   decode;
 8. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -56,6 +66,8 @@ import dataclasses
 import gc
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -74,6 +86,20 @@ PEAKS = (("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
          ("H100 PCIe", 2.0e12, 51e12, 756e12),
          ("H100", 3.35e12, 67e12, 989e12))
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+# flash attention: (atol, rtol) of each element, the limit of the
+# relative L2 error over the whole output, and of each query row's.  In
+# bf16, P rounded to bf16 (2^-8 relative per weight at most) moves an
+# element by up to 2^-8 sum_j p_j |v_j|, which stays large in the first
+# rows of a causal mask, where few keys share the weight: on an H100
+# the points below needed up to 2.35e-3 beyond rtol (atol_needed), so
+# atol is 5e-3; rtol 2e-2 covers a one-ulp difference at |out| in
+# [2, 4).  The plain
+# version itself, rounded to bf16, is about 1.6e-3 from its f32 result
+# in relative L2 (logged as plain_rel_l2_err): the limits are 4e-3 over
+# the output and 1e-2 for every row, which a dropped kv tile (about
+# 0.2) or a mask edge one key off in a row of 4096 keys (1.6e-2) exceed.
+FLASH_TOL = {torch.float32: (2e-5, 2e-5, 1e-5, 1e-4),
+             torch.bfloat16: (5e-3, 2e-2, 4e-3, 1e-2)}
 # (N, K, dtype): the slice's CNN, the 11.17M-parameter model that
 # paper_default_params accounts for, a ragged N, and K = 1
 POINTS = ((545_002, 8, torch.float32), (11_172_342, 8, torch.float32),
@@ -355,9 +381,11 @@ def phase_profile(trainer, t: int) -> None:
 # attention scale and soft-cap
 GEMMA_ATTN = (2, 32, 16, 4352, 128)
 GEMMA_SCALE, GEMMA_CAP = 144.0 ** -0.5, 50.0
-# (B, H, Hkv, Sq, Sk, D) and masks of tests/test_kernels.py
+# (B, H, Hkv, Sq, Sk, D) and masks of tests/test_kernels.py, then a
+# padded head dim (80 -> 128 on the bf16 path) and D = 256, ragged
 FLASH_SWEEP = ((1, 2, 2, 33, 33, 16), (2, 4, 2, 64, 64, 32),
-               (1, 8, 1, 48, 80, 64))
+               (1, 8, 1, 48, 80, 64), (1, 4, 2, 300, 300, 80),
+               (1, 2, 1, 200, 260, 256))
 FLASH_MASKS = ((True, 0, 0.0), (True, 16, 0.0), (False, 0, 0.0),
                (True, 0, 20.0))
 # (B, S, nh, hd, N, chunk): mamba2-130m's prefill in serve.mamba2, then
@@ -367,15 +395,12 @@ SSD_SWEEP = ((1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
              (1, 48, 1, 32, 16, 16))
 GEMMA_SERVE = dict(batch=2, prompt_len=4352, new_tokens=16, seed=1)
 MAMBA_SERVE = dict(batch=4, prompt_len=2048, new_tokens=32, seed=1)
-
-
-def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through: the work the flash
-    kernel must do for these inputs."""
-    i = np.arange(sq)
-    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq, int)
-    return int(np.maximum(hi - lo + 1, 0).sum())
+# what each redesigned kernel does: the header comment of its source
+DESIGNS = {name: f"the header comment of src/repro_torch/kernels/csrc/"
+                 f"{name}.cu" for name in ("flash_attention", "ssd_chunk")}
+# special-function-unit operations per SM per clock (H100: 4 per
+# sub-partition)
+SFU_PER_SM_CLOCK = 16
 
 
 def _dname(dtype) -> str:
@@ -388,8 +413,8 @@ def _bound(nbytes: float, flops: float, hbm: float, peak: float):
                                        else "operations")
 
 
-def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float
-                ) -> list:
+def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
+                sfu_ops_per_s: float) -> list:
     """The flash kernel against ``ref.mha_reference`` at gemma2-27b's
     prefill (global and local layers, and the plain causal point that
     ``scaled_dot_product_attention`` is timed at) and at the sweep of
@@ -400,10 +425,13 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float
     from repro_torch.kernels import ref
 
     b, h, hkv, s, d = GEMMA_ATTN
+    # gemma2.global.bshd: the global layer's inputs in the model's
+    # [B, S, H, D] layout, passed as transpose(1, 2) views as prefill does
     points = [dict(label=label, shape=(b, h, hkv, s, s, d),
                    dtype=torch.bfloat16, causal=True, window=window,
                    softcap=cap, scale=GEMMA_SCALE, iters=10)
               for label, window, cap in (("gemma2.global", 0, GEMMA_CAP),
+                                         ("gemma2.global.bshd", 0, GEMMA_CAP),
                                          ("gemma2.local", 4096, GEMMA_CAP),
                                          ("gemma2.causal_plain", 0, 0.0))]
     for shape in FLASH_SWEEP:
@@ -421,19 +449,39 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float
         q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                    for shape in ((b, h, sq, d), (b, hkv, sk, d),
                                  (b, hkv, sk, d)))
+        if pt["label"].endswith(".bshd"):
+            q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in (q, k, v))
         kw = dict(causal=pt["causal"], window=pt["window"],
                   softcap=pt["softcap"], scale=pt["scale"])
         out = fa.flash_attention_cuda(q, k, v, **kw)
         want = ref.mha_reference(q, k, v, **kw)
         torch.cuda.synchronize()
-        tol = TOL[dtype]
-        ok = torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)
-        err = float((out.float() - want.float()).abs().max())
-        del want
+        atol, rtol, l2_limit, row_limit = FLASH_TOL[dtype]
+        diff = out.float() - want.float()
+        ok = torch.allclose(out.float(), want.float(), atol=atol, rtol=rtol)
+        err = float(diff.abs().max())
+        mean_err = float(diff.abs().mean())
+        # the least atol that this rtol would need
+        atol_needed = float((diff.abs() - rtol * want.float().abs()).max())
+        rel_l2 = float(diff.norm() / want.float().norm())
+        # rows with no visible key are 0 in both
+        row_rel_l2 = float((diff.norm(dim=-1) / want.float().norm(
+            dim=-1).clamp_min(1e-30)).max())
+        plain_rel_l2 = None
+        if dtype == torch.bfloat16:
+            want32 = ref.mha_reference(q.float(), k.float(), v.float(), **kw)
+            plain_rel_l2 = float((want.float() - want32).norm()
+                                 / want32.norm())
+            del want32
+        del want, diff
         size = q.element_size()
         nbytes = 2 * (b * h * sq * d + b * hkv * sk * d) * size
-        flops = 4.0 * b * h * d * visible_pairs(sq, sk, pt["causal"],
-                                                pt["window"])
+        pairs = b * h * fa.visible_pairs(sq, sk, pt["causal"], pt["window"])
+        flops = fa.flash_attention_flops(b, h, d, sq, sk, pt["causal"],
+                                         pt["window"])
+        sfu_ops = pairs * (2 if pt["softcap"] > 0 else 1)
+        path = fa.kernel_path(dtype, d)
         bound_ms, bound_by = _bound(
             nbytes, flops, hbm,
             bf16_peak if dtype == torch.bfloat16 else f32_peak)
@@ -445,19 +493,34 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float
         row = dict(
             label=pt["label"], shape=list(pt["shape"]), dtype=_dname(dtype),
             causal=pt["causal"], window=pt["window"], softcap=pt["softcap"],
-            tol=tol, max_abs_err=err,
+            atol=atol, rtol=rtol, rel_l2_limit=l2_limit,
+            row_rel_l2_limit=row_limit, max_abs_err=err,
+            mean_abs_err=mean_err, atol_needed=atol_needed,
+            rel_l2_err=rel_l2, row_rel_l2_err_max=row_rel_l2,
+            plain_rel_l2_err=plain_rel_l2,
             ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
                        iters=pt["iters"], flush=flush),
             plain_ms=time_ms(lambda: ref.mha_reference(q, k, v, **kw),
                              iters=3 if sq > 1024 else pt["iters"],
                              flush=flush),
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            path=path.name, d_pad=path.d_pad, kv_tile=path.kv_tile,
             gflop=flops * 1e-9, mbytes=nbytes * 1e-6)
+        row["tflop_per_s"] = flops / row["ms"] * 1e-9
         log("kernel.flash_attention", **row)
-        require(ok, f"flash kernel disagrees with its plain version at "
-                    f"{row['shape']} {row['dtype']} causal={pt['causal']} "
-                    f"window={pt['window']} softcap={pt['softcap']} "
-                    f"(err {err}, tol {tol})")
+        if pt["label"] != "sweep":
+            # a floor derived from the SM count and clock, not a reading:
+            # one exp2 and, with the soft-cap, one tanh per visible pair
+            log("floor.sfu", label=pt["label"], sfu_ops=sfu_ops,
+                sfu_ops_per_s=sfu_ops_per_s,
+                floor_ms=sfu_ops / sfu_ops_per_s * 1e3)
+        require(ok and rel_l2 <= l2_limit and row_rel_l2 <= row_limit,
+                f"flash kernel disagrees with its plain version at "
+                f"{row['shape']} {row['dtype']} causal={pt['causal']} "
+                f"window={pt['window']} softcap={pt['softcap']} (max err "
+                f"{err}, atol {atol}, rtol {rtol}; relative L2 {rel_l2}, "
+                f"limit {l2_limit}; worst row {row_rel_l2}, limit "
+                f"{row_limit})")
         rows.append(row)
         del q, k, v, out
     torch.cuda.empty_cache()
@@ -500,8 +563,7 @@ def phase_ssd(flush, hbm: float, f32_peak: float, bf16_peak: float) -> list:
         nc = s // chunk
         nbytes = (2 * b * s * nh * hd + b * s * nh + nh + 2 * b * s * n) \
             * size + b * nc * nh * hd * n * 4
-        pairs = chunk * (chunk + 1) // 2
-        flops = 2.0 * b * nh * nc * (pairs * (n + hd) + chunk * hd * n)
+        flops = sk.ssd_chunk_flops(b, s, nh, hd, n, chunk)
         bound_ms, bound_by = _bound(
             nbytes, flops, hbm,
             bf16_peak if dtype == torch.bfloat16 else f32_peak)
@@ -516,6 +578,7 @@ def phase_ssd(flush, hbm: float, f32_peak: float, bf16_peak: float) -> list:
             gflop=flops * 1e-9, gflop_full_squares=2.0 * b * nh * nc * (
                 chunk * chunk * (n + hd) + chunk * hd * n) * 1e-9,
             mbytes=nbytes * 1e-6)
+        row["tflop_per_s"] = flops / row["ms"] * 1e-9
         log("kernel.ssd_chunk", **row)
         require(ok, f"ssd kernel disagrees with its plain version at "
                     f"{list(dims)} {_dname(dtype)} (err {err}, tol {tol})")
@@ -577,24 +640,34 @@ def phase_reference_lm(devices=("cpu", "cuda")) -> None:
                          _launch_counts()))
         (tc, lc, _), (tg, lg, _) = runs
         err = max(float((a - b).abs().max()) for a, b in zip(lc, lg))
-        kernel = "ssd_chunk" if cfg.family == "ssm" else "flash_attention"
-        launches = {d: n[kernel] for d, (_, _, n) in zip(devices, runs)}
+        kernels = lm_kernels(cfg)
+        launches = {d: {k: n[k] for k in kernels}
+                    for d, (_, _, n) in zip(devices, runs)}
         log("reference.lm", arch=arch, tokens_equal=bool(torch.equal(tc, tg)),
             logits_max_abs_err=err, tol=1e-4, launches=launches)
         require(torch.equal(tc, tg), f"{arch}: card and CPU tokens equal")
         require(err <= 1e-4, f"{arch}: card and CPU logits within 1e-4")
-        for device, n in launches.items():
+        for device, counts in launches.items():
             want = cfg.num_layers if device == "cuda" else 0
-            require(n == want, f"{arch}: {want} {kernel} launches on "
-                               f"{device}, got {n}")
+            require(all(n == want for n in counts.values()),
+                    f"{arch}: {want} launches of each of {kernels} on "
+                    f"{device}, got {counts}")
 
 
-def serve(arch: str, cfg, spec: dict, kernel: str, device="cuda") -> dict:
+def lm_kernels(cfg) -> tuple:
+    """The kernels one prefill layer of ``cfg`` launches once each."""
+    if cfg.family == "ssm":
+        return ("ssd_scores", "ssd_chunk")
+    return ("flash_attention",)
+
+
+def serve(arch: str, cfg, spec: dict, device="cuda") -> dict:
     """One greedy generation through the port's serving entry points,
     with the kernel counts set to 0 just before it and read after
     prefill and after decode.  On the card every prefill layer of the
-    model launches ``kernel`` once and decode launches nothing; on the CPU
-    (a rehearsal at a small size) nothing launches."""
+    model launches each of its kernels (:func:`lm_kernels`) once and
+    decode launches nothing; on the CPU (a rehearsal at a small size)
+    nothing launches."""
     from repro_torch.data import synthetic_lm_tokens
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.launch.steps import build_model
@@ -654,9 +727,10 @@ def serve(arch: str, cfg, spec: dict, kernel: str, device="cuda") -> dict:
     require(finite, f"{arch}: finite logits")
     require(tuple(toks.shape) == (b, new), f"{arch}: {new} tokens each")
     want = cfg.num_layers if on_card else 0
-    require(n_pre[kernel] == want,
-            f"{arch}: {want} {kernel} launches in prefill, got "
-            f"{n_pre[kernel]}")
+    for kernel in lm_kernels(cfg):
+        require(n_pre[kernel] == want,
+                f"{arch}: {want} {kernel} launches in prefill, got "
+                f"{n_pre[kernel]}")
     require(all(n == 0 for n in launches_decode.values()),
             f"{arch}: no kernel launches in decode, got {launches_decode}")
     summary.update(model=model, params=params, prompts=prompts)
@@ -668,14 +742,13 @@ def phase_serve_gemma2() -> dict:
     from repro_torch.launch.steps import dryrun_config
 
     return serve("gemma2", dryrun_config(get_config("gemma2-27b")),
-                 GEMMA_SERVE, "flash_attention")
+                 GEMMA_SERVE)
 
 
 def phase_serve_mamba2() -> dict:
     from repro_torch.configs import get_config
 
-    return serve("mamba2", get_config("mamba2-130m"), MAMBA_SERVE,
-                 "ssd_chunk")
+    return serve("mamba2", get_config("mamba2-130m"), MAMBA_SERVE)
 
 
 def _profiled(fn):
@@ -724,7 +797,7 @@ def phase_profile_serve(run: dict) -> None:
 
 
 def kernels_line(points: list, main_summary: dict, flash: list, ssd: list,
-                 gemma: dict, mamba: dict, smi: str) -> dict:
+                 gemma: dict, mamba: dict, smi: str, sass: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
     path (the LROA rounds, the gemma2 and the mamba2 generation) and its
     numbers at that path's shapes."""
@@ -733,6 +806,7 @@ def kernels_line(points: list, main_summary: dict, flash: list, ssd: list,
     fg = next(r for r in flash if r["label"] == "gemma2.global")
     fl = next(r for r in flash if r["label"] == "gemma2.local")
     fp = next(r for r in flash if r["label"] == "gemma2.causal_plain")
+    fb = next(r for r in flash if r["label"] == "gemma2.global.bshd")
     sm = next(r for r in ssd if r["label"] == "mamba2")
 
     def entry(name, source, replaces, launches, row, **extra):
@@ -762,6 +836,8 @@ def kernels_line(points: list, main_summary: dict, flash: list, ssd: list,
               "src/repro/kernels/flash_attention.py:93",
               total(gemma, "flash_attention"),
               dict(fg, library_ms=fp["library_ms"]),
+              design=DESIGNS["flash_attention"],
+              sass=sass.get("flash_attention"),
               max_abs_err_all_points=max(r["max_abs_err"] for r in flash),
               point="gemma2-27b global layer: B=2 H=32 Hkv=16 S=4352 D=128 "
                     "bf16 causal softcap 50; library_ms: SDPA at the same "
@@ -769,16 +845,92 @@ def kernels_line(points: list, main_summary: dict, flash: list, ssd: list,
               variants={"local_window_4096": {
                   k: fl[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by")},
+                  "global_bshd_views": {
+                  k: fb[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
                   "causal_plain": {
                   k: fp[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by")}}),
         entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
               "src/repro/kernels/ssd_scan.py:65",
-              total(mamba, "ssd_chunk"), sm,
+              total(mamba, "ssd_scores") + total(mamba, "ssd_chunk"), sm,
+              launches_by_kernel={k: total(mamba, k)
+                                  for k in ("ssd_scores", "ssd_chunk")},
+              design=DESIGNS["ssd_chunk"],
               max_abs_err_all_points=max(r["max_abs_err"] for r in ssd),
               point="mamba2-130m prefill: B=4 S=2048 nh=24 hd=64 N=128 "
-                    "chunk=256 f32"),
+                    "chunk=256 f32; ms, plain_ms and bound_ms cover both "
+                    "launches (scores, chunk) of one call"),
     ]}
+
+
+def ptxas_report(build_log: dict) -> list:
+    """Registers, static shared memory, stack and spills of every kernel
+    function, from the ``-Xptxas -v`` output of each library's build."""
+    rows = []
+    for lib, text in build_log.items():
+        row = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                row = dict(library=lib, function=_demangle(m.group(1)))
+                rows.append(row)
+                continue
+            if row is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                row.update(stack_bytes=int(m.group(1)),
+                           spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                row["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                row["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return rows
+
+
+def _demangle(name: str) -> str:
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return name
+    return out or name
+
+
+def sass_counts() -> dict:
+    """Tensor-core instructions in each kernel library's SASS, counted
+    with ``cuobjdump -sass`` where the toolkit has it ({} where not)."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        return {}
+    counts = {}
+    for name in _build.KERNELS:
+        sass = subprocess.run(
+            [tool, "-sass", os.fspath(_build.library_path(name))],
+            capture_output=True, text=True, check=True, timeout=120).stdout
+        counts[name] = {op: sum(1 for line in sass.splitlines()
+                                if re.search(rf"\b{op}\b", line))
+                        for op in ("HGMMA", "HMMA")}
+    return counts
+
+
+def sfu_rate() -> float:
+    """Special-function-unit operations per second: SMs x 16 per clock x
+    the card's maximum SM clock (``nvidia-smi``)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SFU_PER_SM_CLOCK * mhz * 1e6
 
 
 def main() -> int:
@@ -804,10 +956,18 @@ def main() -> int:
     t0 = time.perf_counter()
     per_kernel = _build.build_all(_build.KERNELS, verbose=True)
     log("build", seconds=time.perf_counter() - t0, per_kernel=per_kernel)
+    for row in ptxas_report(_build.BUILD_LOG):
+        log("build.ptxas", **row)
+    sass = sass_counts()
+    log("build.sass", **sass)
+    if "flash_attention" in sass:
+        require(sass["flash_attention"]["HGMMA"] > 0,
+                "the bf16 flash kernel runs on the tensor cores (HGMMA)")
+    sfu_ops_per_s = sfu_rate()
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     points = phase_kernels(flush, hbm, f32_peak)
-    flash = phase_flash(flush, hbm, f32_peak, bf16_peak)
+    flash = phase_flash(flush, hbm, f32_peak, bf16_peak, sfu_ops_per_s)
     ssd = phase_ssd(flush, hbm, f32_peak, bf16_peak)
     del flush
     phase_reference()
@@ -830,7 +990,7 @@ def main() -> int:
         del mamba[key]
 
     print(json.dumps(kernels_line(points, main_summary, flash, ssd, gemma,
-                                  mamba, smi)), flush=True)
+                                  mamba, smi, sass)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

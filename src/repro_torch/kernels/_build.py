@@ -36,9 +36,11 @@ KERNELS = ("fl_aggregate", "flash_attention", "ssd_chunk")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: the compiler's output of each verbose build (``-Xptxas -v``)
+BUILD_LOG: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     candidates = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME \
@@ -50,10 +52,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (no CUDA toolkit on this machine)")
 
 
-def _target(name: str, flags) -> Path:
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source and
+    the flags."""
     src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256(src + " ".join(CUDA_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def build_all(names: Iterable[str] = KERNELS, verbose: bool = False
@@ -74,12 +78,12 @@ def build_all(names: Iterable[str] = KERNELS, verbose: bool = False
                 f"none is visible to torch")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         flags = CUDA_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-        nvcc = _nvcc()
+        nvcc = nvcc_path()
         seconds = {n: 0.0 for n in names}
         procs = {}
         t0 = time.perf_counter()
         for name in todo:
-            target = _target(name, CUDA_FLAGS)
+            target = library_path(name)
             if target.exists() and not verbose:
                 continue
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -101,11 +105,12 @@ def build_all(names: Iterable[str] = KERNELS, verbose: bool = False
                         f"nvcc failed on {name}.cu (exit "
                         f"{proc.returncode}):\n{output}")
                 if verbose and output.strip():
+                    BUILD_LOG[name] = output
                     print(f"[nvcc {name}]\n{output}", flush=True)
                 os.replace(tmp, target)
             time.sleep(0.02)
         for name in todo:
-            _LIBS[name] = ctypes.CDLL(os.fspath(_target(name, CUDA_FLAGS)))
+            _LIBS[name] = ctypes.CDLL(os.fspath(library_path(name)))
         return seconds
 
 

@@ -12,6 +12,13 @@ dtypes, shapes and strides, launches on the current stream without
 synchronising and raises on any launch error.  Each launch adds one to
 :data:`LAUNCHES`.
 
+The library holds two kernels, chosen by dtype: bf16 runs on the tensor
+cores (``wgmma``, D padded to 64, 128 or 256), f32 on the CUDA cores.
+:func:`kernel_path` decides the path, the padded head dim and the kv
+tile, and the wrapper passes them to the library, which runs the
+instantiation that matches.  :func:`flash_attention_flops` counts the work
+the inputs need, for the kernel's bound.
+
 The plain PyTorch version of the same function is
 :func:`repro_torch.kernels.ref.mha_reference`.
 """
@@ -19,13 +26,15 @@ The plain PyTorch version of the same function is
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_D = 256
 
 #: launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -38,24 +47,62 @@ def reset_launch_counts() -> None:
 _LIB: list = []
 
 
+class KernelPath(NamedTuple):
+    name: str      # "wgmma_bf16" or "cuda_cores_f32"
+    d_pad: int     # the head dim the kernel computes with
+    kv_tile: int   # kv rows per tile
+
+
+def kernel_path(dtype: torch.dtype, d: int) -> KernelPath:
+    """The kernel the library runs for ``dtype`` and head dim ``d``.
+    bf16: the tensor-core kernel with D padded to 64, 128 or 256 (columns
+    past ``d`` are zero-filled) and kv tiles of 128 rows, 64 at a padded
+    D of 256 (the S and O accumulators then fill the registers).  f32:
+    the CUDA-core kernel, D as it is, 64-row kv tiles.  Raises for what
+    neither kernel takes."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"dtype {dtype} not in {list(_DTYPE_CODES)}")
+    if d % 16 or not 16 <= d <= MAX_D:
+        raise ValueError(f"head_dim must be a multiple of 16 in "
+                         f"[16, {MAX_D}], got {d}")
+    if dtype == torch.float32:
+        return KernelPath("cuda_cores_f32", d, 64)
+    d_pad = 64 if d <= 64 else (128 if d <= 128 else 256)
+    return KernelPath("wgmma_bf16", d_pad, 128 if d_pad <= 128 else 64)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through: the work the kernel must
+    do for these inputs."""
+    i = np.arange(sq)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_flops(b: int, h: int, d: int, sq: int, sk: int,
+                          causal: bool, window: int) -> float:
+    """Operations the inputs need: QK^T and PV (2 FLOP per multiply-add
+    each) over the visible pairs of every (batch, head)."""
+    return 4.0 * b * h * d * visible_pairs(sq, sk, causal, window)
+
+
 def _library() -> ctypes.CDLL:
     if not _LIB:
         lib = _build.load_library("flash_attention")
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_launch.argtypes = (
-            [vp, vp, vp, vp] + [i32] * 7
+            [vp, vp, vp, vp] + [i32] * 9
             + [ctypes.POINTER(ctypes.c_longlong), f32, f32, i32, i32, vp])
         lib.flash_attention_launch.restype = i32
-        lib.flash_attention_max_d.argtypes = []
-        lib.flash_attention_max_d.restype = i32
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
     return _LIB[0]
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           max_d: int) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor) -> KernelPath:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got device "
@@ -81,9 +128,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("empty q or kv sequence")
     if h % k.shape[1]:
         raise ValueError(f"H = {h} is not a multiple of Hkv = {k.shape[1]}")
-    if d % 16 or not 16 <= d <= max_d:
-        raise ValueError(f"head_dim must be a multiple of 16 in "
-                         f"[16, {max_d}], got {d}")
+    path = kernel_path(q.dtype, d)
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel copies rows in 16-byte pieces
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"bf16 {name} must be 16-byte aligned with strides "
+                    f"that are multiples of 8 (strides {t.stride()})")
+    return path
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,7 +147,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides with a contiguous head_dim) -> [B, H, Sq, D] in q's dtype,
     laid out with q's strides."""
     lib = _library()
-    _check(q, k, v, lib.flash_attention_max_d())
+    path = _check(q, k, v)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     scale = scale if scale is not None else d ** -0.5
@@ -105,7 +158,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], b, h, k.shape[1], sq, k.shape[2], d,
-            strides, float(scale), float(softcap), int(bool(causal)),
+            path.d_pad, path.kv_tile, strides, float(scale), float(softcap), int(bool(causal)),
             int(window), stream)
     if code != 0:
         text = lib.flash_attention_error_string(code).decode()

@@ -174,16 +174,69 @@ def test_ssd_kernel_matches_plain(cuda, dtype):
             DTYPES[dtype])
         bm = _randn((b, s, n), s + 2, dtype, cuda)
         cm = _randn((b, s, n), s + 3, dtype, cuda)
-        before = sk.LAUNCHES["ssd_chunk"]
+        before = dict(sk.LAUNCHES)
         y, states = sk.ssd_chunk_cuda(x, dt, a_log, bm, cm, chunk=chunk)
         torch.cuda.synchronize()
-        assert sk.LAUNCHES["ssd_chunk"] == before + 1
+        assert sk.LAUNCHES == {k: n + 1 for k, n in before.items()}
         wy, wstates = ref.ssd_chunk_batched_reference(x, dt, a_log, bm, cm,
                                                       chunk)
         tol = 5 * TOL[dtype]
         assert y.dtype == x.dtype and states.dtype == torch.float32
         torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(states, wstates, atol=tol, rtol=tol)
+
+
+# bf16 flash at the tensor-core kernel's padded head dims (D = 80 pads to
+# 128), S = 1024: (B, H, Hkv, Sq, Sk, D); GQA, ragged Sq != Sk (Sq <= Sk,
+# so every row sees a key under the causal and window masks)
+FLASH_BF16_CASES = [(1, 4, 2, 1024, 1024, 64), (1, 4, 2, 1024, 1024, 128),
+                    (1, 4, 2, 1024, 1024, 256), (1, 4, 2, 1024, 1024, 80),
+                    (2, 4, 1, 1000, 1024, 128)]
+FLASH_BF16_MASKS = [(True, 0, 0.0), (True, 256, 0.0), (True, 0, 50.0),
+                    (True, 256, 50.0), (False, 0, 50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_BF16_CASES)
+def test_flash_bf16_tensor_core_kernel_matches_plain(cuda, shape):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, h, hkv, sq, sk, d = shape
+    q = _randn((b, h, sq, d), sq + d, "bfloat16", cuda)
+    k = _randn((b, hkv, sk, d), sk + d + 1, "bfloat16", cuda)
+    v = _randn((b, hkv, sk, d), sk + d + 2, "bfloat16", cuda)
+    for causal, window, cap in FLASH_BF16_MASKS:
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out = fa.flash_attention_cuda(q, k, v, **kw).float()
+        want = ref.mha_reference(q, k, v, **kw).float()
+        # chip_smoke.FLASH_TOL: atol 5e-3, rtol 2e-2 per element, a
+        # relative L2 error within 4e-3 and within 1e-2 in every row
+        torch.testing.assert_close(out, want, atol=5e-3, rtol=2e-2)
+        diff = out - want
+        assert float(diff.norm()) <= 4e-3 * float(want.norm())
+        assert bool(torch.all(diff.norm(dim=-1)
+                              <= 1e-2 * want.norm(dim=-1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_at_mamba2_widths(cuda, dtype):
+    """nh = 24, hd = 64, N = 128, chunk 256, S = 512 (two chunks)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+    b, s, nh, hd, n, chunk = 2, 512, 24, 64, 128, 256
+    x = _randn((b, s, nh, hd), 5, dtype, cuda)
+    dt = torch.nn.functional.softplus(
+        _randn((b, s, nh), 6, "float32", cuda)).to(DTYPES[dtype])
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, device=cuda)).to(
+        DTYPES[dtype])
+    bm = _randn((b, s, n), 7, dtype, cuda)
+    cm = _randn((b, s, n), 8, dtype, cuda)
+    y, states = sk.ssd_chunk_cuda(x, dt, a_log, bm, cm, chunk=chunk)
+    wy, wstates = ref.ssd_chunk_batched_reference(x, dt, a_log, bm, cm, chunk)
+    tol = 5 * TOL[dtype]
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(states, wstates, atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -205,6 +258,11 @@ def test_lm_kernels_reject_bad_inputs(cuda):
         fa.flash_attention_cuda(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention_cuda(q.cpu(), q, q)
+    # the tensor-core kernel copies 16-byte pieces: a bf16 view 2 bytes
+    # off a 16-byte boundary is refused, not read wrongly
+    qb = _randn((1, 2, 16, 33), 0, "bfloat16", cuda)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_cuda(qb, qb, qb)
     with pytest.raises(ValueError, match="multiple of Hkv"):
         fa.flash_attention_cuda(q, q[:, :1].expand(1, 3, 16, 32)[:, :3],
                                 q[:, :1].expand(1, 3, 16, 32)[:, :3])
