@@ -21,8 +21,21 @@ error is caught):
    call's where one computes the same function, and the bound (bytes
    over the card's HBM rate, operations over its peak rate for the
    dtype, the larger):
-   ``kernel`` (``fl_aggregate``/``fl_delta_reduce``, yardstick
-   ``torch.addmv``), ``kernel.flash_attention`` (yardstick
+   ``kernel`` (``fl_aggregate``/``fl_delta_reduce`` on a flat model,
+   also bitwise against the order of arithmetic, yardstick
+   ``torch.addmv``; timed after a clean flush that reads a
+   buffer larger than the L2, and after the writing flush that the
+   flash and SSD rows use),
+   ``kernel.aggregate_fused`` (the round's eq.-(4) step at the CNN's six
+   leaves, the ``fl_aggregate`` entry of the ``kernels`` line: one
+   launch, within TOL of the plain per-leaf version, bitwise equal to the
+   kernel's order of arithmetic computed exactly in PyTorch, to the
+   ravel -> flat entry -> unravel path, and a CUDA-graph replay bitwise
+   equal to the eager call), ``kernel.aggregate_leaves`` (the leaf
+   kernel against its plain versions on gemma2-27b's smoke LM at 6
+   layers in bf16, more leaves than one launch takes, and on ragged
+   leaves of mixed dtypes),
+   ``kernel.flash_attention`` (yardstick
    ``scaled_dot_product_attention`` at the causal point without window
    or soft-cap; each element within (atol, rtol), the relative L2 error
    of the output and of every query row within their limits; ``floor.sfu``, beside the bound, the
@@ -106,6 +119,10 @@ POINTS = ((545_002, 8, torch.float32), (11_172_342, 8, torch.float32),
           (11_172_342, 8, torch.bfloat16), (65_537, 3, torch.float32),
           (129, 1, torch.float32))
 MAIN_POINT = POINTS[0]
+# clock cycles the timer holds the device before each timed call (about
+# 5 ms at the H100's 1,980 MHz; longer than the host's work for a call
+# over a few hundred leaves)
+HOLD_CYCLES = 10_000_000
 ROUNDS = 3
 # benchmarks/common.BenchConfig.paper_scale() at K = 8
 PAPER_SCALE = dict(num_devices=120, sample_count=8, local_epochs=2,
@@ -129,15 +146,27 @@ def peaks(name: str):
     raise RuntimeError(f"no published peaks for card {name!r}")
 
 
-def time_ms(fn, iters: int = 30, flush=None) -> float:
+def time_ms(fn, iters: int = 30, flush=None, clean: bool = False) -> float:
     """Median device time of ``fn`` over CUDA events, one launch per
-    event pair, with the L2 cache flushed before each launch."""
+    event pair, with the L2 cache flushed before each launch.
+
+    The default flush writes the buffer (``zero_()``), which leaves up to
+    the L2's size of dirty lines that a memory-bound kernel must write back
+    as its reads evict them; ``clean`` reads the buffer instead, which
+    leaves none.  After either flush the device is held for about 5 ms
+    (``torch.cuda._sleep``), so the host has enqueued ``fn``
+    before its start event is reached: the time is the device's alone,
+    even for a call whose Python takes longer than the flush."""
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
         if flush is not None:
-            flush.zero_()
+            if clean:
+                flush.sum()
+            else:
+                flush.zero_()
+            torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -165,6 +194,11 @@ def phase_kernels(flush, hbm: float, f32_peak: float) -> list:
         red = fk.fl_delta_reduce_cuda(deltas, coeffs)
         want = ref.aggregate_reference(theta, deltas, coeffs)
         want_red = ref.delta_reduce_reference(deltas, coeffs)
+        bitwise = (
+            torch.equal(out, ref.aggregate_leaves_fma_reference(
+                [theta], [deltas], coeffs)[0])
+            and torch.equal(red, ref.aggregate_leaves_fma_reference(
+                None, [deltas], coeffs)[0]))
         torch.cuda.synchronize()
         ok = (torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)
               and torch.allclose(red, want_red, atol=tol, rtol=tol))
@@ -174,32 +208,272 @@ def phase_kernels(flush, hbm: float, f32_peak: float) -> list:
         agg_bytes = (k + 2) * n * size + 4 * k
         red_bytes = k * n * size + 4 * n + 4 * k
         ops = 2 * k * n
+        def kernel():
+            return fk.fl_aggregate_cuda(theta, deltas, coeffs)
+
+        def library():
+            return torch.addmv(theta, deltas.t(), coeffs)
+
+        f32 = dtype == torch.float32
         row = dict(
             n=n, k=k, dtype=str(dtype).replace("torch.", ""), tol=tol,
             max_abs_err=err, reduce_max_abs_err=err_red,
-            ms=time_ms(lambda: fk.fl_aggregate_cuda(theta, deltas, coeffs),
-                       flush=flush),
+            bitwise_equal_to_fma_order=bitwise,
+            vec=fk.vector_width(n, k, [(t.data_ptr(), t.element_size())
+                                       for t in (theta, deltas, out)]),
+            flush="clean",
+            ms=time_ms(kernel, flush=flush, clean=True),
+            ms_zero_flush=time_ms(kernel, flush=flush),
             plain_ms=time_ms(lambda: ref.aggregate_reference(
-                theta, deltas, coeffs), flush=flush),
-            library_ms=(time_ms(lambda: torch.addmv(theta, deltas.t(),
-                                                    coeffs), flush=flush)
-                        if dtype == torch.float32 else None),
+                theta, deltas, coeffs), flush=flush, clean=True),
+            library_ms=(time_ms(library, flush=flush, clean=True)
+                        if f32 else None),
+            library_ms_zero_flush=(time_ms(library, flush=flush)
+                                   if f32 else None),
             bound_ms=max(agg_bytes / hbm, ops / f32_peak) * 1e3,
             bound_by="bytes" if agg_bytes / hbm >= ops / f32_peak
             else "operations",
             reduce_ms=time_ms(lambda: fk.fl_delta_reduce_cuda(deltas,
                                                               coeffs),
-                              flush=flush),
+                              flush=flush, clean=True),
             reduce_plain_ms=time_ms(lambda: ref.delta_reduce_reference(
-                deltas, coeffs), flush=flush),
+                deltas, coeffs), flush=flush, clean=True),
             reduce_bound_ms=max(red_bytes / hbm, ops / f32_peak) * 1e3)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         log("kernel", **row)
         require(ok, f"kernel disagrees with its plain version at N={n} "
                     f"K={k} {dtype} (err {err}, reduce err {err_red}, "
                     f"tol {tol})")
+        require(bitwise, f"kernel is not bitwise its order of arithmetic "
+                         f"(ref.aggregate_leaves_fma_reference) at N={n} "
+                         f"K={k} {dtype}")
         points.append(row)
         del theta, deltas, out, red, want, want_red
     return points
+
+
+def _flat_leaves(tree, prefix: str = "") -> dict:
+    """A nested dict of tensors as one dict of ``a/b/c`` names."""
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flat_leaves(value, f"{prefix}{name}/"))
+        else:
+            out[f"{prefix}{name}"] = value
+    return out
+
+
+def wall_us(fn, calls: int = 200) -> float:
+    """Host wall time per call of ``fn`` over back-to-back calls ended by
+    one synchronise: the eager cost a caller pays, host work included."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _leaf_bytes(thetas, deltas) -> int:
+    """Each theta and delta read once, each output (theta's type) written
+    once."""
+    return sum(2 * t.numel() * t.element_size() + d.numel() * d.element_size()
+               for t, d in zip(thetas, deltas))
+
+
+def cnn_leaves(gen, k: int) -> tuple:
+    """The paper-scale CNN's parameters (its six leaves) and K stacked
+    deltas, on the card, from ``gen``."""
+    from repro_torch.models import CNNTask
+
+    task = CNNTask(image_shape=PAPER_SCALE["image_shape"],
+                   num_classes=PAPER_SCALE["num_classes"],
+                   width=PAPER_SCALE["width"])
+    params = task.init(gen)
+    return params, {n: torch.randn((k,) + tuple(p.shape), device="cuda",
+                                   generator=gen) * 1e-2
+                    for n, p in params.items()}
+
+
+def lm_leaves(gen, k: int) -> tuple:
+    """gemma2-27b's smoke LM at 6 layers in bf16, as a model that keeps one
+    tensor per layer holds it, and K bf16 deltas per leaf.  The smoke LM
+    stacks each block weight over the layers of its pattern position (24
+    leaves at any depth); split per layer, 6 layers give 68 leaves (more
+    than one launch's table), each a view into its stacked tensor.  The
+    deltas are of unit scale, so a wrong row, coefficient or leaf moves the
+    output far past the bf16 tolerance."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import build_model
+
+    cfg = dataclasses.replace(get_smoke_config("gemma2-27b"), num_layers=6)
+    thetas = []
+    for name, p in _flat_leaves(build_model(cfg, device="cuda").init(
+            gen)).items():
+        p = p.to(torch.bfloat16)
+        thetas += ([p[i] for i in range(p.shape[0])]
+                   if name.startswith("blocks/") else [p])
+    return thetas, [torch.randn((k,) + tuple(p.shape), device="cuda",
+                                generator=gen).to(torch.bfloat16)
+                    for p in thetas]
+
+
+def phase_aggregate_leaves(flush, hbm: float, f32_peak: float) -> dict:
+    """The leaf kernel on the paths that reach it: ``aggregate_fused`` at
+    the paper-scale CNN's six leaves (K = 8, f32), the main path's call,
+    against the plain per-leaf version (within TOL), its exact order of
+    arithmetic (``ref.aggregate_leaves_fma_reference``, bitwise), the
+    ravel path (``ParamRavel.ravel`` and ``ravel_stacked``, the flat entry
+    ``fl_aggregate_cuda``, ``unravel``; bitwise) and a CUDA-graph replay
+    (bitwise equal to the eager call); then the kernel against its plain
+    versions on many leaves: :func:`lm_leaves` (68 bf16 leaves, more than
+    one table) with K = 4, and ragged leaves of mixed dtypes."""
+    import math
+
+    from repro_torch.fl import server
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    k = MAIN_POINT[1]
+    params, stacked = cnn_leaves(gen, k)
+    coeffs = torch.softmax(torch.randn(k, device="cuda", generator=gen), 0)
+    ad = server.ParamRavel(params)
+
+    def leaf_path():
+        return server.aggregate_fused(params, stacked, coeffs)
+
+    def ravel_path():
+        return ad.unravel(fk.fl_aggregate_cuda(
+            ad.ravel(params), ad.ravel_stacked(stacked), coeffs))
+
+    thetas = [params[n] for n in ad.names]
+    deltas = [stacked[n] for n in ad.names]
+    before = fk.LAUNCHES["fl_aggregate"]
+    new = leaf_path()
+    launches = fk.LAUNCHES["fl_aggregate"] - before
+    old = ravel_path()
+    plain = ref.aggregate_leaves_reference(thetas, deltas, coeffs)
+    exact = ref.aggregate_leaves_fma_reference(thetas, deltas, coeffs)
+    torch.cuda.synchronize()
+    tol = TOL[torch.float32]
+    close = all(torch.allclose(new[n], w, atol=tol, rtol=tol)
+                for n, w in zip(ad.names, plain))
+    err = max(float((new[n] - w).abs().max())
+              for n, w in zip(ad.names, plain))
+    bitwise_fma = all(torch.equal(new[n], w)
+                      for n, w in zip(ad.names, exact))
+    bitwise = all(torch.equal(new[n], old[n]) for n in ad.names)
+    del plain, exact
+
+    # a CUDA graph of the call on fixed buffers, replayed on new deltas
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaf_path()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = leaf_path()
+    for d in stacked.values():
+        d.mul_(-0.5)
+    graph.replay()
+    eager = leaf_path()
+    torch.cuda.synchronize()
+    graph_equal = all(torch.equal(captured[n], eager[n]) for n in ad.names)
+
+    nbytes = _leaf_bytes(thetas, deltas) + 4 * k
+    bound_ms, bound_by = _bound(nbytes, 2 * k * ad.total, hbm, f32_peak)
+    fused = dict(
+        leaves=len(ad.names), n=ad.total, k=k, dtype="float32",
+        sizes=dict(zip(ad.names, ad.sizes)),
+        vec={n: fk.vector_width(sz, k, [(params[n].data_ptr(), 4),
+                                        (stacked[n].data_ptr(), 4)])
+             for n, sz in zip(ad.names, ad.sizes)},
+        launches=launches, tol=tol, max_abs_err=err,
+        bitwise_equal_to_fma_order=bitwise_fma,
+        bitwise_equal_to_ravel_path=bitwise,
+        graph_bitwise_equal=graph_equal, flush="clean",
+        ms=time_ms(leaf_path, flush=flush, clean=True),
+        plain_ms=time_ms(lambda: ref.aggregate_leaves_reference(
+            thetas, deltas, coeffs), flush=flush, clean=True),
+        ravel_path_ms=time_ms(ravel_path, flush=flush, clean=True),
+        graph_replay_ms=time_ms(graph.replay, flush=flush, clean=True),
+        ms_zero_flush=time_ms(leaf_path, flush=flush),
+        ravel_path_ms_zero_flush=time_ms(ravel_path, flush=flush),
+        wall_us=wall_us(leaf_path), ravel_path_wall_us=wall_us(ravel_path),
+        graph_replay_wall_us=wall_us(graph.replay),
+        bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes * 1e-6)
+    fused["bound_share"] = bound_ms / fused["ms"]
+    log("kernel.aggregate_fused", **fused)
+    require(launches == 1, f"aggregate_fused at the CNN's leaves: one "
+                           f"fl_aggregate launch, got {launches}")
+    require(close, f"aggregate_fused disagrees with the plain per-leaf "
+                   f"version (err {err}, tol {tol})")
+    require(bitwise_fma, "aggregate_fused is bitwise its order of "
+                         "arithmetic (ref.aggregate_leaves_fma_reference)")
+    require(bitwise, "aggregate_fused is bitwise equal to the ravel path")
+    require(graph_equal, "a CUDA graph replay of aggregate_fused is bitwise "
+                         "equal to the eager call")
+    del graph, captured, eager, new, old
+
+    lm_thetas, lm_deltas = lm_leaves(gen, 4)
+    ragged = [(1,), (7,), (3, 11), (257,), (5, 13, 2), (1025,), (),
+              (4099,), (65_537,)]
+    pairs = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.float32), (torch.float32, torch.float32))
+    rag_thetas = [torch.randn(s, device="cuda", generator=gen).to(
+        pairs[i % 4][0]) for i, s in enumerate(ragged)]
+    rag_deltas = [torch.randn((3,) + s, device="cuda", generator=gen).to(
+        pairs[i % 4][1]) for i, s in enumerate(ragged)]
+    cap = fk._library().fl_aggregate_max_segments()
+    rows = []
+    for label, ths, dls, want_launches in (
+            ("gemma2-27b.smoke.6_layers.per_layer.bf16", lm_thetas,
+             lm_deltas, math.ceil(len(lm_thetas) / cap)),
+            ("ragged.mixed_dtypes", rag_thetas, rag_deltas, len(pairs))):
+        kk = dls[0].shape[0]
+        c = torch.softmax(torch.randn(kk, device="cuda", generator=gen), 0)
+        before = fk.LAUNCHES["fl_aggregate"]
+        outs = fk.fl_aggregate_leaves_cuda(ths, dls, c)
+        n_launch = fk.LAUNCHES["fl_aggregate"] - before
+        wants = ref.aggregate_leaves_reference(ths, dls, c)
+        exact = ref.aggregate_leaves_fma_reference(ths, dls, c)
+        torch.cuda.synchronize()
+        tol = TOL[torch.bfloat16]
+        ok = all(torch.allclose(o.float(), w.float(), atol=tol, rtol=tol)
+                 for o, w in zip(outs, wants))
+        err = max(float((o.float() - w.float()).abs().max())
+                  for o, w in zip(outs, wants))
+        bitwise_fma = all(torch.equal(o, w) for o, w in zip(outs, exact))
+        del exact
+        n = sum(t.numel() for t in ths)
+        nbytes = _leaf_bytes(ths, dls) + 4 * kk
+        bound_ms, bound_by = _bound(nbytes, 2 * kk * n, hbm, f32_peak)
+        row = dict(
+            label=label, leaves=len(ths), n=n, k=kk, tol=tol,
+            max_abs_err=err, bitwise_equal_to_fma_order=bitwise_fma,
+            launches=n_launch,
+            odd_sized_leaves=sum(1 for t in ths if t.numel() % 8),
+            ms=time_ms(lambda: fk.fl_aggregate_leaves_cuda(ths, dls, c),
+                       flush=flush, clean=True),
+            plain_ms=time_ms(lambda: ref.aggregate_leaves_reference(
+                ths, dls, c), flush=flush, clean=True),
+            wall_us=wall_us(lambda: fk.fl_aggregate_leaves_cuda(ths, dls, c),
+                            calls=50),
+            bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes * 1e-6)
+        log("kernel.aggregate_leaves", **row)
+        require(ok, f"leaf kernel disagrees with its plain version at "
+                    f"{label} (err {err}, tol {tol})")
+        require(bitwise_fma, f"leaf kernel is not bitwise its order of "
+                             f"arithmetic at {label}")
+        require(n_launch == want_launches,
+                f"{label}: {want_launches} launches, got {n_launch}")
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return dict(fused=fused, leaves=rows)
 
 
 def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None):
@@ -796,8 +1070,9 @@ def phase_profile_serve(run: dict) -> None:
     log("profile.serve", prefill=pre, decode_step=dec)
 
 
-def kernels_line(points: list, main_summary: dict, flash: list, ssd: list,
-                 gemma: dict, mamba: dict, smi: str, sass: dict) -> dict:
+def kernels_line(points: list, leaves: dict, main_summary: dict,
+                 flash: list, ssd: list, gemma: dict, mamba: dict, smi: str,
+                 sass: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
     path (the LROA rounds, the gemma2 and the mamba2 generation) and its
     numbers at that path's shapes."""
@@ -821,12 +1096,38 @@ def kernels_line(points: list, main_summary: dict, flash: list, ssd: list,
         return run["launches_prefill"][kernel] + \
             run["launches_decode"][kernel]
 
+    fused = leaves["fused"]
     return {"kernels": [
         entry("fl_aggregate", "src/repro_torch/kernels/csrc/fl_aggregate.cu",
               "src/repro/kernels/fl_aggregate.py:35",
-              main_summary["launches"]["fl_aggregate"], m,
-              max_abs_err_all_points=max(p["max_abs_err"] for p in points),
-              variants={"fl_delta_reduce": {
+              main_summary["launches"]["fl_aggregate"],
+              dict(fused, library_ms=None),
+              max_abs_err_all_points=max(
+                  [p["max_abs_err"] for p in points] + [fused["max_abs_err"]]
+                  + [r["max_abs_err"] for r in leaves["leaves"]]),
+              design="the header comment of src/repro_torch/kernels/csrc/"
+                     "fl_aggregate.cu",
+              point="the round's eq.-(4) step: aggregate_fused at the "
+                    "paper-scale CNN's 6 leaves, N=545,002, K=8, f32, one "
+                    "launch; library_ms: no one PyTorch call takes the "
+                    "leaves (torch.addmv on the flat model is under "
+                    "variants.flat_545002)",
+              flush="clean: the L2 flush reads a 256 MB buffer; "
+                    "ms_zero_flush writes it, as the flash and SSD rows' "
+                    "flush does",
+              ms_zero_flush=fused["ms_zero_flush"],
+              aggregate_fused={key: fused[key] for key in (
+                  "leaves", "n", "bitwise_equal_to_fma_order",
+                  "bitwise_equal_to_ravel_path", "graph_bitwise_equal",
+                  "ravel_path_ms", "ravel_path_ms_zero_flush",
+                  "graph_replay_ms", "wall_us", "ravel_path_wall_us")},
+              variants={"flat_545002": {
+                  "launches": 0,
+                  **{key: m[key] for key in (
+                      "max_abs_err", "bitwise_equal_to_fma_order", "ms",
+                      "ms_zero_flush", "plain_ms", "library_ms",
+                      "library_ms_zero_flush", "bound_ms", "bound_by")}},
+                  "fl_delta_reduce": {
                   "launches": main_summary["launches"]["fl_delta_reduce"],
                   "max_abs_err": m["reduce_max_abs_err"],
                   "ms": m["reduce_ms"], "plain_ms": m["reduce_plain_ms"],
@@ -967,6 +1268,7 @@ def main() -> int:
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     points = phase_kernels(flush, hbm, f32_peak)
+    leaves = phase_aggregate_leaves(flush, hbm, f32_peak)
     flash = phase_flash(flush, hbm, f32_peak, bf16_peak, sfu_ops_per_s)
     ssd = phase_ssd(flush, hbm, f32_peak, bf16_peak)
     del flush
@@ -989,8 +1291,8 @@ def main() -> int:
     for key in ("model", "params", "prompts"):
         del mamba[key]
 
-    print(json.dumps(kernels_line(points, main_summary, flash, ssd, gemma,
-                                  mamba, smi, sass)), flush=True)
+    print(json.dumps(kernels_line(points, leaves, main_summary, flash, ssd,
+                                  gemma, mamba, smi, sass)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,10 +13,12 @@ leading ``[K, ...]`` axis on every leaf.
 * ``aggregate_stacked`` is the plain form: a broadcast-multiply plus a
   sum over the client axis in f32, per leaf.
 * ``aggregate_fused`` is the round engine's path.  On a CUDA device the
-  whole model is ravelled to one ``[N]`` vector (``ParamRavel``), reduced
-  by the hand-written ``fl_aggregate`` kernel in one launch, and
-  unravelled; on the CPU it is ``aggregate_stacked`` per leaf (the JAX
-  package's off-TPU branch), which the tests hold against the reference.
+  hand-written ``fl_aggregate`` kernel reads every leaf where it lies, in
+  one launch (no ravel, no unravel); on the CPU it is the same per-leaf
+  arithmetic as ``aggregate_stacked`` (the JAX package's off-TPU
+  branch), which the tests hold against the reference.
+* ``ParamRavel`` is the JAX package's flat-vector adapter, kept for the
+  flat entry points (``ops.fl_aggregate``, ``ops.fl_delta_reduce``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 Params = Dict[str, torch.Tensor]
 
@@ -58,14 +60,10 @@ def aggregate_stacked(global_params: Params, stacked_deltas: Params,
     """eq. (4) over deltas stacked on a leading K axis: per leaf,
     ``p + sum_k c_k d_k`` as a broadcast-multiply and a sum over axis 0,
     in f32, cast back to the leaf's dtype."""
-    c32 = coeffs.to(torch.float32)
-    out = {}
-    for name, p in global_params.items():
-        d = stacked_deltas[name].to(torch.float32)
-        c = c32.reshape((d.shape[0],) + (1,) * (d.dim() - 1))
-        out[name] = (p.to(torch.float32) + torch.sum(c * d, dim=0)).to(
-            p.dtype)
-    return out
+    names = list(global_params)
+    return dict(zip(names, ref.aggregate_leaves_reference(
+        [global_params[n] for n in names],
+        [stacked_deltas[n] for n in names], coeffs)))
 
 
 class ParamRavel:
@@ -73,9 +71,9 @@ class ParamRavel:
 
     Built once from a template dict (names in sorted order, as JAX
     flattens a dict; shapes; dtypes).  ``ravel`` concatenates every leaf
-    (cast to f32) into one ``[N]`` vector so the fused kernel streams the
-    whole model in one pass, ``ravel_stacked`` maps ``[K, ...]`` leaves
-    to ``[K, N]``, and ``unravel`` splits, reshapes and casts back.
+    (cast to f32) into one ``[N]`` vector for the flat kernel entry
+    points, ``ravel_stacked`` maps ``[K, ...]`` leaves to ``[K, N]``, and
+    ``unravel`` splits, reshapes and casts back.
     """
 
     def __init__(self, template: Params):
@@ -104,23 +102,21 @@ class ParamRavel:
 def aggregate_fused(global_params: Params, stacked_deltas: Params,
                     coeffs: torch.Tensor, impl: str = "auto",
                     adapter: ParamRavel | None = None) -> Params:
-    """eq. (4) through the fused flat-vector kernel on CUDA.
+    """eq. (4) through the fused kernel on CUDA.
 
-    On a CUDA device (``impl`` 'auto' or 'cuda') the model is ravelled to
-    one ``[N]`` vector, reduced by ONE ``fl_aggregate`` kernel launch, and
-    unravelled; on the CPU it is :func:`aggregate_stacked` per leaf.
+    On a CUDA device (``impl`` 'auto' or 'cuda') the leaves, in
+    ``ParamRavel``'s sorted-name order (``adapter.names`` when given),
+    go to ONE ``fl_aggregate`` kernel launch that reads each where it
+    lies (up to 64 leaves of one dtype pair per launch); on the CPU the
+    same per-leaf arithmetic as :func:`aggregate_stacked` runs.
     ``impl='cuda'`` on CPU tensors raises (see ``kernels.ops``).
     """
     device = next(iter(global_params.values())).device
-    coeffs = coeffs.to(device=device, dtype=torch.float32)
-    if not ops.use_cuda_kernel(impl, device):
-        return aggregate_stacked(global_params, stacked_deltas, coeffs)
-    if adapter is None:
-        adapter = ParamRavel(global_params)
-    theta = adapter.ravel(global_params)
-    deltas = adapter.ravel_stacked(stacked_deltas)
-    return adapter.unravel(ops.fl_aggregate(theta, deltas,
-                                            coeffs.contiguous(), impl=impl))
+    coeffs = coeffs.to(device=device, dtype=torch.float32).contiguous()
+    names = adapter.names if adapter is not None else sorted(global_params)
+    return dict(zip(names, ops.fl_aggregate_leaves(
+        [global_params[n] for n in names],
+        [stacked_deltas[n] for n in names], coeffs, impl=impl)))
 
 
 def fedavg_reference(global_params: Params, deltas: Sequence[Params],

@@ -2,31 +2,45 @@
 (``csrc/fl_aggregate.cu``), the port of the Pallas TPU kernel
 ``repro.kernels.fl_aggregate.fl_aggregate_tpu``.
 
-``fl_aggregate_cuda(theta, deltas, coeffs)`` computes
-``theta + sum_k coeffs[k] * deltas[k]`` and ``fl_delta_reduce_cuda(deltas,
-coeffs)`` the theta-less partial.  Both take CUDA tensors only: they
-validate devices, dtypes, shapes and contiguity, allocate the output with
-``torch.empty``, launch on the current stream without synchronising, and
-raise on any launch error.  Each launch adds one to :data:`LAUNCHES`, so a
-run can show that its main path went through the kernel.
+``fl_aggregate_leaves_cuda(thetas, deltas, coeffs)`` computes, for every
+leaf, ``thetas[i] + sum_k coeffs[k] * deltas[i][k]`` in one launch over the
+leaves where they lie (one launch per table of at most
+``fl_aggregate_max_segments()`` leaves of one dtype combination).
+``fl_aggregate_cuda(theta, deltas, coeffs)`` and ``fl_delta_reduce_cuda(
+deltas, coeffs)`` (the theta-less partial, f32 out) are its one-leaf case
+on a flat ``[N]`` / ``[K, N]`` model.  All take CUDA tensors only: they
+validate devices, dtypes, shapes and contiguity, allocate the outputs with
+``torch.empty``, build the segment table on the host
+(:func:`plan_segments`), launch on the current stream without
+synchronising, and raise on any launch error.  Each launch adds one to
+:data:`LAUNCHES`, so a run can show that its main path went through the
+kernel.
 
-The plain PyTorch version of the same function is
-:func:`repro_torch.kernels.ref.aggregate_reference`.
+The plain PyTorch versions of the same functions are
+:func:`repro_torch.kernels.ref.aggregate_leaves_reference`,
+:func:`~repro_torch.kernels.ref.aggregate_reference` and
+:func:`~repro_torch.kernels.ref.delta_reduce_reference`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Hashable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_NO_THETA = -1
 
 #: launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"fl_aggregate": 0, "fl_delta_reduce": 0}
+
+#: one row of a launch's table: (leaf index, elements per vector, tiles of
+#: this and every earlier row of the table)
+Row = Tuple[int, int, int]
 
 
 def reset_launch_counts() -> None:
@@ -34,62 +48,117 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def vector_width(size: int, k: int, pointers: Sequence[Tuple[int, int]]
+                 ) -> int:
+    """The widest vector, in elements, that one leaf streams with: at most
+    16 bytes of its widest type, every pointer (``(address, itemsize)`` of
+    its theta if any, its deltas and its output) aligned to the vector,
+    and with K > 1 every delta row start too (``size`` a multiple)."""
+    vec = 16 // max(itemsize for _, itemsize in pointers)
+    while vec > 1 and (k > 1 and size % vec or
+                       any(addr % (vec * itemsize)
+                           for addr, itemsize in pointers)):
+        vec //= 2
+    return vec
+
+
+def plan_segments(sizes: Sequence[int], k: int,
+                  pointers: Sequence[Sequence[Tuple[int, int]]],
+                  kinds: Sequence[Hashable], tile_vectors: int, cap: int
+                  ) -> List[Tuple[Hashable, List[Row]]]:
+    """The segment tables of one call: the leaves (``sizes[i] >= 1``
+    elements, ``pointers[i]`` as in :func:`vector_width`) grouped by dtype
+    combination (``kinds[i]``) in order of first appearance, each group
+    cut into tables of at most ``cap`` leaves.  A leaf of ``n_vec = size //
+    vec`` full vectors takes ``max(1, ceil(n_vec / tile_vectors))`` tiles;
+    its last tile also covers the ``size % vec`` scalar tail.  Returns one
+    ``(kind, rows)`` per launch."""
+    groups: Dict[Hashable, List[int]] = {}
+    for i, kind in enumerate(kinds):
+        groups.setdefault(kind, []).append(i)
+    launches = []
+    for kind, leaves in groups.items():
+        for start in range(0, len(leaves), cap):
+            rows, end = [], 0
+            for i in leaves[start:start + cap]:
+                vec = vector_width(sizes[i], k, pointers[i])
+                end += max(1, -(-(sizes[i] // vec) // tile_vectors))
+                rows.append((i, vec, end))
+            launches.append((kind, rows))
+    return launches
+
+
 _LIB: list = []
 
 
 def _library() -> ctypes.CDLL:
     """The built library with every exported signature declared
-    (pointers and the stream as ``c_void_p``, N as ``c_longlong``, so
-    ctypes never truncates them)."""
+    (pointers and the stream as ``c_void_p``, so ctypes never truncates
+    them)."""
     if not _LIB:
         lib = _build.load_library("fl_aggregate")
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fl_aggregate_launch.argtypes = [vp, vp, vp, vp, i32, i64, i32,
-                                            i32, vp]
-        lib.fl_aggregate_launch.restype = i32
-        lib.fl_delta_reduce_launch.argtypes = [vp, vp, vp, i32, i64, i32, vp]
-        lib.fl_delta_reduce_launch.restype = i32
-        lib.fl_aggregate_max_k.argtypes = []
-        lib.fl_aggregate_max_k.restype = i32
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.fl_aggregate_segments_launch.argtypes = [vp, i32, vp, i32, i32,
+                                                     i32, vp]
+        lib.fl_aggregate_segments_launch.restype = i32
+        for name in ("fl_aggregate_max_k", "fl_aggregate_max_segments",
+                     "fl_aggregate_tile_vectors"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
         lib.fl_aggregate_error_string.argtypes = [i32]
         lib.fl_aggregate_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
     return _LIB[0]
 
 
-def _check(deltas: torch.Tensor, coeffs: torch.Tensor,
-           theta: torch.Tensor | None, lib: ctypes.CDLL) -> None:
-    tensors = {"deltas": deltas, "coeffs": coeffs}
-    if theta is not None:
-        tensors["theta"] = theta
-    for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got device "
-                             f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"all inputs must share one device, got {devices}")
-    if deltas.dim() != 2:
-        raise ValueError(f"deltas must be [K, N], got {tuple(deltas.shape)}")
-    k, n = deltas.shape
+def _check_tensor(t: torch.Tensor, name: str, device: int) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got device "
+                         f"{t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name} dtype {t.dtype} not in "
+                         f"{list(_DTYPE_CODES)}")
+    if t.get_device() != device:
+        raise ValueError(f"all inputs must share one device: {name} lies "
+                         f"on {t.device}, coeffs on cuda:{device}")
+
+
+def _check_leaves(thetas: Sequence[torch.Tensor] | None,
+                  deltas: Sequence[torch.Tensor], coeffs: torch.Tensor,
+                  lib: ctypes.CDLL) -> None:
+    if thetas is not None and len(thetas) != len(deltas):
+        raise ValueError(f"{len(thetas)} thetas against {len(deltas)} "
+                         f"deltas")
+    if not deltas:
+        raise ValueError("no leaves")
+    if not coeffs.is_cuda:
+        raise ValueError(f"coeffs must be a CUDA tensor, got device "
+                         f"{coeffs.device}")
+    device = coeffs.get_device()
+    k = deltas[0].shape[0] if deltas[0].dim() else 0
     if not 1 <= k <= lib.fl_aggregate_max_k():
         raise ValueError(f"K must lie in [1, {lib.fl_aggregate_max_k()}], "
                          f"got {k}")
-    if coeffs.shape != (k,) or coeffs.dtype != torch.float32:
-        raise ValueError(f"coeffs must be float32 [{k}], got "
+    if (coeffs.shape != (k,) or coeffs.dtype != torch.float32
+            or not coeffs.is_contiguous()):
+        raise ValueError(f"coeffs must be contiguous float32 [{k}], got "
                          f"{coeffs.dtype} {tuple(coeffs.shape)}")
-    if deltas.dtype not in _DTYPE_CODES:
-        raise ValueError(f"deltas dtype {deltas.dtype} not in "
-                         f"{list(_DTYPE_CODES)}")
-    if theta is not None:
-        if theta.shape != (n,):
-            raise ValueError(f"theta must be [{n}], got "
-                             f"{tuple(theta.shape)}")
-        if theta.dtype not in _DTYPE_CODES:
-            raise ValueError(f"theta dtype {theta.dtype} not in "
-                             f"{list(_DTYPE_CODES)}")
+    for i, d in enumerate(deltas):
+        _check_tensor(d, f"leaf {i} deltas", device)
+        if thetas is None:
+            if d.dim() < 1 or d.shape[0] != k:
+                raise ValueError(f"leaf {i}: deltas must be (K,) + the "
+                                 f"leaf's shape with K = {k}, got "
+                                 f"{tuple(d.shape)}")
+            continue
+        theta = thetas[i]
+        _check_tensor(theta, f"leaf {i} theta", device)
+        if d.shape != (k,) + theta.shape:
+            raise ValueError(f"leaf {i}: deltas must be (K,) + theta's "
+                             f"shape = {(k,) + tuple(theta.shape)}, got "
+                             f"{tuple(d.shape)}")
 
 
 def _raise_on(code: int, lib: ctypes.CDLL, what: str) -> None:
@@ -99,42 +168,83 @@ def _raise_on(code: int, lib: ctypes.CDLL, what: str) -> None:
                            f"(cudaError {code})")
 
 
+def _launch_leaves(thetas: Sequence[torch.Tensor] | None,
+                   deltas: Sequence[torch.Tensor], coeffs: torch.Tensor,
+                   counter: str) -> List[torch.Tensor]:
+    """Validate, allocate the outputs, plan the tables and launch each."""
+    lib = _library()
+    _check_leaves(thetas, deltas, coeffs, lib)
+    device = deltas[0].device
+    if thetas is None:
+        outs = [torch.empty(d.shape[1:], dtype=torch.float32, device=device)
+                for d in deltas]
+    else:
+        outs = [torch.empty_like(t) for t in thetas]
+    k = int(coeffs.shape[0])
+    live = [i for i, out in enumerate(outs) if out.numel()]
+    if not live:
+        return outs
+    sizes, pointers, kinds = [], [], []
+    for i in live:
+        d, out = deltas[i], outs[i]
+        ptrs = [(d.data_ptr(), d.element_size()),
+                (out.data_ptr(), out.element_size())]
+        theta_dtype = _NO_THETA
+        if thetas is not None:
+            ptrs.append((thetas[i].data_ptr(), thetas[i].element_size()))
+            theta_dtype = _DTYPE_CODES[thetas[i].dtype]
+        sizes.append(out.numel())
+        pointers.append(ptrs)
+        kinds.append((theta_dtype, _DTYPE_CODES[d.dtype]))
+    plan = plan_segments(sizes, k, pointers, kinds,
+                         lib.fl_aggregate_tile_vectors(),
+                         lib.fl_aggregate_max_segments())
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for (theta_dtype, delta_dtype), rows in plan:
+            table = np.array(
+                [(pointers[j][2][0] if thetas is not None else 0,
+                  pointers[j][0][0], pointers[j][1][0], sizes[j], vec, end)
+                 for j, vec, end in rows], dtype=np.int64)
+            code = lib.fl_aggregate_segments_launch(
+                table.ctypes.data, len(rows), coeffs.data_ptr(), k,
+                theta_dtype, delta_dtype, stream)
+            _raise_on(code, lib, counter)
+            LAUNCHES[counter] += 1
+    return outs
+
+
+def fl_aggregate_leaves_cuda(thetas: Sequence[torch.Tensor],
+                             deltas: Sequence[torch.Tensor],
+                             coeffs: torch.Tensor) -> List[torch.Tensor]:
+    """thetas[i] (f32 or bf16, any shape), deltas[i] ``(K,) +
+    thetas[i].shape`` (f32 or bf16), coeffs [K] f32 -> one tensor per
+    leaf in theta's dtype, summed in f32: one launch per table of at most
+    ``fl_aggregate_max_segments()`` leaves of one (theta, delta) dtype
+    pair."""
+    return _launch_leaves(list(thetas), list(deltas), coeffs,
+                          "fl_aggregate")
+
+
+def _check_flat(theta: torch.Tensor | None, deltas: torch.Tensor) -> None:
+    if deltas.dim() != 2:
+        raise ValueError(f"deltas must be [K, N], got {tuple(deltas.shape)}")
+    if theta is not None and theta.shape != deltas.shape[1:]:
+        raise ValueError(f"theta must be [{deltas.shape[1]}], got "
+                         f"{tuple(theta.shape)}")
+
+
 def fl_aggregate_cuda(theta: torch.Tensor, deltas: torch.Tensor,
                       coeffs: torch.Tensor) -> torch.Tensor:
     """theta [N], deltas [K, N] (f32 or bf16), coeffs [K] f32 -> [N] in
-    theta's dtype, summed in f32."""
-    lib = _library()
-    _check(deltas, coeffs, theta, lib)
-    out = torch.empty_like(theta)
-    if theta.numel() == 0:
-        return out
-    with torch.cuda.device(theta.device):
-        stream = torch.cuda.current_stream(theta.device).cuda_stream
-        code = lib.fl_aggregate_launch(
-            theta.data_ptr(), deltas.data_ptr(), coeffs.data_ptr(),
-            out.data_ptr(), deltas.shape[0], theta.numel(),
-            _DTYPE_CODES[theta.dtype], _DTYPE_CODES[deltas.dtype], stream)
-    _raise_on(code, lib, "fl_aggregate")
-    LAUNCHES["fl_aggregate"] += 1
-    return out
+    theta's dtype, summed in f32 (the one-leaf case)."""
+    _check_flat(theta, deltas)
+    return _launch_leaves([theta], [deltas], coeffs, "fl_aggregate")[0]
 
 
 def fl_delta_reduce_cuda(deltas: torch.Tensor, coeffs: torch.Tensor
                          ) -> torch.Tensor:
     """deltas [K, N] (f32 or bf16), coeffs [K] f32 -> f32 [N]
     ``sum_k coeffs[k] * deltas[k]`` (no theta, no zero vector)."""
-    lib = _library()
-    _check(deltas, coeffs, None, lib)
-    out = torch.empty(deltas.shape[1], dtype=torch.float32,
-                      device=deltas.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(deltas.device):
-        stream = torch.cuda.current_stream(deltas.device).cuda_stream
-        code = lib.fl_delta_reduce_launch(
-            deltas.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-            deltas.shape[0], deltas.shape[1], _DTYPE_CODES[deltas.dtype],
-            stream)
-    _raise_on(code, lib, "fl_delta_reduce")
-    LAUNCHES["fl_delta_reduce"] += 1
-    return out
+    _check_flat(None, deltas)
+    return _launch_leaves(None, [deltas], coeffs, "fl_delta_reduce")[0]

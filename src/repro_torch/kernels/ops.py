@@ -1,6 +1,6 @@
 """Public wrappers around the port's kernels (``fl_aggregate``,
-``fl_delta_reduce``, ``flash_attention``, ``ssd_chunk``), with one
-dispatch rule.
+``fl_aggregate_leaves``, ``fl_delta_reduce``, ``flash_attention``,
+``ssd_chunk``), with one dispatch rule.
 
 ``impl`` mirrors ``repro.kernels.ops.use_pallas_kernel``:
 
@@ -16,6 +16,8 @@ build or launch raises from the kernel wrapper.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence
 
 import torch
 
@@ -48,6 +50,19 @@ def fl_aggregate(theta: torch.Tensor, deltas: torch.Tensor,
         from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
         return fl_aggregate_cuda(theta, deltas, coeffs)
     return ref.aggregate_reference(theta, deltas, coeffs)
+
+
+def fl_aggregate_leaves(thetas: Sequence[torch.Tensor],
+                        deltas: Sequence[torch.Tensor], coeffs: torch.Tensor,
+                        impl: str = "auto") -> List[torch.Tensor]:
+    """eq.-(4) aggregation over a model's leaves where they lie: per leaf
+    thetas[i] + sum_k coeffs[k] * deltas[i][k] (deltas[i] of shape
+    ``(K,) + thetas[i].shape``), in theta's dtype; one kernel launch per
+    table of leaves on a CUDA device."""
+    if use_cuda_kernel(impl, thetas[0].device):
+        from repro_torch.kernels.fl_aggregate import fl_aggregate_leaves_cuda
+        return fl_aggregate_leaves_cuda(thetas, deltas, coeffs)
+    return ref.aggregate_leaves_reference(thetas, deltas, coeffs)
 
 
 def fl_delta_reduce(deltas: torch.Tensor, coeffs: torch.Tensor,

@@ -8,6 +8,8 @@ Pallas kernel run in interpret mode.
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
 
@@ -25,6 +27,68 @@ def delta_reduce_reference(deltas: torch.Tensor, coeffs: torch.Tensor
     """deltas: [K, N]; coeffs: [K] -> f32 [N], ``sum_k coeffs_k delta_k``."""
     return torch.tensordot(coeffs.to(torch.float32),
                            deltas.to(torch.float32), dims=1)
+
+
+def aggregate_leaves_reference(thetas: Sequence[torch.Tensor],
+                               deltas: Sequence[torch.Tensor],
+                               coeffs: torch.Tensor) -> List[torch.Tensor]:
+    """Per leaf, ``thetas[i] + sum_k coeffs_k deltas[i][k]`` (deltas[i] of
+    shape ``(K,) + thetas[i].shape``) as a broadcast-multiply and a sum
+    over the client axis, in f32, returned in theta's dtype: the
+    arithmetic of ``fl.server.aggregate_stacked``."""
+    c32 = coeffs.to(torch.float32)
+    outs = []
+    for p, d in zip(thetas, deltas):
+        d = d.to(torch.float32)
+        c = c32.reshape((d.shape[0],) + (1,) * (d.dim() - 1))
+        outs.append((p.to(torch.float32) + torch.sum(c * d, dim=0)).to(
+            p.dtype))
+    return outs
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a * b + c`` on f32 tensors rounded once to f32, as the card's
+    fused multiply-add (``fmaf``) rounds it.  ``a * b`` is exact in f64;
+    TwoSum splits ``a * b + c`` into its f64 rounding ``hi`` and the exact
+    rest ``lo``; rounding ``hi`` to f32 is then right unless ``hi`` lies
+    exactly half-way between two f32 values with ``lo != 0``, where the
+    rest's sign picks the side."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    hi = p + c64
+    bb = hi - p
+    lo = (p - (hi - bb)) + (c64 - bb)
+    r = hi.float()
+    toward = torch.where(hi > r.double(), torch.inf, -torch.inf).float()
+    r2 = torch.nextafter(r, toward)
+    midpoint = (r.double() + r2.double()) * 0.5 == hi
+    rest_toward_r2 = torch.where(r2 > r, lo > 0, lo < 0)
+    return torch.where(midpoint & rest_toward_r2, r2, r)
+
+
+def aggregate_leaves_fma_reference(thetas: Sequence[torch.Tensor] | None,
+                                   deltas: Sequence[torch.Tensor],
+                                   coeffs: torch.Tensor
+                                   ) -> List[torch.Tensor]:
+    """The CUDA kernel's per-element arithmetic, bit for bit: the sum
+    starts at 0, takes ``fmaf(coeffs[k], delta[k], acc)`` for k = 0..K-1
+    in order (:func:`fma_f32`), adds theta in f32 and rounds once to
+    theta's dtype; with ``thetas=None`` (the reduce) it returns the f32
+    sum."""
+    c32 = coeffs.to(torch.float32)
+    outs = []
+    for i, d in enumerate(deltas):
+        d = d.to(torch.float32)
+        acc = torch.zeros(d.shape[1:], dtype=torch.float32, device=d.device)
+        for k in range(d.shape[0]):
+            acc = fma_f32(c32[k], d[k], acc)
+        if thetas is None:
+            outs.append(acc)
+        else:
+            outs.append((thetas[i].to(torch.float32) + acc).to(
+                thetas[i].dtype))
+    return outs
 
 
 NEG_INF = -2.0e38

@@ -98,6 +98,155 @@ def test_cuda_kernel_mixed_dtypes_and_bad_inputs(cuda):
         fk.fl_aggregate_cuda(theta[:-1].contiguous(), deltas, coeffs)
 
 
+# the paper-scale CNN's leaves (b1, b2, c1, c2, d1, d2) and ragged ones:
+# odd, prime, one past a vector or a tile, and a 0-d leaf
+CNN_SHAPES = {"b1": (128,), "b2": (10,), "c1": (32, 3, 3, 3),
+              "c2": (64, 32, 3, 3), "d1": (4096, 128), "d2": (128, 10)}
+RAGGED_SHAPES = [(1,), (7,), (3, 11), (257,), (5, 13, 2), (1025,), (),
+                 (4099,)]
+
+
+def _leaves(shapes, k, seed, theta_dtype, delta_dtype, device):
+    rng = np.random.default_rng(seed)
+    thetas = [torch.as_tensor(rng.normal(size=s).astype(np.float32)).to(
+        device, theta_dtype) for s in shapes]
+    deltas = [torch.as_tensor(rng.normal(size=(k,) + s).astype(
+        np.float32)).to(device, delta_dtype) for s in shapes]
+    c = rng.normal(size=k)
+    coeffs = torch.as_tensor((np.exp(c) / np.exp(c).sum()).astype(
+        np.float32)).to(device)
+    return thetas, deltas, coeffs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8, 12, 20])
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("bfloat16", "bfloat16"),
+                                    ("float32", "bfloat16"),
+                                    ("bfloat16", "float32")])
+def test_leaf_kernel_matches_plain(cuda, k, dtypes):
+    """Every K bucket (<= 8, <= 16, batches of 4; K = 1 takes scalar
+    tails) over the CNN's leaves and ragged ones, in one call: within TOL
+    of the plain version and bitwise its order of arithmetic."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ref
+    shapes = list(CNN_SHAPES.values()) + RAGGED_SHAPES
+    thetas, deltas, coeffs = _leaves(shapes, k, k, DTYPES[dtypes[0]],
+                                     DTYPES[dtypes[1]], cuda)
+    before = fk.LAUNCHES["fl_aggregate"]
+    outs = fk.fl_aggregate_leaves_cuda(thetas, deltas, coeffs)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fl_aggregate"] == before + 1
+    tol = max(TOL[d] for d in dtypes)
+    for out, want, exact in zip(
+            outs, ref.aggregate_leaves_reference(thetas, deltas, coeffs),
+            ref.aggregate_leaves_fma_reference(thetas, deltas, coeffs)):
+        assert out.dtype == want.dtype and out.shape == want.shape
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        assert torch.equal(out, exact)
+
+
+@pytest.mark.cuda
+def test_leaf_kernel_is_bitwise_the_ravel_path_on_the_cnn(cuda):
+    """``aggregate_fused`` (one launch over the leaves) against the ravel
+    path (ravel, the flat entry, unravel) and the exact order of
+    arithmetic, bit for bit."""
+    from repro_torch.fl import server
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ref
+    names = sorted(CNN_SHAPES)
+    thetas, deltas, coeffs = _leaves([CNN_SHAPES[n] for n in names], 8, 5,
+                                     torch.float32, torch.float32, cuda)
+    params, stacked = dict(zip(names, thetas)), dict(zip(names, deltas))
+    before = fk.LAUNCHES["fl_aggregate"]
+    got = server.aggregate_fused(params, stacked, coeffs)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fl_aggregate"] == before + 1
+    ad = server.ParamRavel(params)
+    want = ad.unravel(fk.fl_aggregate_cuda(ad.ravel(params),
+                                           ad.ravel_stacked(stacked), coeffs))
+    exact = ref.aggregate_leaves_fma_reference(thetas, deltas, coeffs)
+    for name, e in zip(names, exact):
+        assert torch.equal(got[name], want[name]), name
+        assert torch.equal(got[name], e), name
+
+
+@pytest.mark.cuda
+def test_leaf_kernel_more_leaves_than_the_cap(cuda):
+    """150 leaves of one dtype pair take ceil(150 / 64) = 3 launches; two
+    dtype pairs take a launch each."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(3)
+    shapes = [(int(n),) for n in rng.integers(1, 3000, 150)]
+    thetas, deltas, coeffs = _leaves(shapes, 4, 6, torch.bfloat16,
+                                     torch.bfloat16, cuda)
+    before = fk.LAUNCHES["fl_aggregate"]
+    outs = fk.fl_aggregate_leaves_cuda(thetas, deltas, coeffs)
+    assert fk.LAUNCHES["fl_aggregate"] == before + 3
+    for out, want, exact in zip(
+            outs, ref.aggregate_leaves_reference(thetas, deltas, coeffs),
+            ref.aggregate_leaves_fma_reference(thetas, deltas, coeffs)):
+        torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        assert torch.equal(out, exact)
+    mixed = [t.float() if i % 2 else t for i, t in enumerate(thetas[:6])]
+    before = fk.LAUNCHES["fl_aggregate"]
+    fk.fl_aggregate_leaves_cuda(mixed, deltas[:6], coeffs)
+    assert fk.LAUNCHES["fl_aggregate"] == before + 2
+
+
+@pytest.mark.cuda
+def test_leaf_kernel_rejects_bad_leaves(cuda):
+    from repro_torch.kernels import fl_aggregate as fk
+    thetas, deltas, coeffs = _leaves([(6, 5), (7,)], 3, 0, torch.float32,
+                                     torch.float32, cuda)
+    with pytest.raises(ValueError, match="leaf 0 theta must be contiguous"):
+        fk.fl_aggregate_leaves_cuda([thetas[0].t(), thetas[1]], deltas,
+                                    coeffs)
+    with pytest.raises(ValueError, match="leaf 1: deltas must be"):
+        fk.fl_aggregate_leaves_cuda(
+            thetas, [deltas[0], deltas[1][:, :6].contiguous()], coeffs)
+    with pytest.raises(ValueError, match="leaf 1: deltas must be"):
+        fk.fl_aggregate_leaves_cuda(thetas, [deltas[0], deltas[1][:2]],
+                                    coeffs)
+    with pytest.raises(ValueError, match="dtype"):
+        fk.fl_aggregate_leaves_cuda([thetas[0].half(), thetas[1]], deltas,
+                                    coeffs)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fk.fl_aggregate_leaves_cuda([thetas[0], thetas[1].cpu()], deltas,
+                                    coeffs)
+    with pytest.raises(ValueError, match="thetas against"):
+        fk.fl_aggregate_leaves_cuda(thetas[:1], deltas, coeffs)
+
+
+@pytest.mark.cuda
+def test_aggregate_fused_replays_in_a_cuda_graph(cuda):
+    """The launch allocates, uploads and synchronises nothing, so a CUDA
+    graph captures it; a replay on new inputs equals the eager call."""
+    from repro_torch.fl import server
+    names = sorted(CNN_SHAPES)
+    thetas, deltas, coeffs = _leaves([CNN_SHAPES[n] for n in names], 8, 9,
+                                     torch.float32, torch.float32, cuda)
+    params, stacked = dict(zip(names, thetas)), dict(zip(names, deltas))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        server.aggregate_fused(params, stacked, coeffs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = server.aggregate_fused(params, stacked, coeffs)
+    for d in stacked.values():
+        d.mul_(-0.5)
+    graph.replay()
+    eager = server.aggregate_fused(params, stacked, coeffs)
+    torch.cuda.synchronize()
+    for name in names:
+        assert torch.equal(captured[name], eager[name]), name
+
+
 @pytest.mark.cuda
 def test_trainer_on_the_card_matches_the_cpu(cuda):
     """Three LROA rounds on the card (CUDA kernel, cuDNN) against the CPU
