@@ -47,13 +47,24 @@ error is caught):
    run on the CPU; reference.lm — the smoke gemma2-27b (flash, binding
    window) and mamba2-130m served greedily on the card and on the CPU
    with the same parameters: equal tokens, logits within 1e-4 (the CPU
-   path is held against the JAX package by the tests);
+   path is held against the JAX package by the tests); reference.scan —
+   ``RoundEngine.run_scan`` under each of the seven controllers
+   (``repro_torch.core.POLICIES``), then LROA with 20% dropout and with
+   padded K, on the card against the same rollouts on the CPU (T = 3):
+   equal selections, params, queues and metrics within 1e-4, T
+   ``fl_aggregate`` launches on the card and none on the CPU, the padded
+   rollout's params bitwise the unpadded one's;
 5. main path — the paper-scale CNN testbed (N = 120 Dirichlet-0.5
    clients, K = 8, E = 2, batch 16, ``bank_mode='single'``): ``warmup()``,
    then 3 LROA rounds through ``FederatedTrainer.run_round``, checking
    finite losses, q on the simplex, moved queues, changed params and
    exactly one ``fl_aggregate`` launch per round; profile — one more
-   round under ``torch.profiler``;
+   round under ``torch.profiler``; scan — the paper's comparison on the
+   same testbed: the seven controllers' ``run_scan`` rollouts of 4
+   rounds each from the same params over the same channels, each with
+   its seconds, rounds/s, ``decide``'s share, modelled latency, final
+   queue mean and last loss, exactly one ``fl_aggregate`` launch per
+   round, q on the simplex and changed params;
 6. serve.gemma2 — gemma2-27b at full width and depth (46 layers, bf16
    parameters and activations, ``attn_impl='flash'``), random weights
    from a seed: ``greedy_generate`` of 16 tokens after 2 prompts of 4352
@@ -124,6 +135,14 @@ MAIN_POINT = POINTS[0]
 # over a few hundred leaves)
 HOLD_CYCLES = 10_000_000
 ROUNDS = 3
+# rounds of each controller's rollout in the scan phase, and of each
+# card-against-CPU rollout in reference.scan
+SCAN_ROUNDS = 4
+REFERENCE_SCAN_ROUNDS = 3
+# the small testbed of the card-against-CPU phases
+SMALL = dict(num_devices=6, sample_count=3, local_epochs=2, batch_size=8,
+             examples=400, image_shape=(8, 8, 1), num_classes=4, width=4,
+             lr=0.1, rounds=3, seed=0)
 # benchmarks/common.BenchConfig.paper_scale() at K = 8
 PAPER_SCALE = dict(num_devices=120, sample_count=8, local_epochs=2,
                    batch_size=16, examples=50_000, image_shape=(32, 32, 3),
@@ -525,9 +544,7 @@ def phase_reference(devices=("cpu", "cuda")) -> None:
     by ``tests/test_torch_cuda.py``."""
     from repro_torch.kernels import fl_aggregate as fk
 
-    cfg = dict(num_devices=6, sample_count=3, local_epochs=2, batch_size=8,
-               examples=400, image_shape=(8, 8, 1), num_classes=4, width=4,
-               lr=0.1, rounds=3, seed=0)
+    cfg = SMALL
     from repro_torch.data import bucket_examples
 
     data = make_data(cfg)
@@ -563,6 +580,187 @@ def phase_reference(devices=("cpu", "cuda")) -> None:
     require(sel_equal, "card and CPU select the same clients")
     require(param_err <= 1e-4 and loss_err <= 1e-4 and queue_rel <= 1e-4,
             "card and CPU runs agree within 1e-4")
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| / max(|b|, 1) over two arrays."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
+
+
+def phase_reference_scan(devices=("cpu", "cuda")) -> None:
+    """``RoundEngine.run_scan`` of every controller on the card against
+    the same rollout on the CPU, on the small testbed of
+    :func:`phase_reference`: the same initial params, channels, learning
+    rates and draws (the rollout key comes from a CPU generator, and the
+    counter-based draws give the same bits on both), T = 3 rounds; then
+    one LROA rollout with 20% dropout and one with padded K (K_max = K +
+    2).  Selections equal, params, queues and every metric within 1e-4,
+    exactly T ``fl_aggregate`` launches on the card and none on the CPU,
+    and the padded rollout's params bitwise the unpadded one's, on the
+    card (``fl_aggregate`` adds the inert slots' exact zeros in order) and
+    on the CPU, which runs on one thread here (with several, PyTorch's CPU
+    reductions split the client axis by thread count, and K + 2 rows then
+    sum in another order: about 3e-8 apart).  Also run by
+    ``tests/test_torch_cuda.py``."""
+    from repro_torch.core import POLICIES
+    from repro_torch.fl import ChannelConfig, ChannelProcess
+    from repro_torch.kernels import fl_aggregate as fk
+
+    cfg, rounds = SMALL, REFERENCE_SCAN_ROUNDS
+    n, k = cfg["num_devices"], cfg["sample_count"]
+    data = make_data(cfg)
+    h_seq = ChannelProcess(n, ChannelConfig(seed=cfg["seed"])
+                           ).sample_sequence(rounds)
+    drop = ChannelProcess(n, ChannelConfig(seed=cfg["seed"] + 1,
+                                           dropout=0.2)
+                          ).dropout_sequence(rounds)
+    init = None
+    cases = [(policy, {}) for policy in POLICIES] + [
+        ("lroa", dict(drop_seq=drop)), ("lroa", dict(k_max=k + 2))]
+    runs = {}
+    threads = torch.get_num_threads()
+    for device in devices:
+        torch.set_num_threads(1 if device == "cpu" else threads)
+        trainer = build_trainer(device, cfg, data)
+        if init is None:
+            init = trainer.task.init(torch.Generator().manual_seed(7))
+        lr_seq = [trainer.lr_schedule(t) for t in range(rounds)]
+        hp = trainer.controller.hp
+        for i, (policy, extra) in enumerate(cases):
+            before = fk.LAUNCHES["fl_aggregate"]
+            params, queues, met = trainer.engine.run_scan(
+                {name: p.to(device) for name, p in init.items()},
+                trainer.params, trainer.bank, h_seq, lr_seq,
+                torch.Generator().manual_seed(5), policy=policy, V=hp.V,
+                lam=hp.lam, **extra)
+            launched = fk.LAUNCHES["fl_aggregate"] - before
+            require(launched == (rounds if device == "cuda" else 0),
+                    f"{device} {policy} {sorted(extra)}: {launched} "
+                    f"fl_aggregate launches in {rounds} rounds")
+            runs[device, i] = ({name: p.cpu() for name, p in
+                                params.items()}, queues.cpu(), met)
+    torch.set_num_threads(threads)
+    cpu, card = devices
+    for i, (policy, extra) in enumerate(cases):
+        (pc, qc, mc), (pg, qg, mg) = runs[cpu, i], runs[card, i]
+        sel_equal = bool(np.array_equal(mc["selected"], mg["selected"]))
+        param_err = max(float((pc[name] - pg[name]).abs().max())
+                        for name in pc)
+        queue_err = _rel_err(qg.numpy(), qc.numpy())
+        metric_err = {name: _rel_err(mg[name], mc[name]) for name in mc
+                      if name != "selected"}
+        log("reference.scan", policy=policy, extra=sorted(extra),
+            rounds=rounds, selections_equal=sel_equal,
+            selected=mg["selected"].tolist(), param_max_abs_err=param_err,
+            queue_max_rel_err=queue_err, metric_max_rel_err=metric_err,
+            q_min=mg["q_min"].tolist(), tol=1e-4)
+        require(sel_equal, f"{policy}: card and CPU select the same clients")
+        require(param_err <= 1e-4 and queue_err <= 1e-4 and
+                max(metric_err.values()) <= 1e-4,
+                f"{policy} {sorted(extra)}: card and CPU rollouts agree "
+                f"within 1e-4")
+        require(np.all(np.abs(mg["q_sum"] - 1.0) <= 1e-5),
+                f"{policy}: q on the simplex in every round")
+    padded = len(cases) - 1
+    for device in devices:
+        p1, q1, m1 = runs[device, 0]
+        p2, q2, m2 = runs[device, padded]
+        err = max(float((p1[name] - p2[name]).abs().max()) for name in p1)
+        bitwise = all(torch.equal(p1[name], p2[name]) for name in p1)
+        log("reference.scan.padded", device=device, k=k, k_max=k + 2,
+            params_bitwise_equal=bitwise, param_max_abs_err=err,
+            selections_equal=bool(np.array_equal(m2["selected"][:, :k],
+                                                 m1["selected"])))
+        require(np.array_equal(m2["selected"][:, :k], m1["selected"])
+                and np.all(m2["selected"][:, k:] == -1),
+                f"{device}: the padded rollout fills the first K slots as "
+                f"the unpadded one and marks the rest -1")
+        require(bitwise, f"{device}: the padded rollout's params are "
+                         f"bitwise the unpadded one's")
+
+
+def phase_scan(trainer, cfg: dict = PAPER_SCALE,
+               rounds: int = SCAN_ROUNDS) -> dict:
+    """The paper's comparison at paper scale: every controller's
+    ``run_scan`` rollout of ``rounds`` rounds on the main path's engine
+    and bank, from the same initial params over the same channels
+    (``ChannelProcess(120, ChannelConfig(seed=0)).sample_sequence``),
+    with the main path's V, lam and learning-rate schedule.  Each
+    rollout must launch ``fl_aggregate`` once per round, end with a
+    finite loss, keep q on the simplex and change the params (on the CPU,
+    for a rehearsal, it launches none)."""
+    from repro_torch.core import POLICIES
+    from repro_torch.fl import ChannelConfig, ChannelProcess
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.obs import trace
+
+    engine, bank, sp = trainer.engine, trainer.bank, trainer.params
+    dev = trainer.device
+    on_card = dev.type == "cuda"
+    want = rounds if on_card else 0
+    hp = trainer.controller.hp
+    h_seq = ChannelProcess(cfg["num_devices"], ChannelConfig(
+        seed=cfg["seed"])).sample_sequence(rounds)
+    lr_seq = [trainer.lr_schedule(t) for t in range(rounds)]
+    init = trainer.task.init(torch.Generator(device=dev).manual_seed(
+        cfg["seed"] + 1))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    trainer._sync()
+    rows = []
+    _reset_launch_counts()
+    t_all = time.perf_counter()
+    for policy in POLICIES:
+        count0 = fk.LAUNCHES["fl_aggregate"]
+        with trace.installed(trace.MemorySink()) as sink:
+            t0 = time.perf_counter()
+            params, queues, met = engine.run_scan(
+                init, sp, bank, h_seq, lr_seq,
+                torch.Generator().manual_seed(cfg["seed"]), policy=policy,
+                V=hp.V, lam=hp.lam)
+            trainer._sync()
+            seconds = time.perf_counter() - t0
+        launched = fk.LAUNCHES["fl_aggregate"] - count0
+        decide_s = sum(r["dur"] for r in sink.by_name("scan.decide"))
+        changed = max(float((params[name] - init[name]).abs().max())
+                      for name in init)
+        q_err = float(np.max(np.abs(met["q_sum"] - 1.0)))
+        row = dict(policy=policy, rounds=rounds, seconds=seconds,
+                   rounds_per_s=rounds / seconds, decide_s=decide_s,
+                   decide_share=decide_s / seconds,
+                   fl_aggregate_launches=launched,
+                   latency_total_s=float(np.sum(met["wall_time"])),
+                   queue_mean_final=float(met["queue_mean"][-1]),
+                   loss_last=float(met["loss"][-1]),
+                   q_sum_max_err=q_err, q_min=float(np.min(met["q_min"])),
+                   param_max_change=changed,
+                   selected_round0=met["selected"][0].tolist())
+        log("scan.controller", **row)
+        require(launched == want, f"{policy}: {want} fl_aggregate "
+                                  f"launches, got {launched}")
+        require(np.isfinite(row["loss_last"]), f"{policy}: finite loss")
+        require(q_err <= 1e-5, f"{policy}: q on the simplex in every round")
+        require(changed > 0.0 and all(bool(torch.isfinite(p).all())
+                                      for p in params.values()),
+                f"{policy}: the params changed and are finite")
+        rows.append(row)
+        del params, queues
+    t_all = time.perf_counter() - t_all
+    launches = dict(fk.LAUNCHES)
+    lroa = rows[0]["latency_total_s"]
+    summary = dict(controllers=len(rows), rounds=rounds, seconds=t_all,
+                   peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                                   if on_card else None),
+                   launches=launches,
+                   latency_total_s={r["policy"]: r["latency_total_s"]
+                                    for r in rows},
+                   lroa_latency_over={r["policy"]: lroa / r["latency_total_s"]
+                                      for r in rows[1:]})
+    log("scan", **summary)
+    require(launches["fl_aggregate"] == want * len(rows),
+            f"{want * len(rows)} fl_aggregate launches in the scan phase")
+    return summary
 
 
 def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE) -> dict:
@@ -1071,11 +1269,12 @@ def phase_profile_serve(run: dict) -> None:
 
 
 def kernels_line(points: list, leaves: dict, main_summary: dict,
-                 flash: list, ssd: list, gemma: dict, mamba: dict, smi: str,
-                 sass: dict) -> dict:
+                 scan_summary: dict, flash: list, ssd: list, gemma: dict,
+                 mamba: dict, smi: str, sass: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
-    path (the LROA rounds, the gemma2 and the mamba2 generation) and its
-    numbers at that path's shapes."""
+    paths (the LROA rounds and the seven controllers' rollouts; the
+    gemma2 and the mamba2 generation) and its numbers at that path's
+    shapes."""
     m = next(p for p in points if (p["n"], p["k"]) == MAIN_POINT[:2]
              and p["dtype"] == "float32")
     fg = next(r for r in flash if r["label"] == "gemma2.global")
@@ -1100,8 +1299,12 @@ def kernels_line(points: list, leaves: dict, main_summary: dict,
     return {"kernels": [
         entry("fl_aggregate", "src/repro_torch/kernels/csrc/fl_aggregate.cu",
               "src/repro/kernels/fl_aggregate.py:35",
-              main_summary["launches"]["fl_aggregate"],
+              main_summary["launches"]["fl_aggregate"]
+              + scan_summary["launches"]["fl_aggregate"],
               dict(fused, library_ms=None),
+              launches_by_path={
+                  "main": main_summary["launches"]["fl_aggregate"],
+                  "scan": scan_summary["launches"]["fl_aggregate"]},
               max_abs_err_all_points=max(
                   [p["max_abs_err"] for p in points] + [fused["max_abs_err"]]
                   + [r["max_abs_err"] for r in leaves["leaves"]]),
@@ -1274,9 +1477,11 @@ def main() -> int:
     del flush
     phase_reference()
     phase_reference_lm()
+    phase_reference_scan()
     main_summary = phase_main_path()
     trainer = main_summary.pop("trainer")
     phase_profile(trainer, ROUNDS)
+    scan_summary = phase_scan(trainer)
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1291,8 +1496,9 @@ def main() -> int:
     for key in ("model", "params", "prompts"):
         del mamba[key]
 
-    print(json.dumps(kernels_line(points, leaves, main_summary, flash, ssd,
-                                  gemma, mamba, smi, sass)), flush=True)
+    print(json.dumps(kernels_line(points, leaves, main_summary, scan_summary,
+                                  flash, ssd, gemma, mamba, smi, sass)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

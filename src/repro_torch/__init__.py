@@ -6,7 +6,9 @@ each module's counterpart is easy to find.  The port imports ``torch``
 and ``numpy`` only, never ``jax`` and nothing of ``repro``: what it needs
 from the JAX package's numpy-only modules is copied here.
 
-Entry points (``FederatedTrainer``, ``RoundEngine``, ``ClientBank``,
-``LROAController``, ``SystemParams``) default to ``device="cuda"``; pass
-``device="cpu"`` to run the plain PyTorch path, as the tests do.
+Entry points (``FederatedTrainer``, ``RoundEngine`` and its
+``run_scan`` rollout, ``ClientBank``, ``SystemParams``; the controllers
+``LROAController`` and ``core.baselines``' run on the params' device)
+default to ``device="cuda"``; pass ``device="cpu"`` to run the plain
+PyTorch path, as the tests do.
 """

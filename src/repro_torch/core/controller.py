@@ -17,6 +17,7 @@ Hyper-parameter initialisation follows Sec. VII-B:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,19 +38,21 @@ class LROAHyperParams:
     nu: float
 
 
-def estimate_hyperparams(params: sm.SystemParams, mean_gain: float,
-                         loss_scale: float = 1.0, mu: float = 1.0,
-                         nu: float = 1e5) -> LROAHyperParams:
-    """lambda_0 = T_0/F_0 and V_0 = a_0^2/(T_0 + lambda F_0) (Sec. VII-B),
-    computed in float32 on the params' device, returned as floats."""
+def estimate_hyperparams_arrays(params: sm.SystemParams, mean_gain,
+                                loss_scale=1.0, mu=1.0, nu=1e5
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor, torch.Tensor]:
+    """The Sec. VII-B estimates ``(lam, V, lam0, V0)`` as float32 scalar
+    tensors on the params' device; ``mean_gain``, ``loss_scale``, ``mu``
+    and ``nu`` may be numbers or scalar tensors."""
     dev = params.device
     f_mid = 0.5 * (params.f_min + params.f_max)
     p_mid = 0.5 * (params.p_min + params.p_max)
-    h = torch.full((params.num_devices,), mean_gain, dtype=torch.float32,
-                   device=dev)
+    h = torch.as_tensor(mean_gain, dtype=torch.float32, device=dev).expand(
+        params.num_devices)
     t0 = torch.sum(params.data_weights *
                    sm.round_time(params, h, p_mid, f_mid))
-    f0 = torch.tensor(loss_scale, dtype=torch.float32, device=dev)
+    f0 = torch.as_tensor(loss_scale, dtype=torch.float32, device=dev)
     lam0 = t0 / torch.clamp(f0, min=1e-12)
     lam = mu * lam0
     q_w = params.data_weights
@@ -58,30 +61,31 @@ def estimate_hyperparams(params: sm.SystemParams, mean_gain: float,
         sm.selection_probability(q_w, params.sample_count) * e0
         - params.energy_budget))
     v0 = torch.square(a0) / torch.clamp(t0 + lam * f0, min=1e-12)
-    return LROAHyperParams(lam=float(lam), V=float(nu * v0),
-                           lam0=float(lam0), V0=float(v0), mu=mu, nu=nu)
+    return lam, nu * v0, lam0, v0
 
 
-class LROAController:
-    """Stateful wrapper: virtual queues + Algorithm 2 decisions.
+def estimate_hyperparams(params: sm.SystemParams, mean_gain: float,
+                         loss_scale: float = 1.0, mu: float = 1.0,
+                         nu: float = 1e5) -> LROAHyperParams:
+    """lambda_0 = T_0/F_0 and V_0 = a_0^2/(T_0 + lambda F_0) (Sec. VII-B),
+    computed in float32 on the params' device, returned as floats."""
+    lam, v, lam0, v0 = estimate_hyperparams_arrays(
+        params, mean_gain, loss_scale=loss_scale, mu=mu, nu=nu)
+    return LROAHyperParams(lam=float(lam), V=float(v), lam0=float(lam0),
+                           V0=float(v0), mu=mu, nu=nu)
 
-    The decision rule itself is :func:`repro_torch.core.policy.decide_lroa`;
-    this class carries the queue state (a ``[N]`` tensor on the params'
-    device) and the hyper-parameters for the host-driven loop.
-    """
 
-    name = "lroa"
+class QueueTracker:
+    """The state every controller carries for the host loop: the virtual
+    energy queues (a ``[N]`` tensor on the params' device), the
+    hyper-parameters and a history of round statistics."""
 
-    def __init__(self, params: sm.SystemParams, hp: LROAHyperParams,
-                 cfg: slv.SolverConfig = slv.SolverConfig()):
+    def __init__(self, params: sm.SystemParams,
+                 hp: Optional[LROAHyperParams]):
         self.params = params
         self.hp = hp
-        self.cfg = cfg
         self.queues = vq.init_queues(params.num_devices, params.device)
-
-    def decide(self, h: torch.Tensor) -> slv.ControlDecision:
-        return pol.decide_lroa(self.params, h, self.queues,
-                               self.hp.V, self.hp.lam, self.cfg)
+        self.history: list[dict] = []
 
     def step_queues(self, h: torch.Tensor,
                     decision: slv.ControlDecision) -> torch.Tensor:
@@ -89,6 +93,42 @@ class LROAController:
                                   decision.q)
         self.queues = vq.update_queues(self.queues, inc)
         return self.queues
+
+
+class LROAController(QueueTracker):
+    """Stateful wrapper: virtual queues + Algorithm 2 decisions; the
+    decision rule itself is :func:`repro_torch.core.policy.decide_lroa`.
+    """
+
+    name = "lroa"
+
+    def __init__(self, params: sm.SystemParams, hp: LROAHyperParams,
+                 cfg: slv.SolverConfig = slv.SolverConfig()):
+        super().__init__(params, hp)
+        self.cfg = cfg
+
+    def decide(self, h: torch.Tensor) -> slv.ControlDecision:
+        return pol.decide_lroa(self.params, h, self.queues,
+                               self.hp.V, self.hp.lam, self.cfg)
+
+    def round_stats(self, h: torch.Tensor,
+                    decision: slv.ControlDecision) -> dict:
+        """The round's expected latency (eq. 11), P2's penalty term,
+        expected energy and queue summary, appended to ``history``."""
+        f, p, q = decision
+        t = sm.round_time(self.params, h, p, f)
+        e = sm.expected_energy(self.params, h, p, f, q)
+        w = self.params.data_weights
+        obj = float(torch.sum(q * t + self.hp.lam * torch.square(w) / q))
+        stats = dict(
+            expected_latency=float(sm.expected_round_latency(q, t)),
+            objective=obj,
+            expected_energy=float(torch.mean(e)),
+            queue_mean=float(torch.mean(self.queues)),
+            queue_max=float(torch.max(self.queues)),
+        )
+        self.history.append(stats)
+        return stats
 
 
 def realized_round_time(params: sm.SystemParams, h: torch.Tensor,
@@ -99,3 +139,15 @@ def realized_round_time(params: sm.SystemParams, h: torch.Tensor,
     t = sm.round_time(params, h, decision.p, decision.f)
     uniq = torch.as_tensor(np.unique(np.asarray(selected)), device=t.device)
     return float(torch.max(t[uniq]))
+
+
+def realized_energy(params: sm.SystemParams, h: torch.Tensor,
+                    decision: slv.ControlDecision,
+                    selected: np.ndarray) -> np.ndarray:
+    """Per-device energy actually drawn this round (selected devices
+    only), on the host."""
+    e = sm.round_energy(params, h, decision.p, decision.f).cpu().numpy()
+    out = np.zeros_like(e)
+    uniq = np.unique(np.asarray(selected))
+    out[uniq] = e[uniq]
+    return out

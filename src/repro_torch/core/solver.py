@@ -17,7 +17,10 @@ norm back to the host once (one ``.item()``), so the trip counts are the
 reference's, and a round does only the iterations it needs.
 
 As in the JAX package, P2.2's concave term carries the derived Q_n
-weight: ``- sum_n Q_n E_n (1-q_n)^K``.
+weight: ``- sum_n Q_n E_n (1-q_n)^K``.  Every function takes ``k``, K
+as data (see ``system_model.effective_k``); ``V`` and ``lam`` may be
+Python numbers or float32 tensors (``run_scan`` passes ``[N]`` vectors,
+as the JAX package's scan does).
 """
 
 from __future__ import annotations
@@ -60,14 +63,14 @@ def _above(value: torch.Tensor, tol: float) -> bool:
 # --------------------------------------------------------------------------
 
 def solve_f(params: sm.SystemParams, q: torch.Tensor, queues: torch.Tensor,
-            V: float) -> torch.Tensor:
+            V, k=None) -> torch.Tensor:
     """(f_n^t)* = clip(cbrt(V q_n / (Q_n (1-(1-q_n)^K) alpha_n))).
 
     Zero energy pressure (queue or selection probability zero) sends f to
     f_max, which the ``where`` and the clip reproduce.  The cube root is
     ``pow(1/3)``: its argument is never negative here.
     """
-    sel = sm.selection_probability(q, params.sample_count)
+    sel = sm.selection_probability(q, sm.effective_k(params, k))
     denom = queues * sel * params.capacitance
     num = V * q
     cube = num / torch.clamp(denom, min=_EPS)
@@ -86,13 +89,14 @@ def _phi(x: torch.Tensor) -> torch.Tensor:
 
 
 def solve_p(params: sm.SystemParams, q: torch.Tensor, queues: torch.Tensor,
-            h: torch.Tensor, V: float, num_iters: int = 64) -> torch.Tensor:
+            h: torch.Tensor, V, num_iters: int = 64, k=None
+            ) -> torch.Tensor:
     """Solve ``phi(x) = A_1`` for x = h p / N0 by bisection, then clip p.
 
     A_{1,n} = V q_n h_n / (Q_n (1-(1-q_n)^K) N0); Q_n -> 0 sends A_1 -> inf
     and the clip returns p_max.
     """
-    sel = sm.selection_probability(q, params.sample_count)
+    sel = sm.selection_probability(q, sm.effective_k(params, k))
     denom = queues * sel * params.noise_power
     a1 = V * (q * h / torch.clamp(denom, min=_EPS))
     x_max = h * params.p_max / params.noise_power
@@ -142,10 +146,21 @@ def _waterfill_simplex(b: torch.Tensor, a3: torch.Tensor, q_floor: float,
     return q / torch.sum(q)
 
 
+def p22_objective(params: sm.SystemParams, q: torch.Tensor,
+                  t_round: torch.Tensor, energy: torch.Tensor,
+                  queues: torch.Tensor, V, lam, k=None) -> torch.Tensor:
+    """f(q) of P2.2 (with the derived Q_n weight on the concave term)."""
+    w = params.data_weights
+    convex = V * torch.sum(t_round * q + lam * torch.square(w) / q)
+    concave = -torch.sum(queues * energy *
+                         torch.pow(1.0 - q, sm.effective_k(params, k)))
+    return convex + concave
+
+
 def solve_q(params: sm.SystemParams, t_round: torch.Tensor,
-            energy: torch.Tensor, queues: torch.Tensor, V: float,
-            lam: float, q_init: torch.Tensor,
-            cfg: SolverConfig = SolverConfig()) -> torch.Tensor:
+            energy: torch.Tensor, queues: torch.Tensor, V, lam,
+            q_init: torch.Tensor, cfg: SolverConfig = SolverConfig(),
+            k=None) -> torch.Tensor:
     """SUM iterations for P2.2.
 
     Each step linearises ``-sum Q_n E_n (1-q_n)^K`` at the current iterate
@@ -156,14 +171,14 @@ def solve_q(params: sm.SystemParams, t_round: torch.Tensor,
     w = params.data_weights
     a2 = V * t_round                    # A_{2,n}
     a3 = V * lam * torch.square(w)      # A_{3,n}
-    k = params.sample_count
+    kk = sm.effective_k(params, k)
 
     q = q_init / torch.sum(q_init)
     q_prev = q + 1.0
     it = 0
     while it < cfg.sum_iters and _above(
             torch.linalg.vector_norm(q - q_prev), cfg.sum_tol):
-        grad_cve = queues * energy * k * torch.pow(1.0 - q, k - 1)
+        grad_cve = queues * energy * kk * torch.pow(1.0 - q, kk - 1)
         b = a2 + grad_cve
         q, q_prev = _waterfill_simplex(b, a3, cfg.q_floor,
                                        cfg.bisect_iters), q
@@ -175,9 +190,23 @@ def solve_q(params: sm.SystemParams, t_round: torch.Tensor,
 # P2 — outer alternating loop (Algorithm 2)
 # --------------------------------------------------------------------------
 
+def p2_objective(params: sm.SystemParams, h: torch.Tensor,
+                 decision: ControlDecision, queues: torch.Tensor, V, lam,
+                 k=None) -> torch.Tensor:
+    """V sum_n (q T + lam w^2/q) + sum_n Q_n a_n  — the P2 objective."""
+    f, p, q = decision
+    t = sm.round_time(params, h, p, f, k=k)
+    e = sm.round_energy(params, h, p, f, k=k)
+    w = params.data_weights
+    penalty = V * torch.sum(q * t + lam * torch.square(w) / q)
+    a = (sm.selection_probability(q, sm.effective_k(params, k)) * e -
+         params.energy_budget)
+    return penalty + torch.sum(queues * a)
+
+
 def solve_p2(params: sm.SystemParams, h: torch.Tensor, queues: torch.Tensor,
-             V: float, lam: float,
-             cfg: SolverConfig = SolverConfig()) -> ControlDecision:
+             V, lam, cfg: SolverConfig = SolverConfig(),
+             k=None) -> ControlDecision:
     """Algorithm 2: alternate the (f, p) closed forms with SUM on q.
 
     Initial guesses follow the paper: mid-range f and p, uniform q.  Stops
@@ -198,11 +227,11 @@ def solve_p2(params: sm.SystemParams, h: torch.Tensor, queues: torch.Tensor,
     while it < cfg.outer_iters and _above(
             torch.linalg.vector_norm(pack(dec) - pack(prev)),
             cfg.outer_tol):
-        f_new = solve_f(params, dec.q, queues, V)
-        p_new = solve_p(params, dec.q, queues, h, V, cfg.bisect_iters)
-        t = sm.round_time(params, h, p_new, f_new)
-        e = sm.round_energy(params, h, p_new, f_new)
-        q_new = solve_q(params, t, e, queues, V, lam, dec.q, cfg)
+        f_new = solve_f(params, dec.q, queues, V, k=k)
+        p_new = solve_p(params, dec.q, queues, h, V, cfg.bisect_iters, k=k)
+        t = sm.round_time(params, h, p_new, f_new, k=k)
+        e = sm.round_energy(params, h, p_new, f_new, k=k)
+        q_new = solve_q(params, t, e, queues, V, lam, dec.q, cfg, k=k)
         dec, prev = ControlDecision(f_new, p_new, q_new), dec
         it += 1
     return dec

@@ -13,6 +13,11 @@ Conventions
 * Scalars (``V``, ``lam``, ``K``, bandwidth, noise) stay Python numbers, so
   every product with a tensor is computed in float32, as in the JAX
   package.
+* ``k`` (optional, every K-parameterised function takes it) replaces the
+  static ``params.sample_count`` with K as data: a scalar or an ``[N]``
+  float32 tensor (``RoundEngine.run_scan`` passes ``kvec``, the rollout's
+  true K broadcast to ``[N]``, as the JAX package's scan does).
+  ``k=None`` reads ``params.sample_count``.
 """
 
 from __future__ import annotations
@@ -131,17 +136,23 @@ def paper_default_params(num_devices: int = 120,
 # Time model (eqs. (5)-(11))
 # --------------------------------------------------------------------------
 
-def uplink_rate(params: SystemParams, h: torch.Tensor,
-                p: torch.Tensor) -> torch.Tensor:
+def effective_k(params: SystemParams, k):
+    """The K a computation reads: ``k`` when given (K as data), else the
+    static ``params.sample_count``."""
+    return params.sample_count if k is None else k
+
+
+def uplink_rate(params: SystemParams, h: torch.Tensor, p: torch.Tensor,
+                k=None) -> torch.Tensor:
     """r_{n,u}^t = B_n log2(1 + h p / N0) — eq. (5), B_n = B / K."""
-    bn = params.bandwidth_hz / params.sample_count
+    bn = params.bandwidth_hz / effective_k(params, k)
     return bn * torch.log2(1.0 + h * p / params.noise_power)
 
 
-def upload_time(params: SystemParams, h: torch.Tensor,
-                p: torch.Tensor) -> torch.Tensor:
+def upload_time(params: SystemParams, h: torch.Tensor, p: torch.Tensor,
+                k=None) -> torch.Tensor:
     """T_{n,u}^{t,com} = M / r_{n,u}^t — eq. (6)."""
-    return params.model_bits / uplink_rate(params, h, p)
+    return params.model_bits / uplink_rate(params, h, p, k)
 
 
 def download_time(params: SystemParams) -> torch.Tensor:
@@ -158,10 +169,10 @@ def compute_time(params: SystemParams, f: torch.Tensor) -> torch.Tensor:
 
 
 def round_time(params: SystemParams, h: torch.Tensor, p: torch.Tensor,
-               f: torch.Tensor, include_download: bool = False
-               ) -> torch.Tensor:
+               f: torch.Tensor, include_download: bool = False,
+               k=None) -> torch.Tensor:
     """T_n^t — eq. (9). The paper's experiments ignore the download term."""
-    t = compute_time(params, f) + upload_time(params, h, p)
+    t = compute_time(params, f) + upload_time(params, h, p, k)
     if include_download:
         t = t + download_time(params)
     return t
@@ -183,27 +194,27 @@ def compute_energy(params: SystemParams, f: torch.Tensor) -> torch.Tensor:
     return 0.5 * params.capacitance * cycles * torch.square(f)
 
 
-def comm_energy(params: SystemParams, h: torch.Tensor,
-                p: torch.Tensor) -> torch.Tensor:
+def comm_energy(params: SystemParams, h: torch.Tensor, p: torch.Tensor,
+                k=None) -> torch.Tensor:
     """E_n^{t,com} = p * T_{n,u}^{t,com} — eq. (14)."""
-    return p * upload_time(params, h, p)
+    return p * upload_time(params, h, p, k)
 
 
 def round_energy(params: SystemParams, h: torch.Tensor, p: torch.Tensor,
-                 f: torch.Tensor) -> torch.Tensor:
+                 f: torch.Tensor, k=None) -> torch.Tensor:
     """E_n^t — eq. (15)."""
-    return compute_energy(params, f) + comm_energy(params, h, p)
+    return compute_energy(params, f) + comm_energy(params, h, p, k)
 
 
-def selection_probability(q: torch.Tensor, sample_count: int
-                          ) -> torch.Tensor:
+def selection_probability(q: torch.Tensor, sample_count) -> torch.Tensor:
     """1 - (1 - q)^K — probability device selected at least once
-    (Sec. III-F)."""
+    (Sec. III-F); ``sample_count`` is an int or K as data."""
     return 1.0 - torch.pow(1.0 - q, sample_count)
 
 
 def expected_energy(params: SystemParams, h: torch.Tensor, p: torch.Tensor,
-                    f: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+                    f: torch.Tensor, q: torch.Tensor, k=None
+                    ) -> torch.Tensor:
     """Per-round expected energy draw entering constraint (16)."""
-    return (selection_probability(q, params.sample_count) *
-            round_energy(params, h, p, f))
+    return (selection_probability(q, effective_k(params, k)) *
+            round_energy(params, h, p, f, k))

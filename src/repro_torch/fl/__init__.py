@@ -1,6 +1,7 @@
 """repro_torch.fl — the federated learning substrate: Algorithm 1 loop,
 K-client batched local SGD, eq.-(4) aggregation, the seeded channel
-process, the device-resident ClientBank, and the round engine."""
+process, the device-resident ClientBank, and the round engine with its
+multi-round rollout (``RoundEngine.run_scan``)."""
 
 from repro_torch.fl.client import ClientConfig, batched_local_sgd
 from repro_torch.fl.client_bank import ClientBank

@@ -8,9 +8,13 @@ bitwise the same gains as the JAX package).
 * ``mode='markov'`` — a per-client two-state Gilbert-Elliott chain
   (good/bad) whose state picks the truncated exponential's mean; the
   host process keeps its state vector across :meth:`sample` calls.
+* per-client dropout — :meth:`ChannelProcess.dropout_sequence`, a
+  Bernoulli ``[T, N]`` alive mask from the same numpy stream, which
+  ``RoundEngine.run_scan(drop_seq=)`` consumes.
 
 The JAX package's device-side samplers (``sample_gains``,
-``sample_gains_markov``, dropout masks) are later work (ROADMAP queue A).
+``sample_gains_markov``, ``sample_dropout_mask``) are later work
+(ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ class ChannelConfig:
     p_gb: float = 0.0
     #: P(bad -> good) per round.
     p_bg: float = 0.0
+    #: Per-client per-round dropout probability.
+    dropout: float = 0.0
 
     def __post_init__(self):
         if self.mode not in CHANNEL_MODES:
@@ -49,6 +55,8 @@ class ChannelConfig:
                              f"(known: {CHANNEL_MODES})")
         if not (0.0 <= self.p_gb <= 1.0 and 0.0 <= self.p_bg <= 1.0):
             raise ValueError("transition probabilities must lie in [0, 1]")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError("dropout rate must lie in [0, 1)")
 
 
 def markov_stationary(p_gb: float, p_bg: float) -> float:
@@ -132,3 +140,10 @@ class ChannelProcess:
             out.append(self._first_in_range(draws))
         return np.concatenate(out) if out else np.zeros(
             (0, self.num_devices), np.float32)
+
+    def dropout_sequence(self, num_rounds: int) -> np.ndarray:
+        """[T, N] alive mask (1.0 = alive), each client dropping with
+        probability ``cfg.dropout`` per round; draws from the process's
+        numpy stream, so it advances the gains' stream too."""
+        u = self._rng.uniform(size=(num_rounds, self.num_devices))
+        return (u >= self.cfg.dropout).astype(np.float32)

@@ -1,5 +1,7 @@
 """Device-resident FL round engine over a ClientBank — the port of
-``repro.fl.round_engine.RoundEngine``'s single-round path.
+``repro.fl.round_engine.RoundEngine``'s single-bucket paths: one round
+(:meth:`RoundEngine.round_step`) and a whole rollout of Algorithm 1
+(:meth:`RoundEngine.run_scan`).
 
 A round is
 
@@ -13,20 +15,29 @@ with no per-round host-to-device transfer of client data.  One gather
 core (:meth:`_gathered_round`) feeds one round core (:meth:`_round_core`),
 as in the JAX package.
 
-This slice ports the fused single-bucket round (``make_bank`` with
+``run_scan`` runs T rounds of decide -> select -> train -> aggregate ->
+queue update under any controller of ``repro_torch.core.policy.POLICIES``
+as a Python loop whose state (params, queues, per-round metrics) stays
+on the device: the host reads back only what Algorithm 2's while-loops
+read (one norm per iteration), and the metrics once, at the end.
+
+This slice ports the single-bucket bank (``make_bank`` with
 ``'single'``, or ``'auto'`` when the partition fits one tier) without a
-mesh.  The tier ladder, ``run_scan``, the host-stacked round and the
-client-axis sharding are later slices (ROADMAP queue A) and raise or are
-absent here.
+mesh.  The tier ladder, the host-stacked round and the client-axis
+sharding are later slices (ROADMAP queue A) and raise or are absent here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import draws
+from repro_torch.core import policy as pol
+from repro_torch.core import queues as vq
+from repro_torch.core import system_model as sm
 from repro_torch.data.pipeline import assign_tiers, validate_client_data
 from repro_torch.fl import client as fl_client
 from repro_torch.fl import server as fl_server
@@ -130,3 +141,243 @@ class RoundEngine:
                 torch.as_tensor(np.asarray(coeffs, np.float32), device=dev),
                 lr, bank.steps_per_epoch,
                 torch.as_tensor(sort_keys, dtype=torch.float32, device=dev))
+
+    # -- multi-round rollout -----------------------------------------------
+
+    def _scan_plan(self, bank: ClientBank):
+        """(round_fn, data) — the data-plane half of a rollout over
+        ``bank``: ``round_fn(params, data, selected, coeffs, lr,
+        sort_keys)`` is the single-bucket gathered round and ``data`` the
+        bank's device tensors.  A tiered bank raises, as ``make_bank``
+        does."""
+        if not isinstance(bank, ClientBank):
+            raise NotImplementedError(
+                f"run_scan over a {type(bank).__name__}: the multi-tier "
+                f"TieredClientBank {SCALE_PLANE}")
+        steps = bank.steps_per_epoch
+
+        def round_fn(params, data, selected, coeffs, lr, sort_keys):
+            return self._gathered_round(params, *data, selected, coeffs,
+                                        lr, steps, sort_keys)
+
+        return round_fn, bank.device_args()
+
+    def _build_scan(self, k: int, decide_fn, round_fn, select_fn):
+        """The rollout body: a function running T rounds on the device.
+
+        ``decide_fn(sp, h, queues, V, lam, kvec)`` is the control plane,
+        ``select_fn(sp, t, h, queues, q, key, slots, kvec)`` fills the
+        slots (prefix-stable in the slot index), ``round_fn`` is the data
+        plane from :meth:`_scan_plan`.
+
+        Padded-K contract (the JAX package's): ``k`` is the slot count
+        K_max; ``k_act`` and ``kvec`` (``[N]`` float32) carry the true K.
+        Slots ``i >= k_act`` are inert: their client clamps to 0, their
+        eq.-(4) coefficient is exactly 0 (``fl_aggregate`` adds exactly
+        0.0 for it), their loss, time and energy are masked, and their
+        ``selected`` output is -1.  Slot i's client and epoch keys depend
+        on (rollout key, round, i) only (``core.draws``), so a padded
+        rollout gives the unpadded rollout's model trajectory.
+
+        ``drop_seq`` (a ``[T, N]`` alive mask, or None) threads realised
+        dropouts: a dropped client is masked like an inert slot (``act = af *
+        alive[selected]``) but stays in ``selected``; a round in which
+        every slot dropped has wall time 0; the queues drift on
+        expectations, untouched by dropout.
+
+        ``replay`` (``(selected [T, K], sort_keys [T, K, E, B])``, each
+        tensor or None) replaces the draws with given ones: the parity
+        tests pass the JAX package's selections and epoch keys in.
+        """
+        epochs = self.cfg.local_epochs
+
+        def scan_fn(params, queues, sp, data, h_seq, drop_seq, lr_seq, key,
+                    V, lam, kvec, k_act, replay):
+            n = sp.num_devices
+            dev = h_seq.device
+            w = sp.data_weights
+            rows = data[0].shape[1]
+            slots = torch.arange(k, device=dev)
+            active = slots < k_act
+            af = active.to(torch.float32)
+            k_f = float(k_act)
+            rep_sel, rep_keys = replay
+            use_dropout = drop_seq is not None
+            outs = []
+            for t in range(h_seq.shape[0]):
+                h = h_seq[t]
+                with obs_trace.span("scan.decide", t=t):
+                    dec = decide_fn(sp, h, queues, V, lam, kvec)
+                if rep_sel is None:
+                    drawn = select_fn(
+                        sp, t, h, queues, dec.q,
+                        draws.round_key(key, t, draws.SELECT_STREAM),
+                        slots, kvec)
+                else:
+                    drawn = rep_sel[t]
+                selected = torch.where(active, drawn, 0)
+                if rep_keys is None:
+                    sort_keys = draws.epoch_keys(
+                        draws.round_key(key, t, draws.CLIENT_STREAM), slots,
+                        epochs, rows)
+                else:
+                    sort_keys = rep_keys[t]
+                act = af * drop_seq[t][selected] if use_dropout else af
+                ratio = w[selected] / (kvec[selected] * dec.q[selected])
+                # exactly 0 where a slot is inert or dropped (w / (K q)
+                # is inf there when the padded slot's client 0 has q = 0)
+                coeffs = torch.where(act > 0, ratio * act, 0.0)
+                params, losses = round_fn(params, data, selected, coeffs,
+                                          lr_seq[t], sort_keys)
+                queues = vq.update_queues(queues, vq.energy_increment(
+                    sp, h, dec.p, dec.f, dec.q, k=kvec))
+                t_n = sm.round_time(sp, h, dec.p, dec.f, k=kvec)
+                e_n = sm.round_energy(sp, h, dec.p, dec.f, k=kvec)
+                if use_dropout:
+                    loss = (torch.sum(losses * act) /
+                            torch.clamp(torch.sum(act), min=1.0))
+                    live = active & (act > 0.0)
+                    # all slots dropped: no upload finished this round
+                    wall = torch.clamp(torch.max(torch.where(
+                        live, t_n[selected], float("-inf"))), min=0.0)
+                else:
+                    loss = torch.sum(losses * af) / k_f
+                    live = active
+                    wall = torch.max(torch.where(live, t_n[selected],
+                                                 float("-inf")))
+                # dead slots mark the extra row n, which is dropped
+                mask = torch.zeros(n + 1, dtype=torch.float32,
+                                   device=dev).index_fill_(
+                    0, torch.where(live, selected, n), 1.0)[:n]
+                outs.append((torch.stack([
+                    loss, wall,
+                    torch.sum(e_n * mask) / torch.clamp(torch.sum(mask),
+                                                        min=1.0),
+                    torch.mean(queues), torch.linalg.vector_norm(queues),
+                    torch.min(dec.q), torch.max(dec.q), torch.sum(dec.q)]),
+                    torch.where(active, selected, -1)))
+            scalars = torch.stack([o[0] for o in outs]).cpu().numpy()
+            metrics = {name: scalars[:, i]
+                       for i, name in enumerate(SCAN_SCALARS)}
+            metrics["selected"] = torch.stack(
+                [o[1] for o in outs]).cpu().numpy()
+            return params, queues, metrics
+
+        return scan_fn
+
+    @staticmethod
+    def _fixed_policy_decide(policy: str):
+        """A ``decide_fn`` for :meth:`_build_scan` that runs one named
+        ``repro_torch.core.policy`` rule with K as data."""
+        fn = pol.DECIDE_FNS[pol.POLICY_IDS[policy]]
+
+        def decide(sp, h, queues, V, lam, kvec):
+            return fn(sp, h, queues, V, lam, k=kvec)
+
+        return decide
+
+    @staticmethod
+    def _fixed_policy_select(policy: str):
+        """A ``select_fn`` for :meth:`_build_scan`: the named policy's
+        selection mode."""
+        return pol.SELECT_FNS[pol.SELECTION_MODES[policy]]
+
+    def run_scan(self, global_params: Params, sp: sm.SystemParams,
+                 bank: ClientBank, h_seq: np.ndarray, lr_seq: np.ndarray,
+                 gen: torch.Generator, *, queues: Optional[torch.Tensor] = None,
+                 policy: str = "lroa", V: float = 0.0, lam: float = 0.0,
+                 drop_seq: Optional[np.ndarray] = None,
+                 k_max: Optional[int] = None,
+                 replay_selected: Optional[np.ndarray] = None,
+                 replay_sort_keys: Optional[np.ndarray] = None
+                 ) -> Tuple[Params, torch.Tensor, Dict[str, np.ndarray]]:
+        """Run ``h_seq.shape[0]`` rounds of Algorithm 1 under ``policy``.
+
+        ``h_seq``: [T, N] channel gains; ``lr_seq``: [T] learning rates;
+        ``gen``: a CPU ``torch.Generator`` from which the rollout's key
+        is drawn (one draw, so the same generator state gives the same
+        selections and epoch keys on the CPU and on the card; see
+        ``core.draws``).  ``policy`` is any of ``core.policy.POLICIES``;
+        its decide rule and its selection mode both run.  ``V`` and
+        ``lam`` are the drift-plus-penalty weights, passed on as ``[N]``
+        float32 vectors as the JAX package's scan does.  ``drop_seq``
+        ([T, N], 1.0 = alive) threads realised dropouts.  ``k_max``
+        (default ``sp.sample_count``) pads the slots beyond the true K
+        with inert ones (see :meth:`_build_scan`).  ``replay_selected``
+        ([T, k_max]) and ``replay_sort_keys`` ([T, k_max, E, B]) replace
+        the draws, for the parity tests.
+
+        Returns (final params, final queues, per-round metrics as numpy:
+        ``loss``, ``wall_time``, ``energy_mean``, ``queue_mean``,
+        ``queue_norm``, ``q_min``, ``q_max`` of shape [T] and
+        ``selected`` [T, k_max], -1 in inert slots, the JAX package's
+        names; and ``q_sum`` [T], the port's check that every round's q
+        lies on the simplex).  Every round's
+        eq.-(4) step is one ``fl_aggregate`` launch on a CUDA device.
+        """
+        if policy not in pol.POLICY_IDS:
+            raise ValueError(f"unknown policy {policy!r} (scan-traceable: "
+                             f"{pol.POLICIES})")
+        if gen.device.type != "cpu":
+            raise ValueError(f"run_scan draws its key from a CPU generator "
+                             f"(the same on every device), got one on "
+                             f"{gen.device}")
+        k_act = sp.sample_count
+        k = k_act if k_max is None else int(k_max)
+        if k < k_act:
+            raise ValueError(f"k_max={k} is below the true K={k_act}")
+        round_fn, data = self._scan_plan(bank)
+        dev, n = self.device, sp.num_devices
+        if sp.device.type != dev.type:
+            raise ValueError(f"SystemParams live on {sp.device}, the engine "
+                             f"on {dev}")
+        h_seq = torch.as_tensor(np.asarray(h_seq, np.float32), device=dev)
+        num_rounds = h_seq.shape[0]
+        if tuple(h_seq.shape) != (num_rounds, n):
+            raise ValueError(f"h_seq must be [T, {n}], got "
+                             f"{tuple(h_seq.shape)}")
+        lr_seq = torch.as_tensor(np.asarray(lr_seq, np.float32), device=dev)
+        if tuple(lr_seq.shape) != (num_rounds,):
+            raise ValueError(f"lr_seq must be [{num_rounds}], got "
+                             f"{tuple(lr_seq.shape)}")
+        if drop_seq is not None:
+            drop_seq = torch.as_tensor(np.asarray(drop_seq, np.float32),
+                                       device=dev)
+            if tuple(drop_seq.shape) != (num_rounds, n):
+                raise ValueError(f"drop_seq must be [{num_rounds}, {n}], "
+                                 f"got {tuple(drop_seq.shape)}")
+        rows = bank.bucket_examples
+        replay = (
+            None if replay_selected is None else torch.as_tensor(
+                np.asarray(replay_selected).astype(np.int64), device=dev),
+            None if replay_sort_keys is None else torch.as_tensor(
+                np.asarray(replay_sort_keys, np.float32), device=dev))
+        for got, want, what in ((replay[0], (num_rounds, k),
+                                 "replay_selected"),
+                                (replay[1], (num_rounds, k,
+                                             self.cfg.local_epochs, rows),
+                                 "replay_sort_keys")):
+            if got is not None and tuple(got.shape) != want:
+                raise ValueError(f"{what} must be {list(want)}, got "
+                                 f"{list(got.shape)}")
+        if queues is None:
+            queues = vq.init_queues(n, dev)
+        key = torch.randint(0, 2 ** 62, (), generator=gen).to(dev)
+        scan_fn = self._build_scan(k, self._fixed_policy_decide(policy),
+                                   round_fn,
+                                   self._fixed_policy_select(policy))
+
+        def full(v: float) -> torch.Tensor:
+            """K, V and lam as [N] data, as the JAX package passes them."""
+            return torch.full((n,), v, dtype=torch.float32, device=dev)
+
+        with obs_trace.span("engine.round", what="run_scan", policy=policy,
+                            rounds=num_rounds, k=k_act):
+            return scan_fn(global_params, queues, sp, data, h_seq, drop_seq,
+                           lr_seq, key, full(V), full(lam),
+                           full(float(k_act)), k_act, replay)
+
+
+#: the scalar per-round metrics of ``run_scan``, in its stacking order
+SCAN_SCALARS = ("loss", "wall_time", "energy_mean", "queue_mean",
+                "queue_norm", "q_min", "q_max", "q_sum")

@@ -1,5 +1,7 @@
-"""The FL loop (Algorithm 1) under LROA control, with wall-clock latency
-and energy accounting — the port of ``repro.fl.trainer``'s fused path.
+"""The FL loop (Algorithm 1) under any controller of the paper's
+comparison (``LROAController`` or a ``repro_torch.core.baselines``
+controller), with wall-clock latency and energy accounting — the port of
+``repro.fl.trainer``'s fused path.
 
 All N clients' bucketed data is uploaded to the device once, into a
 single-bucket :class:`~repro_torch.fl.client_bank.ClientBank`, when the
@@ -7,7 +9,8 @@ trainer is built.  Per round t:
 
   1. observe channel gains h^t (ChannelProcess)                      [host]
   2. the controller decides (f^t, p^t, q^t) — Algorithm 2 for LROA [device]
-  3. sample K draws with replacement by q^t                         [host]
+  3. sample K draws with replacement by q^t; DivFL picks its K
+     clients by its greedy instead (``DivFLController.select``)     [host]
   4. + 5. ``RoundEngine.round_step``: gather the K selected clients from
      the bank, train them as one batch (E epochs of masked mini-batch
      SGD), and apply the unbiased eq.-(4) aggregation through one launch
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import system_model as sm
+from repro_torch.core.baselines import DivFLController
 from repro_torch.core.controller import realized_round_time
 from repro_torch.fl import client as fl_client
 from repro_torch.fl import server as fl_server
@@ -173,7 +177,10 @@ class FederatedTrainer:
         with obs_trace.span("controller.decide"):
             decision = self.last_decision = self.controller.decide(h)
             q = decision.q.cpu().numpy()
-        selected = fl_server.sample_clients(self._np_rng, q, k)
+        if isinstance(self.controller, DivFLController):
+            selected = self.controller.select(h)
+        else:
+            selected = fl_server.sample_clients(self._np_rng, q, k)
         lr = float(self.lr_schedule(t))
         coeffs = fl_server.aggregation_weights(selected, q, self.w, k)
         self.global_params, losses = self.engine.round_step(

@@ -8,8 +8,8 @@ They import no JAX, so the GPU machine runs them on their own:
 The hand-written CUDA kernels are held against their plain PyTorch
 versions (``kernels/ref.py``, which ``test_torch_aggregate.py`` and
 ``test_torch_lm_kernels.py`` hold against the JAX package), bad inputs
-must raise, and short trainer and LM serving runs on the card are held
-against the same runs on the CPU.
+must raise, and short trainer, rollout and LM serving runs on the card
+are held against the same runs on the CPU.
 """
 
 import importlib.util
@@ -257,6 +257,19 @@ def test_trainer_on_the_card_matches_the_cpu(cuda):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     smoke.phase_reference()
+
+
+@pytest.mark.cuda
+def test_run_scan_on_the_card_matches_the_cpu(cuda):
+    """``RoundEngine.run_scan`` under each of the seven controllers, with
+    dropout and with padded K, on the card against the CPU: the check
+    that ``chip_smoke.py`` runs (selections equal, the rest within 1e-4,
+    one ``fl_aggregate`` launch per round on the card)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.phase_reference_scan()
 
 
 # (B, H, Hkv, Sq, Sk, D): tests/test_kernels.py, then a D = 128 and a
