@@ -34,7 +34,12 @@ error is caught):
    equal to the eager call), ``kernel.aggregate_leaves`` (the leaf
    kernel against its plain versions on gemma2-27b's smoke LM at 6
    layers in bf16, more leaves than one launch takes, and on ragged
-   leaves of mixed dtypes),
+   leaves of mixed dtypes), ``kernel.aggregate_lanes`` (the lane form,
+   the scenario arena's eq.-(4) step of every lane in one launch per
+   table, at 7 and 11 lanes of the CNN's six leaves, K = 8: bitwise its
+   fma-order version and the one-lane launches, within TOL of the plain
+   version, timed beside the seven one-lane launches and the
+   ``torch.baddbmm`` flat yardstick),
    ``kernel.flash_attention`` (yardstick
    ``scaled_dot_product_attention`` at the causal point without window
    or soft-cap; each element within (atol, rtol), the relative L2 error
@@ -53,7 +58,14 @@ error is caught):
    padded K, on the card against the same rollouts on the CPU (T = 3):
    equal selections, params, queues and metrics within 1e-4, T
    ``fl_aggregate`` launches on the card and none on the CPU, the padded
-   rollout's params bitwise the unpadded one's;
+   rollout's params bitwise the unpadded one's; reference.arena — the
+   scenario arena (``repro_torch.sim.Arena``) of nine lanes (the seven
+   controllers, LROA with 20% dropout, LROA at K = 2 padded to 3),
+   ``eval_every=1``, channels and masks drawn by the port's samplers, on
+   the card against the CPU (channels and masks bitwise, selections
+   exact, the rest within 1e-6, T lane launches on the card) and each
+   card lane against its own ``run_scan`` on the card (selections exact,
+   the rest within 1e-6);
 5. main path — the paper-scale CNN testbed (N = 120 Dirichlet-0.5
    clients, K = 8, E = 2, batch 16, ``bank_mode='single'``): ``warmup()``,
    then 3 LROA rounds through ``FederatedTrainer.run_round``, checking
@@ -64,7 +76,13 @@ error is caught):
    rounds each from the same params over the same channels, each with
    its seconds, rounds/s, ``decide``'s share, modelled latency, final
    queue mean and last loss, exactly one ``fl_aggregate`` launch per
-   round, q on the simplex and changed params;
+   round, q on the simplex and changed params; arena — the same
+   comparison as one lane-batched ``Arena.run`` of the seven controllers
+   (seed 0) over the scan phase's channels: each lane selects as the
+   scan phase's rollout, params within 1e-5, losses within 1e-5
+   relative, modelled latency within 1e-6 relative; one lane launch per
+   round; lane-rounds/s, each lane's ``decide`` share, the final
+   ``EvalBank`` accuracies over the 7,500-example test set, peak memory;
 6. serve.gemma2 — gemma2-27b at full width and depth (46 layers, bf16
    parameters and activations, ``attn_impl='flash'``), random weights
    from a seed: ``greedy_generate`` of 16 tokens after 2 prompts of 4352
@@ -86,6 +104,7 @@ and ``repro_torch`` only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -139,6 +158,22 @@ ROUNDS = 3
 # card-against-CPU rollout in reference.scan
 SCAN_ROUNDS = 4
 REFERENCE_SCAN_ROUNDS = 3
+# fixed bounds on an arena lane against its scan rollout, both with
+# cuDNN's deterministic algorithms, set from the card's readings in
+# PERF.md: params (max abs), losses (relative), and the least ratio of the
+# distance from the rollout to the nearest other controller's to the
+# lane's distance from it.  ROUND_*: after one round (arena.round.lane);
+# ARENA_*: after the arena phase's SCAN_ROUNDS rounds (arena.lane)
+ROUND_PARAM_TOL = 1e-3
+ROUND_LOSS_TOL = 1e-5
+ROUND_SEPARATION = 10
+ARENA_PARAM_TOL = 5e-2
+ARENA_LOSS_TOL = 5e-3
+ARENA_SEPARATION = 2
+# the lane kernel's points: (lanes, K) at the CNN's six leaves (f32), the
+# scenario arena's round at paper scale (7 controllers, K = 8) and a grid
+# of 11 lanes, 66 segments: more than one table
+LANE_POINTS = ((7, 8), (11, 8))
 # the small testbed of the card-against-CPU phases
 SMALL = dict(num_devices=6, sample_count=3, local_epochs=2, batch_size=8,
              examples=400, image_shape=(8, 8, 1), num_classes=4, width=4,
@@ -147,6 +182,17 @@ SMALL = dict(num_devices=6, sample_count=3, local_epochs=2, batch_size=8,
 PAPER_SCALE = dict(num_devices=120, sample_count=8, local_epochs=2,
                    batch_size=16, examples=50_000, image_shape=(32, 32, 3),
                    num_classes=10, width=32, lr=0.1, rounds=2000, seed=0)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(on: bool = True):
+    """cuDNN's deterministic algorithms on (or off) for the block."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 def log(phase: str, **fields) -> None:
@@ -495,6 +541,95 @@ def phase_aggregate_leaves(flush, hbm: float, f32_peak: float) -> dict:
     return dict(fused=fused, leaves=rows)
 
 
+def phase_aggregate_lanes(flush, hbm: float, f32_peak: float) -> list:
+    """The lane kernel (``fl_aggregate_lanes_cuda``, the scenario arena's
+    eq.-(4) step of every lane in one launch per table) at the CNN's six
+    leaves, f32, K = 8, over :data:`LANE_POINTS` lanes: bitwise its exact
+    order of arithmetic (``ref.aggregate_lanes_fma_reference``) and S
+    one-lane launches, within TOL of the plain version
+    (``ref.aggregate_lanes_reference``), one launch per table.  Timed
+    after the clean flush beside the bound, the S one-lane launches the
+    arena would need without it, and ``torch.baddbmm`` on the ravelled
+    ``[S, 1, K] x [S, K, N]`` (a flat yardstick: timed, never used)."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    cap = fk._library().fl_aggregate_max_segments()
+    rows = []
+    for lanes, k in LANE_POINTS:
+        per = [cnn_leaves(gen, k) for _ in range(lanes)]
+        names = sorted(per[0][0])
+        thetas = [torch.stack([p[0][n] for p in per]) for n in names]
+        deltas = [torch.stack([p[1][n] for p in per]) for n in names]
+        del per
+        coeffs = torch.softmax(torch.randn(lanes, k, device="cuda",
+                                           generator=gen), 1).contiguous()
+        before = fk.LAUNCHES["fl_aggregate_lanes"]
+        out = fk.fl_aggregate_lanes_cuda(thetas, deltas, coeffs)
+        launches = fk.LAUNCHES["fl_aggregate_lanes"] - before
+        exact = ref.aggregate_lanes_fma_reference(thetas, deltas, coeffs)
+        bitwise_fma = all(torch.equal(o, e) for o, e in zip(out, exact))
+        del exact
+        plain = ref.aggregate_lanes_reference(thetas, deltas, coeffs)
+        err = max(float((o - w).abs().max()) for o, w in zip(out, plain))
+        tol = TOL[torch.float32]
+        close = all(torch.allclose(o, w, atol=tol, rtol=tol)
+                    for o, w in zip(out, plain))
+        del plain
+
+        def one_lane_calls():
+            return [fk.fl_aggregate_leaves_cuda(
+                [t[s] for t in thetas], [d[s] for d in deltas], coeffs[s])
+                for s in range(lanes)]
+
+        bitwise_one = all(torch.equal(out[i][s], o)
+                          for s, lane in enumerate(one_lane_calls())
+                          for i, o in enumerate(lane))
+        torch.cuda.synchronize()
+        n = sum(t[0].numel() for t in thetas)
+        theta_flat = torch.cat([t.reshape(lanes, 1, -1) for t in thetas], 2)
+        delta_flat = torch.cat([d.reshape(lanes, k, -1) for d in deltas], 2)
+        nbytes = _leaf_bytes(thetas, deltas) + 4 * lanes * k
+        bound_ms, bound_by = _bound(nbytes, 2 * k * n * lanes, hbm, f32_peak)
+        segments = lanes * len(names)
+        row = dict(
+            lanes=lanes, k=k, leaves=len(names), n=n, segments=segments,
+            tables=-(-segments // cap), dtype="float32", launches=launches,
+            tol=tol, max_abs_err=err, bitwise_equal_to_fma_order=bitwise_fma,
+            bitwise_equal_to_one_lane_launches=bitwise_one, flush="clean",
+            ms=time_ms(lambda: fk.fl_aggregate_lanes_cuda(
+                thetas, deltas, coeffs), flush=flush, clean=True),
+            one_lane_launches_ms=time_ms(one_lane_calls, flush=flush,
+                                         clean=True),
+            plain_ms=time_ms(lambda: ref.aggregate_lanes_reference(
+                thetas, deltas, coeffs), flush=flush, clean=True),
+            baddbmm_flat_ms=time_ms(lambda: torch.baddbmm(
+                theta_flat, coeffs[:, None, :], delta_flat), flush=flush,
+                clean=True),
+            ms_zero_flush=time_ms(lambda: fk.fl_aggregate_lanes_cuda(
+                thetas, deltas, coeffs), flush=flush),
+            wall_us=wall_us(lambda: fk.fl_aggregate_lanes_cuda(
+                thetas, deltas, coeffs), calls=100),
+            bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes * 1e-6)
+        row["bound_share"] = bound_ms / row["ms"]
+        log("kernel.aggregate_lanes", **row)
+        require(bitwise_fma, f"lane kernel at {lanes} lanes is bitwise its "
+                             f"order of arithmetic")
+        require(bitwise_one, f"lane kernel at {lanes} lanes is bitwise the "
+                             f"one-lane launches")
+        require(close, f"lane kernel at {lanes} lanes agrees with its plain "
+                       f"version (err {err}, tol {tol})")
+        require(launches == row["tables"],
+                f"lane kernel at {lanes} lanes: {row['tables']} launches, "
+                f"got {launches}")
+        rows.append(row)
+        del thetas, deltas, out, theta_flat, delta_flat
+    torch.cuda.empty_cache()
+    return rows
+
+
 def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None):
     from repro_torch.core import (LROAController, estimate_hyperparams,
                                   paper_default_params)
@@ -686,8 +821,9 @@ def phase_scan(trainer, cfg: dict = PAPER_SCALE,
     ``run_scan`` rollout of ``rounds`` rounds on the main path's engine
     and bank, from the same initial params over the same channels
     (``ChannelProcess(120, ChannelConfig(seed=0)).sample_sequence``),
-    with the main path's V, lam and learning-rate schedule.  Each
-    rollout must launch ``fl_aggregate`` once per round, end with a
+    with the main path's V, lam and learning-rate schedule (``main``
+    runs it with cuDNN's deterministic algorithms, which the ``arena``
+    phase holds its lanes against).  Each rollout must launch ``fl_aggregate`` once per round, end with a
     finite loss, keep q on the simplex and change the params (on the CPU,
     for a rehearsal, it launches none)."""
     from repro_torch.core import POLICIES
@@ -708,7 +844,7 @@ def phase_scan(trainer, cfg: dict = PAPER_SCALE,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     trainer._sync()
-    rows = []
+    rows, results = [], {}
     _reset_launch_counts()
     t_all = time.perf_counter()
     for policy in POLICIES:
@@ -745,7 +881,8 @@ def phase_scan(trainer, cfg: dict = PAPER_SCALE,
                                       for p in params.values()),
                 f"{policy}: the params changed and are finite")
         rows.append(row)
-        del params, queues
+        results[policy] = (params, met)
+        del queues
     t_all = time.perf_counter() - t_all
     launches = dict(fk.LAUNCHES)
     lroa = rows[0]["latency_total_s"]
@@ -753,6 +890,8 @@ def phase_scan(trainer, cfg: dict = PAPER_SCALE,
                    peak_mem_bytes=(torch.cuda.max_memory_allocated()
                                    if on_card else None),
                    launches=launches,
+                   cudnn_deterministic=torch.backends.cudnn.deterministic,
+                   rounds_per_s={r["policy"]: r["rounds_per_s"] for r in rows},
                    latency_total_s={r["policy"]: r["latency_total_s"]
                                     for r in rows},
                    lroa_latency_over={r["policy"]: lroa / r["latency_total_s"]
@@ -760,7 +899,380 @@ def phase_scan(trainer, cfg: dict = PAPER_SCALE,
     log("scan", **summary)
     require(launches["fl_aggregate"] == want * len(rows),
             f"{want * len(rows)} fl_aggregate launches in the scan phase")
+    # what phase_arena reproduces lane by lane (not logged)
+    summary.update(h_seq=h_seq, lr_seq=lr_seq, init=init, results=results)
     return summary
+
+
+def _arena_grid(hp, cfg: dict):
+    """reference.arena's grid: the seven controllers, LROA with 20%
+    dropout and LROA at K - 1 (padded to K), seeds 0..8."""
+    from repro_torch.core import POLICIES
+    from repro_torch.sim import ScenarioGrid
+
+    k = cfg["sample_count"]
+    return ScenarioGrid.create(
+        list(POLICIES) + ["lroa", "lroa"], seeds=list(range(9)), V=hp.V,
+        lam=hp.lam, sample_count=[k] * 8 + [k - 1],
+        dropout=[0.0] * 7 + [0.2, 0.0], num_devices=cfg["num_devices"])
+
+
+def phase_reference_arena(devices=("cpu", "cuda")) -> None:
+    """The scenario arena (``repro_torch.sim.Arena``) on the small testbed
+    of :func:`phase_reference`, T = 3, ``eval_every=1``, channels and
+    dropout drawn by the port's samplers from the grid's seeds: nine
+    lanes (:func:`_arena_grid`).  The card's run against the CPU's (one
+    thread): channels and alive masks bitwise, selections exact, params,
+    queues, metrics and test columns within 1e-6; T lane-batched
+    ``fl_aggregate`` launches on the card, none on the CPU.  Then each
+    card lane against its own ``run_scan`` on the card under the arena's
+    contract (the generator of its seed, its channels and mask, K_max
+    slots): selections exact, the rest within 1e-6.  Also run by
+    ``tests/test_torch_cuda.py``."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.sim import Arena, EvalBank
+
+    cfg, rounds = SMALL, REFERENCE_SCAN_ROUNDS
+    data = make_data(cfg)
+    init = None
+    runs = {}
+    threads = torch.get_num_threads()
+    for device in devices:
+        torch.set_num_threads(1 if device == "cpu" else threads)
+        trainer = build_trainer(device, cfg, data)
+        if init is None:
+            init = trainer.task.init(torch.Generator().manual_seed(7))
+        grid = _arena_grid(trainer.controller.hp, cfg)
+        lr_seq = [trainer.lr_schedule(t) for t in range(rounds)]
+        params = {name: p.to(device) for name, p in init.items()}
+        arena = Arena(trainer.engine)
+        evals = EvalBank(trainer.task, *data["test"], device=device)
+        before = fk.LAUNCHES["fl_aggregate_lanes"]
+        rep = arena.run(params, trainer.params, trainer.bank, grid, rounds,
+                        lr_seq, eval_bank=evals, eval_every=1)
+        launched = fk.LAUNCHES["fl_aggregate_lanes"] - before
+        require(launched == (rounds if device == "cuda" else 0),
+                f"{device} arena: {launched} fl_aggregate_lanes launches in "
+                f"{rounds} rounds")
+        h_all = arena.sample_channels(grid, rounds, cfg["num_devices"])
+        drop = arena.sample_dropout(grid, rounds, cfg["num_devices"])
+        runs[device] = (rep, h_all.cpu(), drop.cpu(),
+                        {n: v.cpu() for n, v in rep.params.items()})
+        if device != "cuda":
+            continue
+        k_max = int(grid.sample_count.max())
+        for s in range(len(grid)):
+            p, q, met = trainer.engine.run_scan(
+                params, grid.scenario_system_params(trainer.params, s),
+                trainer.bank, h_all[s].cpu().numpy(), lr_seq,
+                torch.Generator().manual_seed(int(grid.seed[s])),
+                policy=grid.controller_names()[s], V=grid.V[s],
+                lam=grid.lam[s], drop_seq=drop[s].cpu().numpy(),
+                k_max=k_max)
+            sel_equal = bool(np.array_equal(rep.metrics["selected"][s],
+                                            met["selected"]))
+            param_err = max(float((rep.params[n][s] - p[n]).abs().max())
+                            for n in p)
+            bitwise = all(torch.equal(rep.params[n][s], p[n]) for n in p)
+            metric_err = {n: _rel_err(rep.metrics[n][s], met[n])
+                          for n in met if n != "selected"}
+            queue_err = _rel_err(rep.queues[s], q.cpu().numpy())
+            log("reference.arena.lane", lane=s,
+                policy=grid.controller_names()[s],
+                k=int(grid.sample_count[s]), selections_equal=sel_equal,
+                params_bitwise_equal=bitwise, param_max_abs_err=param_err,
+                queue_max_rel_err=queue_err, metric_max_rel_err=metric_err,
+                tol=1e-6)
+            require(sel_equal, f"card lane {s} selects as its run_scan")
+            require(param_err <= 1e-6 and queue_err <= 1e-6 and
+                    max(metric_err.values()) <= 1e-6,
+                    f"card lane {s} agrees with its run_scan within 1e-6")
+    torch.set_num_threads(threads)
+    cpu, card = devices
+    (rc, hc, dc, pc), (rg, hg, dg, pg) = runs[cpu], runs[card]
+    sel_equal = bool(np.array_equal(rc.metrics["selected"],
+                                    rg.metrics["selected"]))
+    param_err = max(float((pc[n] - pg[n]).abs().max()) for n in pc)
+    queue_err = _rel_err(rg.queues, rc.queues)
+    metric_err = {n: _rel_err(rg.metrics[n], rc.metrics[n])
+                  for n in rc.metrics if n != "selected"}
+    final_err = {n: _rel_err(rg.final_metrics[n], rc.final_metrics[n])
+                 for n in rc.final_metrics}
+    log("reference.arena", lanes=len(rc.grid), rounds=rounds,
+        channels_bitwise_equal=bool(torch.equal(hc, hg)),
+        dropout_bitwise_equal=bool(torch.equal(dc, dg)),
+        selections_equal=sel_equal, param_max_abs_err=param_err,
+        queue_max_rel_err=queue_err, metric_max_rel_err=metric_err,
+        final_metric_max_rel_err=final_err,
+        final_accuracy=rg.final_accuracy().tolist(), tol=1e-6)
+    require(torch.equal(hc, hg) and torch.equal(dc, dg),
+            "card and CPU draw the same channels and dropout masks")
+    require(sel_equal, "arena: card and CPU select the same clients")
+    require(param_err <= 1e-6 and queue_err <= 1e-6 and
+            max(metric_err.values()) <= 1e-6 and
+            max(final_err.values()) <= 1e-6,
+            "arena: card and CPU agree within 1e-6")
+
+
+def phase_arena(trainer, scan: dict, test: tuple, cfg: dict = PAPER_SCALE,
+                rounds: int = SCAN_ROUNDS) -> dict:
+    """The paper's comparison as the arena runs it at paper scale: one grid
+    of the seven controllers (seed 0, the main path's V and lam), T
+    rounds over the ``scan`` phase's channel sequence broadcast to every
+    lane, the same learning rates and initial params, on the main path's
+    engine and bank.  Under the arena's contract lane s reproduces the
+    ``scan`` phase's rollout s.  Both run with cuDNN's deterministic
+    algorithms (:func:`cudnn_deterministic`; the card then repeats a
+    rollout bit for bit), yet the S·K = 56 client SGD convolves through
+    other cuDNN kernels than the scan's K = 8: the two differ by an ulp
+    after one SGD step, and training at the paper's learning rate
+    amplifies that to 1e-4 after a round and 1e-2 after four.  So the
+    data plane is held tight over one round (:func:`phase_arena_round`),
+    and the four-round lanes to fixed bounds set from the card's
+    readings: selections equal, params within :data:`ARENA_PARAM_TOL`,
+    losses within :data:`ARENA_LOSS_TOL` relative, modelled latency sums
+    within 1e-6 relative, and every lane's distance to its scan rollout
+    at most 1/:data:`ARENA_SEPARATION` of the distance from that rollout
+    to the nearest other controller's.  One lane-batched
+    ``fl_aggregate`` launch per round, finite changed params; the final
+    ``[7, ...]`` params evaluated by an ``EvalBank`` over the test set
+    (in calls of ``lanes_per_call`` lanes; the one-shot call beside it,
+    with both peaks).  For what deterministic mode costs, the grid is run
+    again with cuDNN's default algorithms, then with the deterministic
+    ones, and Uni-D's ``run_scan`` with the default ones.  Logs rounds/s
+    over all lanes, each lane's ``decide`` share (``scan.decide`` spans
+    by lane), the final accuracies and the
+    peak memory."""
+    from repro_torch.core import POLICIES
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.obs import trace
+    from repro_torch.sim import Arena, EvalBank, ScenarioGrid
+
+    dev = trainer.device
+    on_card = dev.type == "cuda"
+    hp = trainer.controller.hp
+    engine, bank, sp = trainer.engine, trainer.bank, trainer.params
+    grid = ScenarioGrid.create(list(POLICIES), seeds=cfg["seed"], V=hp.V,
+                               lam=hp.lam, sample_count=cfg["sample_count"],
+                               num_devices=cfg["num_devices"])
+    s_count = len(grid)
+    h_all = np.broadcast_to(scan["h_seq"], (s_count,) + scan["h_seq"].shape)
+    evals = EvalBank(trainer.task, *test, device=dev)
+    arena = Arena(trainer.engine)
+
+    def run():
+        trainer._sync()
+        t0 = time.perf_counter()
+        rep = arena.run(scan["init"], sp, bank, grid, rounds, scan["lr_seq"],
+                        h_all=h_all)
+        trainer._sync()
+        return rep, time.perf_counter() - t0
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else None
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    with cudnn_deterministic(), \
+            trace.installed(trace.MemorySink(capacity=65536)) as sink:
+        rep, seconds = run()
+    launches = dict(fk.LAUNCHES)
+    run_peak = peak()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = arena._final_eval(evals, rep.params)
+    trainer._sync()
+    eval_s = time.perf_counter() - t0
+    eval_peak = peak()
+    one_shot = EvalBank(trainer.task, *test, device=dev,
+                        lanes_per_call=s_count)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    whole = one_shot.metrics_stacked(rep.params)
+    one_shot_peak = peak()
+    del one_shot
+    meta = {k: rep.meta[k] for k in ("k_mode", "k_max", "dispatches", "plan")}
+    decide_s = [sum(r["dur"] for r in sink.by_name("scan.decide")
+                    if r["attrs"]["lane"] == s) for s in range(s_count)]
+    rows = []
+    for s, policy in enumerate(grid.controller_names()):
+        ref_params, ref_met = scan["results"][policy]
+        param_err, nearest_other = _lane_vs_scan(rep, s, policy,
+                                                 scan["results"])
+        loss_rel = _rel_err(rep.metrics["loss"][s], ref_met["loss"])
+        latency = float(np.sum(rep.metrics["wall_time"][s]))
+        latency_ref = float(np.sum(ref_met["wall_time"]))
+        latency_rel = abs(latency - latency_ref) / abs(latency_ref)
+        sel_equal = bool(np.array_equal(rep.metrics["selected"][s],
+                                        ref_met["selected"]))
+        changed = max(float((rep.params[n][s] - scan["init"][n]).abs().max())
+                      for n in ref_params)
+        row = dict(lane=s, policy=policy, selections_equal=sel_equal,
+                   param_max_abs_err_vs_scan=param_err,
+                   nearest_other_scan_max_abs_diff=nearest_other,
+                   loss_max_rel_err_vs_scan=loss_rel,
+                   latency_total_s=latency,
+                   latency_rel_err_vs_scan=latency_rel,
+                   decide_s=decide_s[s], decide_share=decide_s[s] / seconds,
+                   final_accuracy=float(final["test_accuracy"][s]),
+                   final_loss=float(final["test_loss"][s]),
+                   param_max_change=changed)
+        log("arena.lane", **row)
+        require(sel_equal, f"arena lane {policy} selects as the scan phase")
+        require(param_err <= ARENA_PARAM_TOL and loss_rel <= ARENA_LOSS_TOL,
+                f"arena lane {policy}: params within {ARENA_PARAM_TOL} and "
+                f"losses within {ARENA_LOSS_TOL} relative of the scan phase "
+                f"({param_err}, {loss_rel})")
+        require(param_err * ARENA_SEPARATION <= nearest_other,
+                f"arena lane {policy}: within 1/{ARENA_SEPARATION} of the "
+                f"distance to the nearest other scan rollout ({param_err}, "
+                f"{nearest_other})")
+        require(latency_rel <= 1e-6, f"arena lane {policy}: modelled latency "
+                                     f"within 1e-6 of the scan phase")
+        require(changed > 0.0 and all(bool(torch.isfinite(rep.params[n][s])
+                                           .all()) for n in ref_params),
+                f"arena lane {policy}: the params changed and are finite")
+        rows.append(row)
+    eval_bitwise = all(torch.equal(whole[n].cpu(),
+                                   torch.as_tensor(final[f"test_{n}"]))
+                       for n in whole)
+    eval_err = max(float(np.max(np.abs(whole[n].cpu().numpy()
+                                       - final[f"test_{n}"])))
+                   for n in whole)
+    del rep, whole
+    # what cuDNN's deterministic algorithms cost, both timed warm: the
+    # grid with the default algorithms, then with the deterministic ones
+    # again; and Uni-D's scan rollout with the default ones beside the
+    # scan phase's (deterministic, after LROA's)
+    seconds_default = run()[1]
+    with cudnn_deterministic():
+        seconds_again = run()[1]
+    trainer._sync()
+    t0 = time.perf_counter()
+    engine.run_scan(scan["init"], sp, bank, scan["h_seq"], scan["lr_seq"],
+                    torch.Generator().manual_seed(cfg["seed"]),
+                    policy="uni_d", V=hp.V, lam=hp.lam)
+    trainer._sync()
+    scan_default_s = time.perf_counter() - t0
+    want = rounds if on_card else 0
+    summary = dict(lanes=s_count, rounds=rounds, seconds=seconds,
+                   lane_rounds_per_s=s_count * rounds / seconds,
+                   cudnn_deterministic=True,
+                   lane_rounds_per_s_cudnn_default=(s_count * rounds
+                                                    / seconds_default),
+                   lane_rounds_per_s_again=s_count * rounds / seconds_again,
+                   scan_uni_d_rounds_per_s=scan["rounds_per_s"]["uni_d"],
+                   scan_uni_d_rounds_per_s_cudnn_default=(rounds
+                                                          / scan_default_s),
+                   decide_share_total=sum(decide_s) / seconds,
+                   param_tol=ARENA_PARAM_TOL, loss_tol=ARENA_LOSS_TOL,
+                   separation=ARENA_SEPARATION,
+                   eval_s=eval_s, eval_examples=evals.num_examples,
+                   eval_lanes_per_call=evals.lanes_per_call,
+                   eval_one_shot_bitwise_equal=eval_bitwise,
+                   eval_one_shot_max_abs_err=eval_err,
+                   final_accuracy=[r["final_accuracy"] for r in rows],
+                   peak_mem_bytes=run_peak, eval_peak_mem_bytes=eval_peak,
+                   eval_one_shot_peak_mem_bytes=one_shot_peak,
+                   launches=launches, meta=meta)
+    log("arena", **summary)
+    require(launches["fl_aggregate_lanes"] == want,
+            f"{want} fl_aggregate_lanes launches in the arena phase, got "
+            f"{launches['fl_aggregate_lanes']}")
+    require(launches["fl_aggregate"] == 0,
+            "the arena's rounds launch only the lane kernel")
+    require(bool(np.all(np.isfinite(final["test_accuracy"]))),
+            "finite final accuracies")
+    phase_arena_round(trainer, scan, cfg)
+    return summary
+
+
+def _lane_vs_scan(rep, s: int, policy: str, results: dict) -> tuple:
+    """(lane s's max abs param distance from ``policy``'s scan rollout,
+    the distance from that rollout to the nearest other controller's).
+    Rollouts that ended exactly on it, as Uni-D's and Uni-S's do when
+    they pick the same clients with the same weights, cannot be told
+    apart and are left out of the second."""
+    own = results[policy][0]
+    err = max(float((rep.params[n][s] - own[n]).abs().max()) for n in own)
+    apart = [max(float((p[n] - own[n]).abs().max()) for n in own)
+             for o, (p, _) in results.items() if o != policy]
+    return err, min([d for d in apart if d > 0.0] or [np.inf])
+
+
+def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE
+                      ) -> None:
+    """The arena's data plane held tight at paper scale, over one round
+    with cuDNN's deterministic algorithms: the seven controllers'
+    one-round ``run_scan`` rollouts against (1) a one-lane LROA arena,
+    bitwise (``arena.bitwise``: the lane path itself adds no rounding),
+    and (2) the seven-lane arena (``arena.round.lane``): selections
+    equal, params within :data:`ROUND_PARAM_TOL`, losses within
+    :data:`ROUND_LOSS_TOL` relative, and every lane's distance from its
+    rollout at most 1/:data:`ROUND_SEPARATION` of the distance from that
+    rollout to the nearest other controller's.  The 56-client SGD
+    convolves through other cuDNN kernels than the 8-client one, which
+    is what (2) leaves room for; a lane that trained on another lane's
+    rows or took its coefficients would be a round's change away."""
+    from repro_torch.core import POLICIES
+    from repro_torch.sim import Arena, ScenarioGrid
+
+    engine, bank, sp = trainer.engine, trainer.bank, trainer.params
+    hp = trainer.controller.hp
+    h, lr = scan["h_seq"][:1], scan["lr_seq"][:1]
+    grid = ScenarioGrid.create(list(POLICIES), seeds=cfg["seed"], V=hp.V,
+                               lam=hp.lam, sample_count=cfg["sample_count"],
+                               num_devices=cfg["num_devices"])
+    with cudnn_deterministic():
+        results = {policy: engine.run_scan(
+            scan["init"], sp, bank, h, lr,
+            torch.Generator().manual_seed(cfg["seed"]), policy=policy,
+            V=hp.V, lam=hp.lam)[::2] for policy in POLICIES}
+        one = Arena(engine).run(scan["init"], sp, bank, grid.take([0]), 1,
+                                lr, h_all=h[None])
+        rep = Arena(engine).run(scan["init"], sp, bank, grid, 1, lr,
+                                h_all=np.broadcast_to(h, (len(grid),)
+                                                      + h.shape))
+        trainer._sync()
+    p_scan, m_scan = results["lroa"]
+    params_equal = all(torch.equal(one.params[n][0], p_scan[n])
+                       for n in p_scan)
+    metrics_equal = all(np.array_equal(one.metrics[n][0], m_scan[n])
+                        for n in m_scan)
+    err = max(float((one.params[n][0] - p_scan[n]).abs().max())
+              for n in p_scan)
+    log("arena.bitwise", lanes=1, rounds=1, cudnn_deterministic=True,
+        params_bitwise_equal=params_equal,
+        metrics_bitwise_equal=metrics_equal, param_max_abs_err=err)
+    require(params_equal and metrics_equal,
+            "a one-lane arena round is bitwise run_scan's round (cuDNN "
+            "deterministic)")
+    for s, policy in enumerate(grid.controller_names()):
+        ref_met = results[policy][1]
+        param_err, nearest = _lane_vs_scan(rep, s, policy, results)
+        loss_rel = _rel_err(rep.metrics["loss"][s], ref_met["loss"])
+        sel_equal = bool(np.array_equal(rep.metrics["selected"][s],
+                                        ref_met["selected"]))
+        changed = max(float((results[policy][0][n] - scan["init"][n])
+                            .abs().max()) for n in scan["init"])
+        log("arena.round.lane", lane=s, policy=policy, rounds=1,
+            cudnn_deterministic=True, selections_equal=sel_equal,
+            param_max_abs_err_vs_scan=param_err,
+            nearest_other_scan_max_abs_diff=nearest,
+            loss_max_rel_err_vs_scan=loss_rel, param_max_change=changed,
+            param_tol=ROUND_PARAM_TOL, loss_tol=ROUND_LOSS_TOL,
+            separation=ROUND_SEPARATION)
+        require(sel_equal, f"arena round lane {policy}: selections equal")
+        require(param_err <= ROUND_PARAM_TOL and loss_rel <= ROUND_LOSS_TOL,
+                f"arena round lane {policy}: params within "
+                f"{ROUND_PARAM_TOL} and losses within {ROUND_LOSS_TOL} "
+                f"relative of its one-round scan ({param_err}, {loss_rel})")
+        require(param_err * ROUND_SEPARATION <= nearest,
+                f"arena round lane {policy}: within 1/{ROUND_SEPARATION} "
+                f"of the distance to the nearest other one-round scan "
+                f"({param_err}, {nearest})")
 
 
 def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE) -> dict:
@@ -833,7 +1345,7 @@ def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE) -> dict:
                    queue_max_change=moved, param_max_change=changed,
                    launches=launches)
     log("main", **summary)
-    summary["trainer"] = trainer
+    summary.update(trainer=trainer, test=data["test"])
     return summary
 
 
@@ -1268,13 +1780,14 @@ def phase_profile_serve(run: dict) -> None:
     log("profile.serve", prefill=pre, decode_step=dec)
 
 
-def kernels_line(points: list, leaves: dict, main_summary: dict,
-                 scan_summary: dict, flash: list, ssd: list, gemma: dict,
-                 mamba: dict, smi: str, sass: dict) -> dict:
+def kernels_line(points: list, leaves: dict, lanes: list,
+                 main_summary: dict, scan_summary: dict, arena_summary: dict,
+                 flash: list, ssd: list, gemma: dict, mamba: dict, smi: str,
+                 sass: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
     paths (the LROA rounds and the seven controllers' rollouts; the
-    gemma2 and the mamba2 generation) and its numbers at that path's
-    shapes."""
+    arena's lane-batched rounds; the gemma2 and the mamba2 generation)
+    and its numbers at that path's shapes."""
     m = next(p for p in points if (p["n"], p["k"]) == MAIN_POINT[:2]
              and p["dtype"] == "float32")
     fg = next(r for r in flash if r["label"] == "gemma2.global")
@@ -1296,6 +1809,7 @@ def kernels_line(points: list, leaves: dict, main_summary: dict,
             run["launches_decode"][kernel]
 
     fused = leaves["fused"]
+    la = lanes[0]
     return {"kernels": [
         entry("fl_aggregate", "src/repro_torch/kernels/csrc/fl_aggregate.cu",
               "src/repro/kernels/fl_aggregate.py:35",
@@ -1335,6 +1849,29 @@ def kernels_line(points: list, leaves: dict, main_summary: dict,
                   "max_abs_err": m["reduce_max_abs_err"],
                   "ms": m["reduce_ms"], "plain_ms": m["reduce_plain_ms"],
                   "bound_ms": m["reduce_bound_ms"]}}),
+        entry("fl_aggregate_lanes",
+              "src/repro_torch/kernels/csrc/fl_aggregate.cu",
+              "src/repro/kernels/fl_aggregate.py:35",
+              arena_summary["launches"]["fl_aggregate_lanes"],
+              dict(la, library_ms=None),
+              design="the header comment of src/repro_torch/kernels/csrc/"
+                     "fl_aggregate.cu (segments on coefficient rows)",
+              point="the arena's round at paper scale: 7 lanes x the CNN's "
+                    "6 leaves, N=545,002, K=8, f32, one launch; library_ms: "
+                    "no one PyTorch call takes the leaves (torch.baddbmm on "
+                    "the ravelled lanes is baddbmm_flat_ms)",
+              flush="clean", bitwise_equal_to_fma_order=la[
+                  "bitwise_equal_to_fma_order"],
+              one_lane_launches_ms=la["one_lane_launches_ms"],
+              baddbmm_flat_ms=la["baddbmm_flat_ms"],
+              ms_zero_flush=la["ms_zero_flush"],
+              max_abs_err_all_points=max(r["max_abs_err"] for r in lanes),
+              variants={f"lanes_{r['lanes']}": {
+                  k: r[k] for k in ("segments", "tables", "launches",
+                                    "max_abs_err", "ms", "plain_ms",
+                                    "one_lane_launches_ms", "baddbmm_flat_ms",
+                                    "bound_ms", "bound_by")}
+                  for r in lanes[1:]}),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:93",
@@ -1472,17 +2009,24 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     points = phase_kernels(flush, hbm, f32_peak)
     leaves = phase_aggregate_leaves(flush, hbm, f32_peak)
+    lanes = phase_aggregate_lanes(flush, hbm, f32_peak)
     flash = phase_flash(flush, hbm, f32_peak, bf16_peak, sfu_ops_per_s)
     ssd = phase_ssd(flush, hbm, f32_peak, bf16_peak)
     del flush
     phase_reference()
     phase_reference_lm()
     phase_reference_scan()
+    phase_reference_arena()
     main_summary = phase_main_path()
     trainer = main_summary.pop("trainer")
+    test = main_summary.pop("test")
     phase_profile(trainer, ROUNDS)
-    scan_summary = phase_scan(trainer)
-    del trainer
+    with cudnn_deterministic():
+        scan_summary = phase_scan(trainer)
+    arena_summary = phase_arena(trainer, scan_summary, test)
+    for key in ("h_seq", "lr_seq", "init", "results"):
+        del scan_summary[key]
+    del trainer, test
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1496,9 +2040,9 @@ def main() -> int:
     for key in ("model", "params", "prompts"):
         del mamba[key]
 
-    print(json.dumps(kernels_line(points, leaves, main_summary, scan_summary,
-                                  flash, ssd, gemma, mamba, smi, sass)),
-          flush=True)
+    print(json.dumps(kernels_line(points, leaves, lanes, main_summary,
+                                  scan_summary, arena_summary, flash, ssd,
+                                  gemma, mamba, smi, sass)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -65,10 +65,15 @@ def batched_local_sgd(loss_fn: LossFn, params: Params, xs: torch.Tensor,
                       num_steps: Optional[torch.Tensor] = None,
                       num_examples: Optional[torch.Tensor] = None,
                       sort_keys: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      per_client: bool = False
                       ) -> Tuple[Params, torch.Tensor]:
     """E epochs of shuffled mini-batch SGD for a stacked ``[K, B, ...]``
-    client batch, all K clients starting from ``params``.
+    client batch, all K clients starting from ``params`` — or, with
+    ``per_client=True``, client i from ``{n: v[i]}`` of ``[K, ...]``
+    leaves (the scenario arena's S lanes of K_max clients each, every
+    lane's model repeated over its slots), each delta taken against the
+    client's own start.
 
     ``num_steps`` / ``num_examples`` (``[K]`` int tensors or None) carry
     each client's true per-epoch step count and dataset size (see the
@@ -88,8 +93,16 @@ def batched_local_sgd(loss_fn: LossFn, params: Params, xs: torch.Tensor,
         raise ValueError(f"sort_keys must be [{k}, {cfg.local_epochs}, {n}],"
                          f" got {tuple(sort_keys.shape)}")
     opt = SGD(momentum=cfg.momentum)
-    p = {name: v.unsqueeze(0).expand((k,) + tuple(v.shape)).clone()
-         for name, v in params.items()}
+    if per_client:
+        bad = {name: tuple(v.shape) for name, v in params.items()
+               if v.dim() < 1 or v.shape[0] != k}
+        if bad:
+            raise ValueError(f"per_client params must be [{k}, ...] "
+                             f"leaves, got {bad}")
+        p = {name: v.clone() for name, v in params.items()}
+    else:
+        p = {name: v.unsqueeze(0).expand((k,) + tuple(v.shape)).clone()
+             for name, v in params.items()}
     m = opt.init(p)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
     step_fn = vmap(grad_and_value(loss_fn))

@@ -12,17 +12,41 @@ bitwise the same gains as the JAX package).
   Bernoulli ``[T, N]`` alive mask from the same numpy stream, which
   ``RoundEngine.run_scan(drop_seq=)`` consumes.
 
-The JAX package's device-side samplers (``sample_gains``,
-``sample_gains_markov``, ``sample_dropout_mask``) are later work
-(ROADMAP A5).
+Device samplers (the scenario arena's channels): :func:`sample_gains`,
+:func:`sample_markov_states`, :func:`sample_gains_markov`,
+:func:`sample_channel_sequence` and :func:`sample_dropout_mask` draw
+every lane of a grid at once from ``[S]`` parameter columns and ``[S]``
+int64 channel keys.  Their bits are ``core.draws``' counter-based
+splitmix64 streams, and the exponential's logarithm is computed from
+IEEE additions, multiplications and one division in float64
+(:func:`_log_unit`), so the same keys give the same gains and masks on
+the CPU and on the card.  The JAX package's threefry streams cannot be
+reproduced: these samplers are held to it statistically.  Layout of the
+streams of channel key ``c``:
+
+* stationary gains — ``fold(c, 0)``, one value per (round, redraw,
+  client): counter ``(t * _REDRAWS + r) * N + n``, so a lane's first
+  rounds do not depend on T;
+* Gilbert-Elliott chain — ``fold(c, 1)`` (the markov fold): states from
+  ``fold(fold(c, 1), 0)`` (the initial state's uniforms under counter
+  ``n``, the transitions' under ``fold(., 1)`` and ``t * N + n``), gains
+  from ``fold(fold(c, 1), 1)`` with the stationary counter;
+* dropout — ``fold(c, 2)``, counter ``t * N + n``.
+
+So a lane's gains never depend on its dropout rate or on the other
+lanes, and the dropout axis draws from a stream of its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
+import torch
+
+from repro_torch.core import draws
 
 # Redraw budget for the truncated exponential: ~10% of raw draws fall
 # outside [0.01, 0.5] at the paper's defaults, so P(no valid draw in 64)
@@ -30,6 +54,20 @@ import numpy as np
 _REDRAWS = 64
 
 CHANNEL_MODES = ("iid", "markov")
+CHANNEL_MODE_IDS = {name: i for i, name in enumerate(CHANNEL_MODES)}
+
+# streams of a channel key (see the module docstring); the stationary
+# gains' is 0, the others fold the JAX package's constants
+_GAIN_FOLD = 0
+_MARKOV_FOLD = 1
+_DROPOUT_FOLD = 2
+# rounds drawn per block: bounds the [S, _REDRAWS, rounds, N] candidate
+# block (the counters are global, so blocking does not change a value)
+_ROUND_BLOCK = 256
+_LN2 = math.log(2.0)
+# terms of the atanh series of the logarithm: |s| <= 0.172 on the
+# reduced mantissa, so 12 terms leave under 1e-18 relative
+_LOG_TERMS = 12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,13 +97,169 @@ class ChannelConfig:
             raise ValueError("dropout rate must lie in [0, 1)")
 
 
-def markov_stationary(p_gb: float, p_bg: float) -> float:
-    """Stationary bad-state probability ``p_gb / (p_gb + p_bg)``; a chain
-    that never moves (both zero) is defined all-good."""
+def markov_stationary(p_gb, p_bg):
+    """Stationary bad-state probability ``p_gb / (p_gb + p_bg)`` in
+    float32; a chain that never moves (both zero) is defined all-good.
+    Numbers give a float, tensors (the arena's ``[S]`` columns) a
+    tensor."""
+    if isinstance(p_gb, torch.Tensor) or isinstance(p_bg, torch.Tensor):
+        gb = torch.as_tensor(p_gb, dtype=torch.float32)
+        bg = torch.as_tensor(p_bg, dtype=torch.float32, device=gb.device)
+        denom = gb + bg
+        return torch.where(denom > 0.0, gb / torch.clamp(denom, min=1e-12),
+                           0.0)
     denom = np.float32(p_gb) + np.float32(p_bg)
     if denom > 0.0:
         return float(np.float32(p_gb) / max(denom, np.float32(1e-12)))
     return 0.0
+
+
+# -- device samplers (lane-batched) ------------------------------------------
+
+def _log_unit(x: torch.Tensor) -> torch.Tensor:
+    """``log(x)`` for float64 ``x`` in (0, 1], from IEEE operations only
+    (``frexp``, add, multiply, one divide; each rounded once), so the CPU
+    and the card give the same bits: ``x = m 2^e`` with m moved into
+    [sqrt(1/2), sqrt(2)), then ``log m = 2 atanh(s)``, ``s = (m - 1) /
+    (m + 1)``, as an odd series in Horner form."""
+    m, e = torch.frexp(x)
+    low = m < math.sqrt(0.5)
+    m = torch.where(low, m * 2.0, m)
+    e = (e - low.to(e.dtype)).to(torch.float64)
+    s = (m - 1.0) / (m + 1.0)
+    s2 = s * s
+    poly = torch.full_like(s, 1.0 / (2 * _LOG_TERMS + 1))
+    for j in range(_LOG_TERMS - 1, -1, -1):
+        poly = poly * s2 + 1.0 / (2 * j + 1)
+    return e * _LN2 + (s * 2.0) * poly
+
+
+def _unit_exponential(bits: torch.Tensor) -> torch.Tensor:
+    """Exponential(1) float32 draws from int64 bits: ``-log(u)`` with u
+    the top 53 bits as a float64 in (0, 1]."""
+    u = (draws._shr(bits, 11) + 1).to(torch.float64) * 2.0 ** -53
+    return (-_log_unit(u)).to(torch.float32)
+
+
+def _col(v, keys: torch.Tensor) -> torch.Tensor:
+    """A per-lane parameter as a float32 ``[S, 1, 1]`` column on the
+    keys' device (numbers broadcast to every lane)."""
+    return torch.as_tensor(v, dtype=torch.float32, device=keys.device
+                           ).expand(keys.shape[0]).reshape(-1, 1, 1)
+
+
+def _first_in_range(keys: torch.Tensor, num_rounds: int, num_devices: int,
+                    mean: torch.Tensor, min_gain, max_gain) -> torch.Tensor:
+    """The truncated-exponential redraw scheme, ``[S, T, N]`` float32:
+    for every (round, client) a block of ``_REDRAWS`` candidates
+    ``Exp(1) * mean`` (``mean`` ``[S, 1, 1]`` or ``[S, T, N]``), the first
+    in ``[min_gain, max_gain]`` taken (an integer minimum over the redraw
+    index), and only the no-valid-draw case (measure ~exp(-64)) clipped to
+    the boundary from candidate 0, as the reference's argmax does."""
+    dev = keys.device
+    lo, hi = _col(min_gain, keys)[..., None], _col(max_gain, keys)[..., None]
+    n = torch.arange(num_devices, dtype=torch.int64, device=dev)
+    r = torch.arange(_REDRAWS, dtype=torch.int64, device=dev)
+    out = []
+    for t0 in range(0, num_rounds, _ROUND_BLOCK):
+        t = torch.arange(t0, min(t0 + _ROUND_BLOCK, num_rounds),
+                         dtype=torch.int64, device=dev)
+        counter = ((t[None, :, None] * _REDRAWS + r[:, None, None])
+                   * num_devices + n[None, None, :])        # [R, Tb, N]
+        bits = draws.fold(keys[:, None, None, None], counter[None])
+        m = mean if mean.shape[1] == 1 else mean[:, t0:t0 + t.shape[0]]
+        cand = _unit_exponential(bits) * m[:, None]       # [S, R, Tb, N]
+        ok = (cand >= lo) & (cand <= hi)
+        first = torch.where(ok, r[None, :, None, None], _REDRAWS).amin(1)
+        first = torch.where(first == _REDRAWS, 0, first)
+        h = torch.gather(cand, 1, first[:, None])[:, 0]
+        out.append(torch.minimum(torch.maximum(h, lo[:, 0]), hi[:, 0]))
+    if not out:
+        return torch.zeros((keys.shape[0], 0, num_devices),
+                           dtype=torch.float32, device=dev)
+    return torch.cat(out, dim=1)
+
+
+def sample_gains(keys: torch.Tensor, num_rounds: int, num_devices: int,
+                 mean_gain, min_gain, max_gain) -> torch.Tensor:
+    """Stationary truncated-exponential gains ``[S, T, N]`` float32, lane
+    s from channel key ``keys[s]`` (int64 ``[S]``) with its own
+    (``mean_gain``, ``min_gain``, ``max_gain``) (``[S]`` tensors or
+    numbers)."""
+    return _first_in_range(draws.fold(keys, _GAIN_FOLD), num_rounds,
+                           num_devices, _col(mean_gain, keys), min_gain,
+                           max_gain)
+
+
+def sample_markov_states(keys: torch.Tensor, num_rounds: int,
+                         num_devices: int, p_gb, p_bg) -> torch.Tensor:
+    """Per-client Gilbert-Elliott states ``[S, T, N]`` int32 (0 good, 1
+    bad) from state keys ``keys`` ``[S]``: the initial state drawn from
+    the stationary distribution, then per round ``good -> bad`` with
+    ``p_gb`` and ``bad -> good`` with ``p_bg``."""
+    dev = keys.device
+    gb, bg = _col(p_gb, keys)[:, :, 0], _col(p_bg, keys)[:, :, 0]
+    n = torch.arange(num_devices, dtype=torch.int64, device=dev)
+    t = torch.arange(num_rounds, dtype=torch.int64, device=dev)
+    u0 = draws.uniform_f32(draws.fold(draws.fold(keys, 0)[:, None], n))
+    u = draws.uniform_f32(draws.fold(
+        draws.fold(keys, 1)[:, None, None],
+        t[None, :, None] * num_devices + n[None, None, :]))
+    s = (u0 < markov_stationary(gb, bg)).to(torch.int32)
+    states = []
+    for step in range(num_rounds):
+        states.append(s)
+        u_t = u[:, step]
+        s = torch.where(s == 0, (u_t < gb).to(torch.int32),
+                        1 - (u_t < bg).to(torch.int32))
+    if not states:
+        return torch.zeros((keys.shape[0], 0, num_devices),
+                           dtype=torch.int32, device=dev)
+    return torch.stack(states, dim=1)
+
+
+def sample_gains_markov(keys: torch.Tensor, num_rounds: int,
+                        num_devices: int, mean_gain, bad_gain, min_gain,
+                        max_gain, p_gb, p_bg) -> torch.Tensor:
+    """Gilbert-Elliott gains ``[S, T, N]``: each lane's state chain picks
+    the truncated exponential's mean (``mean_gain`` good, ``bad_gain``
+    bad), drawn from the markov fold of the channel keys."""
+    k = draws.fold(keys, _MARKOV_FOLD)
+    states = sample_markov_states(draws.fold(k, 0), num_rounds,
+                                  num_devices, p_gb, p_bg)
+    mean = torch.where(states == 1, _col(bad_gain, keys),
+                       _col(mean_gain, keys))
+    return _first_in_range(draws.fold(k, 1), num_rounds, num_devices, mean,
+                           min_gain, max_gain)
+
+
+def sample_channel_sequence(keys: torch.Tensor, num_rounds: int,
+                            num_devices: int, mode, mean_gain, bad_gain,
+                            min_gain, max_gain, p_gb, p_bg) -> torch.Tensor:
+    """Gains ``[S, T, N]`` of lanes of either mode (``mode`` ``[S]`` ids of
+    :data:`CHANNEL_MODES`): both are drawn and an exact ``where`` keeps
+    each lane's, so an ``'iid'`` lane is bitwise :func:`sample_gains`."""
+    stat = sample_gains(keys, num_rounds, num_devices, mean_gain, min_gain,
+                        max_gain)
+    mark = sample_gains_markov(keys, num_rounds, num_devices, mean_gain,
+                               bad_gain, min_gain, max_gain, p_gb, p_bg)
+    mode = torch.as_tensor(mode, dtype=torch.int32, device=keys.device
+                           ).expand(keys.shape[0]).reshape(-1, 1, 1)
+    return torch.where(mode == CHANNEL_MODE_IDS["markov"], mark, stat)
+
+
+def sample_dropout_mask(keys: torch.Tensor, num_rounds: int,
+                        num_devices: int, rate) -> torch.Tensor:
+    """Per-client alive masks ``[S, T, N]`` float32 (1.0 = alive):
+    Bernoulli(1 - rate) per (round, client) from the dropout fold of the
+    channel keys, so a lane's gains never see it."""
+    dev = keys.device
+    n = torch.arange(num_devices, dtype=torch.int64, device=dev)
+    t = torch.arange(num_rounds, dtype=torch.int64, device=dev)
+    u = draws.uniform_f32(draws.fold(
+        draws.fold(keys, _DROPOUT_FOLD)[:, None, None],
+        t[None, :, None] * num_devices + n[None, None, :]))
+    return (u >= _col(rate, keys)).to(torch.float32)
 
 
 class ChannelProcess:

@@ -21,6 +21,11 @@ as a Python loop whose state (params, queues, per-round metrics) stays
 on the device: the host reads back only what Algorithm 2's while-loops
 read (one norm per iteration), and the metrics once, at the end.
 
+The scenario arena (``repro_torch.sim.Arena``) runs S such rollouts as
+one (:meth:`RoundEngine._build_lanes`): the same per-round control plane
+per lane, one gather, one SGD over S·K_max clients and one lane-batched
+eq.-(4) launch per round (:meth:`RoundEngine._lanes_plan`).
+
 This slice ports the single-bucket bank (``make_bank`` with
 ``'single'``, or ``'auto'`` when the partition fits one tier) without a
 mesh.  The tier ladder, the host-stacked round and the client-axis
@@ -162,6 +167,48 @@ class RoundEngine:
 
         return round_fn, bank.device_args()
 
+    def _lanes_plan(self, bank: ClientBank):
+        """(round_fn, data) of a lane-batched rollout over ``bank``:
+        ``round_fn(params, data, selected, coeffs, lr, sort_keys)`` takes
+        ``[S, ...]`` params, ``[S, K]`` selections and coefficients and
+        ``[S, K, E, B]`` epoch keys, gathers the S·K selected rows of the
+        shared bank in one ``index_select``, runs ONE E-epoch SGD over
+        the S·K clients (each from its lane's model, repeated over the
+        lane's slots on the device) and the eq.-(4) step of every lane
+        (``server.aggregate_fused_lanes``: one lane-batched
+        ``fl_aggregate`` launch on a CUDA device).  Returns the ``[S,
+        ...]`` params and the ``[S, K]`` losses."""
+        if not isinstance(bank, ClientBank):
+            raise NotImplementedError(
+                f"an arena over a {type(bank).__name__}: the multi-tier "
+                f"TieredClientBank {SCALE_PLANE}")
+        steps = bank.steps_per_epoch
+
+        def round_fn(params, data, selected, coeffs, lr, sort_keys):
+            all_x, all_y, all_steps, all_sizes = data
+            lanes, k = selected.shape
+            flat = selected.reshape(-1)
+            ns = None if all_steps is None else torch.index_select(
+                all_steps, 0, flat)
+            ne = None if all_sizes is None else torch.index_select(
+                all_sizes, 0, flat)
+            starts = {name: v.repeat_interleave(k, dim=0)
+                      for name, v in params.items()}
+            deltas, losses = fl_client.batched_local_sgd(
+                self.task.loss_fn, starts, torch.index_select(all_x, 0, flat),
+                torch.index_select(all_y, 0, flat), lr, self.cfg, steps,
+                num_steps=ns, num_examples=ne,
+                sort_keys=sort_keys.reshape((lanes * k,)
+                                            + tuple(sort_keys.shape[2:])),
+                per_client=True)
+            deltas = {name: d.reshape((lanes, k) + tuple(d.shape[1:]))
+                      for name, d in deltas.items()}
+            return (fl_server.aggregate_fused_lanes(params, deltas, coeffs,
+                                                    impl=self.impl),
+                    losses.reshape(lanes, k))
+
+        return round_fn, bank.device_args()
+
     def _build_scan(self, k: int, decide_fn, round_fn, select_fn):
         """The rollout body: a function running T rounds on the device.
 
@@ -188,82 +235,98 @@ class RoundEngine:
         ``replay`` (``(selected [T, K], sort_keys [T, K, E, B])``, each
         tensor or None) replaces the draws with given ones: the parity
         tests pass the JAX package's selections and epoch keys in.
+
+        The control plane of a round (:func:`_control`) and its outputs
+        (:func:`_outputs`) are the functions the arena's lane body
+        (:meth:`_build_lanes`) runs per lane.
         """
         epochs = self.cfg.local_epochs
 
         def scan_fn(params, queues, sp, data, h_seq, drop_seq, lr_seq, key,
                     V, lam, kvec, k_act, replay):
-            n = sp.num_devices
-            dev = h_seq.device
-            w = sp.data_weights
-            rows = data[0].shape[1]
-            slots = torch.arange(k, device=dev)
-            active = slots < k_act
-            af = active.to(torch.float32)
-            k_f = float(k_act)
-            rep_sel, rep_keys = replay
-            use_dropout = drop_seq is not None
+            lane = _Lane(sp, k, k_act, kvec, V, lam, key, h_seq, drop_seq,
+                         replay, decide_fn, select_fn, epochs,
+                         data[0].shape[1])
             outs = []
             for t in range(h_seq.shape[0]):
-                h = h_seq[t]
-                with obs_trace.span("scan.decide", t=t):
-                    dec = decide_fn(sp, h, queues, V, lam, kvec)
-                if rep_sel is None:
-                    drawn = select_fn(
-                        sp, t, h, queues, dec.q,
-                        draws.round_key(key, t, draws.SELECT_STREAM),
-                        slots, kvec)
-                else:
-                    drawn = rep_sel[t]
-                selected = torch.where(active, drawn, 0)
-                if rep_keys is None:
-                    sort_keys = draws.epoch_keys(
-                        draws.round_key(key, t, draws.CLIENT_STREAM), slots,
-                        epochs, rows)
-                else:
-                    sort_keys = rep_keys[t]
-                act = af * drop_seq[t][selected] if use_dropout else af
-                ratio = w[selected] / (kvec[selected] * dec.q[selected])
-                # exactly 0 where a slot is inert or dropped (w / (K q)
-                # is inf there when the padded slot's client 0 has q = 0)
-                coeffs = torch.where(act > 0, ratio * act, 0.0)
+                dec, selected, sort_keys, coeffs = _control(lane, t, queues)
                 params, losses = round_fn(params, data, selected, coeffs,
                                           lr_seq[t], sort_keys)
-                queues = vq.update_queues(queues, vq.energy_increment(
-                    sp, h, dec.p, dec.f, dec.q, k=kvec))
-                t_n = sm.round_time(sp, h, dec.p, dec.f, k=kvec)
-                e_n = sm.round_energy(sp, h, dec.p, dec.f, k=kvec)
-                if use_dropout:
-                    loss = (torch.sum(losses * act) /
-                            torch.clamp(torch.sum(act), min=1.0))
-                    live = active & (act > 0.0)
-                    # all slots dropped: no upload finished this round
-                    wall = torch.clamp(torch.max(torch.where(
-                        live, t_n[selected], float("-inf"))), min=0.0)
-                else:
-                    loss = torch.sum(losses * af) / k_f
-                    live = active
-                    wall = torch.max(torch.where(live, t_n[selected],
-                                                 float("-inf")))
-                # dead slots mark the extra row n, which is dropped
-                mask = torch.zeros(n + 1, dtype=torch.float32,
-                                   device=dev).index_fill_(
-                    0, torch.where(live, selected, n), 1.0)[:n]
-                outs.append((torch.stack([
-                    loss, wall,
-                    torch.sum(e_n * mask) / torch.clamp(torch.sum(mask),
-                                                        min=1.0),
-                    torch.mean(queues), torch.linalg.vector_norm(queues),
-                    torch.min(dec.q), torch.max(dec.q), torch.sum(dec.q)]),
-                    torch.where(active, selected, -1)))
-            scalars = torch.stack([o[0] for o in outs]).cpu().numpy()
-            metrics = {name: scalars[:, i]
-                       for i, name in enumerate(SCAN_SCALARS)}
-            metrics["selected"] = torch.stack(
-                [o[1] for o in outs]).cpu().numpy()
-            return params, queues, metrics
+                queues, out = _outputs(lane, t, dec, queues, selected,
+                                       losses)
+                outs.append(out)
+            return params, queues, _stack_metrics(outs)
 
         return scan_fn
+
+    def _build_lanes(self, k: int, round_fn, eval_bank=None,
+                     eval_every: int = 0):
+        """The scenario arena's rollout body over S lanes.
+
+        Control plane per lane: every round, each lane runs
+        :func:`_control` (its controller's ``decide_by_id`` and
+        ``select_by_id``, its own solver trip counts, draws keyed by its
+        rollout key) and :func:`_outputs` (queues, metrics) — the very
+        functions of :meth:`_build_scan`, with :meth:`_build_scan`'s
+        padded-K, dropout and inert-slot rules per lane.  Data plane
+        batched: ``round_fn`` from :meth:`_lanes_plan` gathers, trains and
+        aggregates all lanes at once.  So lane s reproduces
+        :meth:`run_scan` on its scenario.
+
+        ``eval_bank`` with ``eval_every = E > 0`` adds the in-rollout
+        evaluation of the JAX package's scan: the initial params are
+        evaluated once, and after every round t with ``(t + 1) % E ==
+        0`` the ``[S, ...]`` params are, in one batched call; each round
+        emits ``test_<metric>`` ``[S]`` columns holding the latest
+        evaluation (a step curve).
+
+        The body takes ``(params, lanes, data, lr_seq)``: ``params`` the
+        shared initial model (copied to ``[S, ...]``), ``lanes`` a list of
+        :class:`_Lane`.  It returns ``([S, ...] params, [S, N] queues,
+        metrics)`` with every metric ``[S, T]`` numpy (``selected`` ``[S,
+        T, k]``).
+        """
+
+        def lanes_fn(params, lanes, data, lr_seq):
+            s_count = len(lanes)
+            params = {name: v.unsqueeze(0).expand(
+                (s_count,) + tuple(v.shape)).clone()
+                for name, v in params.items()}
+            queues = [ln.queues0 for ln in lanes]
+            outs = [[] for _ in lanes]
+            evals = []
+            last_ev = None
+            if eval_every:
+                last_ev = {name: v.expand(s_count) for name, v in
+                           eval_bank.metrics_one(
+                               {n: v[0] for n, v in params.items()}).items()}
+            for t in range(lr_seq.shape[0]):
+                control = [_control(ln, t, queues[i])
+                           for i, ln in enumerate(lanes)]
+                with obs_trace.span("engine.lanes_round", t=t,
+                                    lanes=s_count, k=k):
+                    params, losses = round_fn(
+                        params, data, torch.stack([c[1] for c in control]),
+                        torch.stack([c[3] for c in control]), lr_seq[t],
+                        torch.stack([c[2] for c in control]))
+                for i, ln in enumerate(lanes):
+                    dec, selected = control[i][0], control[i][1]
+                    queues[i], out = _outputs(ln, t, dec, queues[i],
+                                              selected, losses[i])
+                    outs[i].append(out)
+                if eval_every:
+                    if (t + 1) % eval_every == 0:
+                        last_ev = eval_bank.metrics_stacked(params)
+                    evals.append(last_ev)
+            per_lane = [_stack_metrics(o) for o in outs]
+            metrics = {name: np.stack([m[name] for m in per_lane])
+                       for name in per_lane[0]}
+            for name in (evals[0] if evals else {}):
+                metrics["test_" + name] = torch.stack(
+                    [ev[name] for ev in evals], dim=1).cpu().numpy()
+            return params, torch.stack(queues), metrics
+
+        return lanes_fn
 
     @staticmethod
     def _fixed_policy_decide(policy: str):
@@ -376,6 +439,114 @@ class RoundEngine:
             return scan_fn(global_params, queues, sp, data, h_seq, drop_seq,
                            lr_seq, key, full(V), full(lam),
                            full(float(k_act)), k_act, replay)
+
+
+class _Lane:
+    """One rollout's constants, as the rollout bodies read them: its
+    system params, slot count ``k`` (K_max) and true K (``k_act``,
+    ``kvec`` ``[N]``), ``V`` and ``lam`` as ``[N]`` float32, rollout key,
+    channels ``[T, N]``, alive mask ``[T, N]`` or None, replayed draws
+    ``(selected, sort_keys)`` (each None or ``[T, ...]``), its controller's
+    decide and select functions, local epochs and bank rows; and, for the
+    arena, its initial queues and its lane index (the ``scan.decide``
+    spans' ``lane``)."""
+
+    def __init__(self, sp, k, k_act, kvec, V, lam, key, h_seq, drop_seq,
+                 replay, decide_fn, select_fn, epochs, rows, queues0=None,
+                 index=None):
+        self.sp, self.k, self.k_act, self.kvec = sp, k, k_act, kvec
+        self.V, self.lam, self.key = V, lam, key
+        self.h_seq, self.drop_seq, self.replay = h_seq, drop_seq, replay
+        self.decide_fn, self.select_fn = decide_fn, select_fn
+        self.epochs, self.rows, self.queues0 = epochs, rows, queues0
+        self.index = index
+        dev = h_seq.device
+        self.slots = torch.arange(k, device=dev)
+        self.active = self.slots < k_act
+        self.af = self.active.to(torch.float32)
+
+
+def _control(lane: _Lane, t: int, queues: torch.Tensor):
+    """Round t's control plane of one rollout: the decision, the slots'
+    clients (inert slots on client 0), their ``[k, E, B]`` epoch keys and
+    their eq.-(4) coefficients (exactly 0 where a slot is inert or
+    dropped: w / (K q) is inf there when the padded slot's client 0 has
+    q = 0)."""
+    sp, kvec, slots = lane.sp, lane.kvec, lane.slots
+    h = lane.h_seq[t]
+    with obs_trace.span("scan.decide", t=t, lane=lane.index):
+        dec = lane.decide_fn(sp, h, queues, lane.V, lane.lam, kvec)
+    rep_sel, rep_keys = lane.replay
+    if rep_sel is None:
+        drawn = lane.select_fn(
+            sp, t, h, queues, dec.q,
+            draws.round_key(lane.key, t, draws.SELECT_STREAM), slots, kvec)
+    else:
+        drawn = rep_sel[t]
+    selected = torch.where(lane.active, drawn, 0)
+    if rep_keys is None:
+        sort_keys = draws.epoch_keys(
+            draws.round_key(lane.key, t, draws.CLIENT_STREAM), slots,
+            lane.epochs, lane.rows)
+    else:
+        sort_keys = rep_keys[t]
+    act = _act(lane, t, selected)
+    w = sp.data_weights
+    ratio = w[selected] / (kvec[selected] * dec.q[selected])
+    coeffs = torch.where(act > 0, ratio * act, 0.0)
+    return dec, selected, sort_keys, coeffs
+
+
+def _act(lane: _Lane, t: int, selected: torch.Tensor) -> torch.Tensor:
+    """1.0 for a live slot, 0.0 for an inert or dropped one."""
+    if lane.drop_seq is None:
+        return lane.af
+    return lane.af * lane.drop_seq[t][selected]
+
+
+def _outputs(lane: _Lane, t: int, dec, queues: torch.Tensor,
+             selected: torch.Tensor, losses: torch.Tensor):
+    """Round t's queue update and metrics row of one rollout: (new
+    queues, (the :data:`SCAN_SCALARS` as one tensor, ``selected`` with
+    -1 in inert slots))."""
+    sp, kvec, active, af = lane.sp, lane.kvec, lane.active, lane.af
+    n = sp.num_devices
+    h = lane.h_seq[t]
+    act = _act(lane, t, selected)
+    queues = vq.update_queues(queues, vq.energy_increment(
+        sp, h, dec.p, dec.f, dec.q, k=kvec))
+    t_n = sm.round_time(sp, h, dec.p, dec.f, k=kvec)
+    e_n = sm.round_energy(sp, h, dec.p, dec.f, k=kvec)
+    if lane.drop_seq is not None:
+        loss = (torch.sum(losses * act) /
+                torch.clamp(torch.sum(act), min=1.0))
+        live = active & (act > 0.0)
+        # all slots dropped: no upload finished this round
+        wall = torch.clamp(torch.max(torch.where(
+            live, t_n[selected], float("-inf"))), min=0.0)
+    else:
+        loss = torch.sum(losses * af) / float(lane.k_act)
+        live = active
+        wall = torch.max(torch.where(live, t_n[selected], float("-inf")))
+    # dead slots mark the extra row n, which is dropped
+    mask = torch.zeros(n + 1, dtype=torch.float32,
+                       device=h.device).index_fill_(
+        0, torch.where(live, selected, n), 1.0)[:n]
+    return queues, (torch.stack([
+        loss, wall,
+        torch.sum(e_n * mask) / torch.clamp(torch.sum(mask), min=1.0),
+        torch.mean(queues), torch.linalg.vector_norm(queues),
+        torch.min(dec.q), torch.max(dec.q), torch.sum(dec.q)]),
+        torch.where(active, selected, -1))
+
+
+def _stack_metrics(outs) -> Dict[str, np.ndarray]:
+    """The rows of :func:`_outputs` as ``{name: [T] numpy}`` and
+    ``selected`` ``[T, k]``, read back once."""
+    scalars = torch.stack([o[0] for o in outs]).cpu().numpy()
+    metrics = {name: scalars[:, i] for i, name in enumerate(SCAN_SCALARS)}
+    metrics["selected"] = torch.stack([o[1] for o in outs]).cpu().numpy()
+    return metrics
 
 
 #: the scalar per-round metrics of ``run_scan``, in its stacking order

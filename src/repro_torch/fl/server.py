@@ -17,6 +17,11 @@ leading ``[K, ...]`` axis on every leaf.
   one launch (no ravel, no unravel); on the CPU it is the same per-leaf
   arithmetic as ``aggregate_stacked`` (the JAX package's off-TPU
   branch), which the tests hold against the reference.
+* ``aggregate_fused_lanes`` is the scenario arena's round: the eq.-(4)
+  step of S lanes of one model (``[S, ...]`` params, ``[S, K, ...]``
+  deltas, ``[S, K]`` coeffs), one lane-batched ``fl_aggregate`` launch
+  on a CUDA device, and on the CPU :func:`aggregate_fused`'s arithmetic
+  per lane.
 * ``ParamRavel`` is the JAX package's flat-vector adapter, kept for the
   flat entry points (``ops.fl_aggregate``, ``ops.fl_delta_reduce``).
 """
@@ -117,6 +122,24 @@ def aggregate_fused(global_params: Params, stacked_deltas: Params,
     return dict(zip(names, ops.fl_aggregate_leaves(
         [global_params[n] for n in names],
         [stacked_deltas[n] for n in names], coeffs, impl=impl)))
+
+
+def aggregate_fused_lanes(params_stacked: Params, deltas_stacked: Params,
+                          coeffs: torch.Tensor, impl: str = "auto"
+                          ) -> Params:
+    """eq. (4) for S lanes at once: per leaf and lane s,
+    ``params_stacked[n][s] + sum_k coeffs[s, k] * deltas_stacked[n][s, k]``.
+
+    On a CUDA device the leaves (sorted names) of every lane go to ONE
+    lane-batched ``fl_aggregate`` launch per table of (lane, leaf)
+    segments; on the CPU lane s is :func:`aggregate_fused` on lane s's
+    tensors, bit for bit.  ``impl='cuda'`` on CPU tensors raises."""
+    device = next(iter(params_stacked.values())).device
+    coeffs = coeffs.to(device=device, dtype=torch.float32).contiguous()
+    names = sorted(params_stacked)
+    return dict(zip(names, ops.fl_aggregate_lanes(
+        [params_stacked[n] for n in names],
+        [deltas_stacked[n] for n in names], coeffs, impl=impl)))
 
 
 def fedavg_reference(global_params: Params, deltas: Sequence[Params],

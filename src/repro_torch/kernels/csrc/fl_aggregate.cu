@@ -1,9 +1,13 @@
 // eq.-(4) aggregation over the model's leaves, hand-written for Hopper
-// (sm_90a).  For every leaf i of a launch:
+// (sm_90a).  For every segment i of a launch (a leaf, or one lane's copy
+// of a leaf) with coefficient row r_i of a row-major [R, K] table:
 //
-//   out_i[n] = theta_i[n] + sum_k coeffs[k] * delta_i[k, n]   (fl_aggregate)
-//   out_i[n] =              sum_k coeffs[k] * delta_i[k, n]   (fl_delta_reduce)
+//   out_i[n] = theta_i[n] + sum_k coeffs[r_i, k] * delta_i[k, n]  (fl_aggregate)
+//   out_i[n] =              sum_k coeffs[r_i, k] * delta_i[k, n]  (fl_delta_reduce)
 //
+// A one-model call has R = 1 (every row 0); the scenario arena's call
+// has one row per lane (R = S lanes, segment (s, leaf) on row s), so
+// every lane's eq.-(4) step of a round is one launch.
 // Replaces the Pallas TPU kernel `fl_aggregate_tpu`
 // (src/repro/kernels/fl_aggregate.py, body `_aggregate_kernel`), which
 // streams [K, 65536] tiles of the ravelled model through VMEM with the
@@ -30,6 +34,10 @@
 //     table's tile prefix (uniform across the block, in the constant
 //     bank).  The grid is min(tiles, resident blocks): one wave for a
 //     model of a few hundred tiles, a persistent grid-stride walk beyond.
+//   * Each segment carries its coefficient row.  A block keeps the row of
+//     the segment it works on in shared memory and reloads it (two
+//     barriers, K floats) only when its next tile lies on another row;
+//     the row is uniform across the block, so the barriers are too.
 //   * Loads in flight: a thread issues theta's load, then the delta rows in
 //     batches of kBatch, each batch's loads before its FMAs; K is a
 //     template bucket (<= 8, <= 16, or a loop of batches), the rows of a
@@ -67,8 +75,9 @@ namespace {
 constexpr int kThreads = 128;
 // dynamic shared memory for the coefficients stays under the 48 KB default
 constexpr int kMaxK = 12288;
-// leaves per launch: 64 segments of 48 bytes keep the parameter block
-// within the 4 KB that every CUDA version accepts
+// segments per launch: 64 segments of 48 bytes keep the parameter block
+// within the 4 KB that every CUDA version accepts (the row index fits in
+// the padding after `vec`, so the lane form kept the size)
 constexpr int kMaxSegments = 64;
 // delta rows whose loads a thread issues together, per vector
 constexpr int kBatch = 4;
@@ -78,7 +87,9 @@ constexpr int kNarrowRegs = 40;
 
 enum DType : int { kNone = -1, kF32 = 0, kBF16 = 1 };
 // the columns of one row of the host's int64 segment table
-enum Column : int { kTheta, kDelta, kOut, kSize, kVec, kTileEnd, kColumns };
+enum Column : int {
+  kTheta, kDelta, kOut, kSize, kVec, kTileEnd, kRow, kColumns
+};
 
 struct Segment {
   const void* theta;   // [size], nullptr for the reduce
@@ -87,6 +98,7 @@ struct Segment {
   long long size;      // elements
   long long tile_end;  // tiles of this and every earlier segment
   int vec;             // elements per vector: 1, 2, 4 or 8
+  int row;             // coefficient row: coeffs + row * K
 };
 
 struct Table {
@@ -276,10 +288,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TD, VMAX>())
     fl_aggregate_kernel(const __grid_constant__ Table table,
                         const float* __restrict__ coeffs, int k_count) {
   extern __shared__ float s_coeff[];
-  for (int k = threadIdx.x; k < k_count; k += blockDim.x) {
-    s_coeff[k] = coeffs[k];
-  }
-  __syncthreads();
+  int loaded = -1;  // the coefficient row in s_coeff
 
   const long long total = table.seg[table.count - 1].tile_end;
 #pragma unroll 1
@@ -294,6 +303,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TD, VMAX>())
       }
     }
     const Segment& s = table.seg[lo];
+    if (s.row != loaded) {  // uniform across the block
+      __syncthreads();      // every thread is done with the old row
+      const float* row = coeffs + (long long)s.row * k_count;
+      for (int k = threadIdx.x; k < k_count; k += blockDim.x) {
+        s_coeff[k] = row[k];
+      }
+      __syncthreads();
+      loaded = s.row;
+    }
     const long long local = tile - (lo == 0 ? 0 : table.seg[lo - 1].tile_end);
     const bool last = tile == s.tile_end - 1;
     switch (s.vec) {
@@ -335,10 +353,11 @@ long long tiles_for(long long size, int vec, int tile_vectors) {
 
 // Copy the host's table into the by-value struct, checking every row
 // against what the kernel assumes (pointers present and aligned to the
-// row's vector, row starts aligned, the tile prefix exact).
+// row's vector, row starts aligned, the tile prefix exact, the
+// coefficient row inside the [coeff_rows, K] table).
 template <typename TT, typename TD, typename TO, bool HAS_THETA>
 cudaError_t fill_table(const long long* rows, int count, int k_count,
-                       Table* table) {
+                       int coeff_rows, Table* table) {
   if (rows == nullptr || count < 1 || count > kMaxSegments) {
     return cudaErrorInvalidValue;
   }
@@ -353,6 +372,8 @@ cudaError_t fill_table(const long long* rows, int count, int k_count,
     s.size = r[kSize];
     s.vec = (int)r[kVec];
     s.tile_end = r[kTileEnd];
+    if (r[kRow] < 0 || r[kRow] >= coeff_rows) return cudaErrorInvalidValue;
+    s.row = (int)r[kRow];
     const int v = s.vec;
     const bool vec_ok =
         (v == 1 || v == 2 || v == 4 || v == 8) &&
@@ -435,10 +456,10 @@ cudaError_t launch_widest(const Table& table, int vmax, const float* coeffs,
 
 template <typename TT, typename TD, typename TO, bool HAS_THETA>
 cudaError_t launch(const long long* rows, int count, const float* coeffs,
-                   int k_count, cudaStream_t stream) {
+                   int coeff_rows, int k_count, cudaStream_t stream) {
   Table table;
-  cudaError_t err =
-      fill_table<TT, TD, TO, HAS_THETA>(rows, count, k_count, &table);
+  cudaError_t err = fill_table<TT, TD, TO, HAS_THETA>(rows, count, k_count,
+                                                      coeff_rows, &table);
   if (err != cudaSuccess) return err;
   int vmax = 1;
   for (int i = 0; i < table.count; ++i) {
@@ -476,32 +497,40 @@ const char* fl_aggregate_error_string(int code) {
 }
 
 // One launch over `count` segments (rows of kColumns int64: theta, delta
-// and out addresses, size, vector width, tile prefix), coeffs [K] f32.
-// theta_dtype -1 is the theta-less reduce (out f32, theta addresses 0);
-// otherwise out has theta's dtype.  Dtype codes: 0 f32, 1 bf16.  Returns
-// a cudaError_t code (0 on success).
+// and out addresses, size, vector width, tile prefix, coefficient row),
+// coeffs [coeff_rows, K] f32 row-major.  theta_dtype -1 is the
+// theta-less reduce (out f32, theta addresses 0); otherwise out has
+// theta's dtype.  Dtype codes: 0 f32, 1 bf16.  Returns a cudaError_t
+// code (0 on success).
 int fl_aggregate_segments_launch(const long long* rows, int count,
-                                 const float* coeffs, int k_count,
-                                 int theta_dtype, int delta_dtype,
-                                 void* stream) {
-  if (coeffs == nullptr || k_count < 1 || k_count > kMaxK) {
+                                 const float* coeffs, int coeff_rows,
+                                 int k_count, int theta_dtype,
+                                 int delta_dtype, void* stream) {
+  if (coeffs == nullptr || k_count < 1 || k_count > kMaxK ||
+      coeff_rows < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   cudaError_t err = cudaErrorInvalidValue;
   if (theta_dtype == kF32 && delta_dtype == kF32) {
-    err = launch<float, float, float, true>(rows, count, coeffs, k_count, s);
+    err = launch<float, float, float, true>(rows, count, coeffs, coeff_rows,
+                                           k_count, s);
   } else if (theta_dtype == kBF16 && delta_dtype == kBF16) {
-    err = launch<bf16, bf16, bf16, true>(rows, count, coeffs, k_count, s);
+    err = launch<bf16, bf16, bf16, true>(rows, count, coeffs, coeff_rows,
+                                        k_count, s);
   } else if (theta_dtype == kF32 && delta_dtype == kBF16) {
-    err = launch<float, bf16, float, true>(rows, count, coeffs, k_count, s);
+    err = launch<float, bf16, float, true>(rows, count, coeffs, coeff_rows,
+                                          k_count, s);
   } else if (theta_dtype == kBF16 && delta_dtype == kF32) {
-    err = launch<bf16, float, bf16, true>(rows, count, coeffs, k_count, s);
+    err = launch<bf16, float, bf16, true>(rows, count, coeffs, coeff_rows,
+                                         k_count, s);
   } else if (theta_dtype == kNone && delta_dtype == kF32) {
-    err = launch<float, float, float, false>(rows, count, coeffs, k_count, s);
+    err = launch<float, float, float, false>(rows, count, coeffs, coeff_rows,
+                                            k_count, s);
   } else if (theta_dtype == kNone && delta_dtype == kBF16) {
-    err = launch<float, bf16, float, false>(rows, count, coeffs, k_count, s);
+    err = launch<float, bf16, float, false>(rows, count, coeffs, coeff_rows,
+                                           k_count, s);
   }
   return (int)err;
 }

@@ -6,6 +6,12 @@
 leaf, ``thetas[i] + sum_k coeffs[k] * deltas[i][k]`` in one launch over the
 leaves where they lie (one launch per table of at most
 ``fl_aggregate_max_segments()`` leaves of one dtype combination).
+``fl_aggregate_lanes_cuda(thetas, deltas, coeffs)`` is the scenario
+arena's form: S lanes of one model (``[S, ...]`` thetas, ``[S, K, ...]``
+deltas, ``[S, K]`` coeffs), every (lane, leaf) a segment of the same
+table on its lane's coefficient row, so all lanes' eq.-(4) step is one
+launch per table; lane s of it is bitwise the one-lane call on lane s's
+tensors.
 ``fl_aggregate_cuda(theta, deltas, coeffs)`` and ``fl_delta_reduce_cuda(
 deltas, coeffs)`` (the theta-less partial, f32 out) are its one-leaf case
 on a flat ``[N]`` / ``[K, N]`` model.  All take CUDA tensors only: they
@@ -36,7 +42,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_THETA = -1
 
 #: launches per wrapper since the last :func:`reset_launch_counts`
-LAUNCHES: Dict[str, int] = {"fl_aggregate": 0, "fl_delta_reduce": 0}
+LAUNCHES: Dict[str, int] = {"fl_aggregate": 0, "fl_delta_reduce": 0,
+                            "fl_aggregate_lanes": 0}
 
 #: one row of a launch's table: (leaf index, elements per vector, tiles of
 #: this and every earlier row of the table)
@@ -99,7 +106,7 @@ def _library() -> ctypes.CDLL:
         lib = _build.load_library("fl_aggregate")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fl_aggregate_segments_launch.argtypes = [vp, i32, vp, i32, i32,
-                                                     i32, vp]
+                                                     i32, i32, vp]
         lib.fl_aggregate_segments_launch.restype = i32
         for name in ("fl_aggregate_max_k", "fl_aggregate_max_segments",
                      "fl_aggregate_tile_vectors"):
@@ -168,49 +175,122 @@ def _raise_on(code: int, lib: ctypes.CDLL, what: str) -> None:
                            f"(cudaError {code})")
 
 
-def _launch_leaves(thetas: Sequence[torch.Tensor] | None,
-                   deltas: Sequence[torch.Tensor], coeffs: torch.Tensor,
-                   counter: str) -> List[torch.Tensor]:
-    """Validate, allocate the outputs, plan the tables and launch each."""
+#: one segment of a launch: (theta or None, deltas ``(K,) + shape``, out,
+#: coefficient row)
+Seg = Tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, int]
+
+
+def _launch_segments(segs: Sequence[Seg], coeffs: torch.Tensor,
+                     counter: str) -> None:
+    """Plan the tables of ``segs`` (empty ones skipped) and launch each
+    on the current stream, ``coeffs`` a contiguous f32 ``[R, K]`` (or
+    ``[K]``, R = 1) table the segments' rows index."""
     lib = _library()
-    _check_leaves(thetas, deltas, coeffs, lib)
-    device = deltas[0].device
-    if thetas is None:
-        outs = [torch.empty(d.shape[1:], dtype=torch.float32, device=device)
-                for d in deltas]
-    else:
-        outs = [torch.empty_like(t) for t in thetas]
-    k = int(coeffs.shape[0])
-    live = [i for i, out in enumerate(outs) if out.numel()]
+    k = int(coeffs.shape[-1])
+    coeff_rows = int(coeffs.shape[0]) if coeffs.dim() == 2 else 1
+    live = [seg for seg in segs if seg[2].numel()]
     if not live:
-        return outs
+        return
     sizes, pointers, kinds = [], [], []
-    for i in live:
-        d, out = deltas[i], outs[i]
+    for theta, d, out, _ in live:
         ptrs = [(d.data_ptr(), d.element_size()),
                 (out.data_ptr(), out.element_size())]
         theta_dtype = _NO_THETA
-        if thetas is not None:
-            ptrs.append((thetas[i].data_ptr(), thetas[i].element_size()))
-            theta_dtype = _DTYPE_CODES[thetas[i].dtype]
+        if theta is not None:
+            ptrs.append((theta.data_ptr(), theta.element_size()))
+            theta_dtype = _DTYPE_CODES[theta.dtype]
         sizes.append(out.numel())
         pointers.append(ptrs)
         kinds.append((theta_dtype, _DTYPE_CODES[d.dtype]))
     plan = plan_segments(sizes, k, pointers, kinds,
                          lib.fl_aggregate_tile_vectors(),
                          lib.fl_aggregate_max_segments())
+    device = coeffs.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for (theta_dtype, delta_dtype), rows in plan:
             table = np.array(
-                [(pointers[j][2][0] if thetas is not None else 0,
-                  pointers[j][0][0], pointers[j][1][0], sizes[j], vec, end)
+                [(pointers[j][2][0] if theta_dtype != _NO_THETA else 0,
+                  pointers[j][0][0], pointers[j][1][0], sizes[j], vec, end,
+                  live[j][3])
                  for j, vec, end in rows], dtype=np.int64)
             code = lib.fl_aggregate_segments_launch(
-                table.ctypes.data, len(rows), coeffs.data_ptr(), k,
-                theta_dtype, delta_dtype, stream)
+                table.ctypes.data, len(rows), coeffs.data_ptr(), coeff_rows,
+                k, theta_dtype, delta_dtype, stream)
             _raise_on(code, lib, counter)
             LAUNCHES[counter] += 1
+
+
+def _launch_leaves(thetas: Sequence[torch.Tensor] | None,
+                   deltas: Sequence[torch.Tensor], coeffs: torch.Tensor,
+                   counter: str) -> List[torch.Tensor]:
+    """Validate, allocate the outputs, plan the tables and launch each."""
+    _check_leaves(thetas, deltas, coeffs, _library())
+    device = deltas[0].device
+    if thetas is None:
+        outs = [torch.empty(d.shape[1:], dtype=torch.float32, device=device)
+                for d in deltas]
+    else:
+        outs = [torch.empty_like(t) for t in thetas]
+    _launch_segments([(None if thetas is None else thetas[i], d, outs[i], 0)
+                      for i, d in enumerate(deltas)], coeffs, counter)
+    return outs
+
+
+def _check_lanes(thetas: Sequence[torch.Tensor],
+                 deltas: Sequence[torch.Tensor], coeffs: torch.Tensor,
+                 lib: ctypes.CDLL) -> None:
+    if len(thetas) != len(deltas):
+        raise ValueError(f"{len(thetas)} thetas against {len(deltas)} "
+                         f"deltas")
+    if not deltas:
+        raise ValueError("no leaves")
+    if not coeffs.is_cuda:
+        raise ValueError(f"coeffs must be a CUDA tensor, got device "
+                         f"{coeffs.device}")
+    device = coeffs.get_device()
+    if coeffs.dim() != 2:
+        raise ValueError(f"coeffs must be [S, K], got "
+                         f"{tuple(coeffs.shape)}")
+    lanes, k = int(coeffs.shape[0]), int(coeffs.shape[1])
+    if lanes < 1 or not 1 <= k <= lib.fl_aggregate_max_k():
+        raise ValueError(f"coeffs must be [S, K] with S >= 1 and K in "
+                         f"[1, {lib.fl_aggregate_max_k()}], got "
+                         f"{tuple(coeffs.shape)}")
+    if coeffs.dtype != torch.float32 or not coeffs.is_contiguous():
+        raise ValueError(f"coeffs must be contiguous float32, got "
+                         f"{coeffs.dtype}")
+    for i, (theta, d) in enumerate(zip(thetas, deltas)):
+        _check_tensor(theta, f"leaf {i} theta", device)
+        _check_tensor(d, f"leaf {i} deltas", device)
+        if theta.dim() < 1 or theta.shape[0] != lanes:
+            raise ValueError(f"leaf {i}: theta must be (S,) + the leaf's "
+                             f"shape with S = {lanes}, got "
+                             f"{tuple(theta.shape)}")
+        if d.shape != (lanes, k) + theta.shape[1:]:
+            raise ValueError(f"leaf {i}: deltas must be (S, K) + the "
+                             f"leaf's shape = "
+                             f"{(lanes, k) + tuple(theta.shape[1:])}, got "
+                             f"{tuple(d.shape)}")
+
+
+def fl_aggregate_lanes_cuda(thetas: Sequence[torch.Tensor],
+                            deltas: Sequence[torch.Tensor],
+                            coeffs: torch.Tensor) -> List[torch.Tensor]:
+    """S lanes of one model: thetas[i] ``[S, ...]`` (f32 or bf16),
+    deltas[i] ``[S, K, ...]``, coeffs ``[S, K]`` f32 -> per leaf ``[S,
+    ...]`` in theta's dtype, ``out[i][s] = thetas[i][s] + sum_k
+    coeffs[s, k] * deltas[i][s, k]`` summed in f32.  Every (lane, leaf)
+    is one segment on coefficient row s, lane-major: one launch per
+    table of at most ``fl_aggregate_max_segments()`` segments of one
+    dtype pair, counted as ``fl_aggregate_lanes``."""
+    thetas, deltas = list(thetas), list(deltas)
+    _check_lanes(thetas, deltas, coeffs, _library())
+    outs = [torch.empty_like(t) for t in thetas]
+    lanes = int(coeffs.shape[0])
+    _launch_segments([(thetas[i][s], deltas[i][s], outs[i][s], s)
+                      for s in range(lanes) for i in range(len(thetas))],
+                     coeffs, "fl_aggregate_lanes")
     return outs
 
 

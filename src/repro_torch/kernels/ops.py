@@ -1,6 +1,6 @@
 """Public wrappers around the port's kernels (``fl_aggregate``,
-``fl_aggregate_leaves``, ``fl_delta_reduce``, ``flash_attention``,
-``ssd_chunk``), with one dispatch rule.
+``fl_aggregate_leaves``, ``fl_aggregate_lanes``, ``fl_delta_reduce``,
+``flash_attention``, ``ssd_chunk``), with one dispatch rule.
 
 ``impl`` mirrors ``repro.kernels.ops.use_pallas_kernel``:
 
@@ -63,6 +63,20 @@ def fl_aggregate_leaves(thetas: Sequence[torch.Tensor],
         from repro_torch.kernels.fl_aggregate import fl_aggregate_leaves_cuda
         return fl_aggregate_leaves_cuda(thetas, deltas, coeffs)
     return ref.aggregate_leaves_reference(thetas, deltas, coeffs)
+
+
+def fl_aggregate_lanes(thetas: Sequence[torch.Tensor],
+                       deltas: Sequence[torch.Tensor], coeffs: torch.Tensor,
+                       impl: str = "auto") -> List[torch.Tensor]:
+    """eq.-(4) aggregation of S lanes of one model (the scenario arena's
+    round): thetas[i] ``[S, ...]``, deltas[i] ``[S, K, ...]``, coeffs
+    ``[S, K]`` -> per leaf ``[S, ...]``, lane s summed with ``coeffs[s]``;
+    one kernel launch per table of (lane, leaf) segments on a CUDA
+    device."""
+    if use_cuda_kernel(impl, thetas[0].device):
+        from repro_torch.kernels.fl_aggregate import fl_aggregate_lanes_cuda
+        return fl_aggregate_lanes_cuda(thetas, deltas, coeffs)
+    return ref.aggregate_lanes_reference(thetas, deltas, coeffs)
 
 
 def fl_delta_reduce(deltas: torch.Tensor, coeffs: torch.Tensor,

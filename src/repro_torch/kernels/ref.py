@@ -91,6 +91,36 @@ def aggregate_leaves_fma_reference(thetas: Sequence[torch.Tensor] | None,
     return outs
 
 
+def _per_lane(fn, thetas: Sequence[torch.Tensor],
+              deltas: Sequence[torch.Tensor], coeffs: torch.Tensor
+              ) -> List[torch.Tensor]:
+    """``fn`` (a one-model leaf function) on each lane s of ``[S, ...]``
+    thetas, ``[S, K, ...]`` deltas and ``[S, K]`` coeffs, stacked back
+    to ``[S, ...]`` per leaf."""
+    lanes = [fn([t[s] for t in thetas], [d[s] for d in deltas], coeffs[s])
+             for s in range(coeffs.shape[0])]
+    return [torch.stack([lane[i] for lane in lanes])
+            for i in range(len(thetas))]
+
+
+def aggregate_lanes_reference(thetas: Sequence[torch.Tensor],
+                              deltas: Sequence[torch.Tensor],
+                              coeffs: torch.Tensor) -> List[torch.Tensor]:
+    """The scenario arena's eq.-(4) step over S lanes: per lane s,
+    :func:`aggregate_leaves_reference` of ``[t[s] for t in thetas]``,
+    ``[d[s] for d in deltas]`` and ``coeffs[s]``, stacked per leaf."""
+    return _per_lane(aggregate_leaves_reference, thetas, deltas, coeffs)
+
+
+def aggregate_lanes_fma_reference(thetas: Sequence[torch.Tensor],
+                                  deltas: Sequence[torch.Tensor],
+                                  coeffs: torch.Tensor
+                                  ) -> List[torch.Tensor]:
+    """The lane kernel's arithmetic, bit for bit: per lane
+    :func:`aggregate_leaves_fma_reference`, stacked per leaf."""
+    return _per_lane(aggregate_leaves_fma_reference, thetas, deltas, coeffs)
+
+
 NEG_INF = -2.0e38
 
 

@@ -20,7 +20,9 @@ the profiler bridge and the Chrome-trace exporter.
   ``emit(record)``.
 
 Span names used by the port: ``trainer.round``, ``controller.decide``,
-``engine.round``.
+``engine.round``, ``scan.decide``, and the arena's ``arena.run``,
+``arena.plan``, ``arena.upload``, ``arena.dispatch``, ``arena.eval``;
+event: ``plan.decision`` (``sim.dispatch.plan_dispatch``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from collections import deque
 from contextlib import contextmanager
 from typing import Any, Dict, List
 
-__all__ = ["span", "install_sink", "remove_sink", "installed",
+__all__ = ["span", "event", "install_sink", "remove_sink", "installed",
            "MemorySink"]
 
 # module epoch: every record's ts is relative to this, so one run's
@@ -121,6 +123,20 @@ def span(name: str, **attrs) -> Any:
     if not _SINKS:
         return _NOOP
     return _Span(name, attrs)
+
+
+def event(name: str, **attrs) -> None:
+    """An instantaneous structured record (``dur`` 0, no stack entry).
+    No-op without a sink."""
+    if not _SINKS:
+        return
+    st = _stack()
+    with _LOCK:
+        eid = _NEXT_ID[0]
+        _NEXT_ID[0] += 1
+    _emit({"name": name, "ts": time.perf_counter() - _EPOCH, "dur": 0.0,
+           "id": eid, "parent": st[-1].id if st else None,
+           "depth": len(st), "attrs": attrs})
 
 
 # -- sinks -------------------------------------------------------------------

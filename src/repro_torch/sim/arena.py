@@ -1,0 +1,746 @@
+"""The scenario arena — the paper's evaluation grid (Sec. VII) as one
+lane-batched rollout: the port of ``repro.sim.arena``.
+
+The paper's evaluation is a grid of rollouts: every controller across
+seeds, V and lambda, energy budgets, channel statistics, K and dropout.
+The arena stacks the S scenarios struct-of-arrays (:class:`ScenarioGrid`)
+and runs them as ONE rollout over one engine and one shared, read-only
+ClientBank (``RoundEngine._build_lanes``):
+
+* **Control plane per lane.**  Every round each lane runs its own
+  controller's ``decide_by_id`` / ``select_by_id`` with its own solver
+  trip counts (the JAX package's ``batch='map'`` control plane), its
+  queue update and its metrics — the functions ``run_scan`` runs.
+* **Data plane batched.**  The S·K_max selected rows are gathered from
+  the bank in one ``index_select``, one E-epoch SGD trains all S·K_max
+  clients (each from its lane's model), and every lane's eq.-(4) step is
+  one lane-batched ``fl_aggregate`` launch on a CUDA device
+  (``server.aggregate_fused_lanes``).
+* **K as data.**  A mixed-K grid runs padded to ``K_max`` (``k_mode=
+  'pad'``, the default: one rollout; slots beyond a lane's K are inert,
+  so its model trajectory is the unpadded one) or grouped by K
+  (``'group'``: one rollout per distinct K, scattered back to grid
+  order).
+* **Channels drawn on the device** from the grid's seeds by the port's
+  lane-batched samplers (``fl.environment.sample_channel_sequence``,
+  ``sample_dropout_mask``), the same bits on the CPU and the card.
+* **Evaluation on the device.**  An ``EvalBank`` evaluates the final
+  ``[S, ...]`` params in one batched call (``final_metrics``), and
+  ``eval_every=E`` inside the rollout every E rounds (``test_*``
+  columns).
+
+The reproducibility contract: lane s of :meth:`Arena.run` reproduces ::
+
+    engine.run_scan(global_params, grid.scenario_system_params(sp, s),
+                    bank, h_all[s], lr_seq,
+                    torch.Generator().manual_seed(int(grid.seed[s])),
+                    policy=grid.controller_names()[s], V=grid.V[s],
+                    lam=grid.lam[s], drop_seq=drop_all[s], k_max=K_max)
+
+(``drop_seq`` when dropout is on; ``K_max`` the lane's group's K under
+``'group'``).  The rollout key is the one ``run_scan`` draws from that
+generator (:func:`scenario_keys`); selections are exact, and the control
+plane is the same code on the same inputs, so queues and every modelled
+metric are bitwise.  The model (params, losses) is bitwise where the
+batched SGD computes each client as the per-rollout SGD does (the CPU
+tests pin where it does) and within float32 resolution otherwise.
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP item (A7): ``batch='map'``, ``mesh=``, ``chunk_size`` /
+``chunk_store`` (the streaming pipeline, ``sim/service.py`` and
+``checkpoint/``), ``k_mode='auto'`` (the planner's probe and bucketed
+runs), ``warmup`` with its watchdog; tiered banks raise in the engine
+(A1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import itertools
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import draws
+from repro_torch.core import policy as pol
+from repro_torch.core import system_model as sm
+from repro_torch.core.controller import estimate_hyperparams_arrays
+from repro_torch.fl.environment import (CHANNEL_MODE_IDS, CHANNEL_MODES,
+                                        ChannelConfig,
+                                        sample_channel_sequence,
+                                        sample_dropout_mask)
+from repro_torch.fl.round_engine import _Lane
+from repro_torch.obs import trace as obs
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.sim.dispatch import DispatchPlan
+from repro_torch.sim.report import RolloutReport
+
+Params = Dict[str, torch.Tensor]
+
+#: what waits, named in every NotImplementedError of this module
+_LATER = "is not ported yet (ROADMAP A7, the scenario layer)"
+
+#: the stream of a seed that keys its channels and dropout masks:
+#: ``draws.fold(seed, CHANNEL_STREAM)``, apart from the rollout key that
+#: ``torch.Generator().manual_seed(seed)`` gives ``run_scan``
+CHANNEL_STREAM = 0x43484E4C
+
+
+def _as_f32(value, s: int) -> np.ndarray:
+    return np.broadcast_to(np.asarray(value, np.float32), (s,)).copy()
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioGrid:
+    """Struct-of-arrays stack of S scenarios (all fields numpy ``[S]``):
+    a copy of the JAX package's grid, with the same fields, defaults and
+    validation.
+
+    ``controller`` holds ``repro_torch.core.policy.POLICY_IDS`` ids;
+    ``energy_scale`` multiplies the base ``SystemParams.energy_budget``;
+    (``mean_gain``, ``min_gain``, ``max_gain``) are the per-scenario
+    truncated-exponential channel statistics; ``sample_count`` is K.
+    ``chan_mode`` selects the channel process per lane
+    (``fl.environment.CHANNEL_MODE_IDS`` — 'iid' or 'markov'), with
+    (``bad_gain``, ``p_gb``, ``p_bg``) the Gilbert-Elliott bad-state mean
+    and transition probabilities (ignored by 'iid' lanes); ``dropout`` is
+    the per-client per-round dropout probability.  Build with
+    :meth:`create` (broadcasting scalars) or :meth:`product` (cartesian
+    sweep axes).
+    """
+
+    controller: np.ndarray
+    seed: np.ndarray
+    V: np.ndarray
+    lam: np.ndarray
+    energy_scale: np.ndarray
+    mean_gain: np.ndarray
+    min_gain: np.ndarray
+    max_gain: np.ndarray
+    sample_count: np.ndarray
+    chan_mode: Optional[np.ndarray] = None
+    bad_gain: Optional[np.ndarray] = None
+    p_gb: Optional[np.ndarray] = None
+    p_bg: Optional[np.ndarray] = None
+    dropout: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return int(self.controller.shape[0])
+
+    def __post_init__(self):
+        s = len(self)
+        defaults = dict(chan_mode=np.zeros((s,), np.int32),
+                        bad_gain=np.full((s,), 0.02, np.float32),
+                        p_gb=np.zeros((s,), np.float32),
+                        p_bg=np.zeros((s,), np.float32),
+                        dropout=np.zeros((s,), np.float32))
+        for name, default in defaults.items():
+            if getattr(self, name) is None:
+                object.__setattr__(self, name, default)
+        for f in dataclasses.fields(self):
+            arr = getattr(self, f.name)
+            if arr.shape != (s,):
+                raise ValueError(f"ScenarioGrid.{f.name} must have shape "
+                                 f"({s},), got {arr.shape}")
+        if s == 0:
+            raise ValueError("empty ScenarioGrid")
+        if np.any((self.chan_mode < 0) |
+                  (self.chan_mode >= len(CHANNEL_MODES))):
+            raise ValueError(f"chan_mode ids must index {CHANNEL_MODES}")
+        for name in ("p_gb", "p_bg"):
+            vals = getattr(self, name)
+            if np.any((vals < 0.0) | (vals > 1.0)):
+                raise ValueError(f"ScenarioGrid.{name} must lie in [0, 1]")
+        if np.any((self.dropout < 0.0) | (self.dropout >= 1.0)):
+            raise ValueError("ScenarioGrid.dropout must lie in [0, 1)")
+        # the JAX package's PRNGKey truncates seeds to 32 bits; the same
+        # range keeps a grid valid in both packages
+        if np.any(self.seed < 0) or np.any(self.seed >= 2 ** 32):
+            raise ValueError("ScenarioGrid seeds must fit in uint32 "
+                             "(PRNGKey truncates wider seeds, which would "
+                             "silently alias scenarios)")
+        if np.any(self.sample_count < 1):
+            raise ValueError(
+                f"ScenarioGrid sample_count values must be >= 1, got "
+                f"{self.sample_count.tolist()}")
+
+    @staticmethod
+    def _check_sample_counts(sample_count, num_devices) -> None:
+        """Reject K > N at construction: the paper's sampling draws K of
+        N devices."""
+        if num_devices is None:
+            return
+        ks = np.atleast_1d(np.asarray(sample_count, np.int64))
+        if np.any(ks > int(num_devices)):
+            bad = sorted(int(v) for v in np.unique(ks[ks > num_devices]))
+            raise ValueError(
+                f"sample_count values {bad} exceed num_devices="
+                f"{int(num_devices)} (K must satisfy K <= N)")
+
+    @staticmethod
+    def _controller_ids(controllers) -> np.ndarray:
+        ids = []
+        for c in np.atleast_1d(np.asarray(controllers, object)):
+            if isinstance(c, (int, np.integer)):
+                cid = int(c)
+                if not 0 <= cid < len(pol.POLICIES):
+                    raise ValueError(f"controller id {cid} out of range "
+                                     f"for {pol.POLICIES}")
+            else:
+                name = str(c)
+                if name not in pol.POLICY_IDS:
+                    raise ValueError(f"unknown controller {name!r} "
+                                     f"(scan-traceable: {pol.POLICIES})")
+                cid = pol.POLICY_IDS[name]
+            ids.append(cid)
+        return np.asarray(ids, np.int32)
+
+    @staticmethod
+    def _channel_mode_ids(modes) -> np.ndarray:
+        ids = []
+        for m in np.atleast_1d(np.asarray(modes, object)):
+            if isinstance(m, (int, np.integer)):
+                mid = int(m)
+                if not 0 <= mid < len(CHANNEL_MODES):
+                    raise ValueError(f"channel mode id {mid} out of range "
+                                     f"for {CHANNEL_MODES}")
+            else:
+                name = str(m)
+                if name not in CHANNEL_MODE_IDS:
+                    raise ValueError(f"unknown channel mode {name!r} "
+                                     f"(known: {CHANNEL_MODES})")
+                mid = CHANNEL_MODE_IDS[name]
+            ids.append(mid)
+        return np.asarray(ids, np.int32)
+
+    @classmethod
+    def create(cls, controllers, seeds, V, lam, *, energy_scale=1.0,
+               mean_gain=0.1, min_gain=0.01, max_gain=0.5,
+               sample_count=2, chan_mode="iid", bad_gain=0.02, p_gb=0.0,
+               p_bg=0.0, dropout=0.0,
+               num_devices=None) -> "ScenarioGrid":
+        """Element-wise grid: every argument broadcasts to the common
+        scenario count S (controllers by name or id, channel modes by
+        name or id).  ``num_devices`` (optional) validates every K
+        against N up front."""
+        cls._check_sample_counts(sample_count, num_devices)
+        ids = cls._controller_ids(controllers)
+        modes = cls._channel_mode_ids(chan_mode)
+        seeds = np.atleast_1d(np.asarray(seeds, np.int64))
+        s = max(ids.shape[0], seeds.shape[0], modes.shape[0],
+                *(np.atleast_1d(np.asarray(v)).shape[0]
+                  for v in (V, lam, energy_scale, mean_gain, min_gain,
+                            max_gain, sample_count, bad_gain, p_gb, p_bg,
+                            dropout)))
+        return cls(
+            controller=np.broadcast_to(ids, (s,)).copy(),
+            seed=np.broadcast_to(seeds, (s,)).copy(),
+            V=_as_f32(V, s), lam=_as_f32(lam, s),
+            energy_scale=_as_f32(energy_scale, s),
+            mean_gain=_as_f32(mean_gain, s),
+            min_gain=_as_f32(min_gain, s),
+            max_gain=_as_f32(max_gain, s),
+            sample_count=np.broadcast_to(
+                np.asarray(sample_count, np.int32), (s,)).copy(),
+            chan_mode=np.broadcast_to(modes, (s,)).copy(),
+            bad_gain=_as_f32(bad_gain, s),
+            p_gb=_as_f32(p_gb, s), p_bg=_as_f32(p_bg, s),
+            dropout=_as_f32(dropout, s),
+        )
+
+    @classmethod
+    def product(cls, controllers, seeds, V, lam, *, energy_scale=(1.0,),
+                mean_gain=(0.1,), min_gain=(0.01,), max_gain=(0.5,),
+                sample_count=(2,), chan_mode=("iid",), bad_gain=(0.02,),
+                p_gb=(0.0,), p_bg=(0.0,), dropout=(0.0,),
+                num_devices=None) -> "ScenarioGrid":
+        """Cartesian sweep: one scenario per element of the cross product
+        of the given axes (controllers x seeds x hyper-parameters x
+        budgets x channels x K x channel modes x dropout).
+        ``num_devices`` (optional) validates every K against N up
+        front."""
+        cls._check_sample_counts(sample_count, num_devices)
+        ids = cls._controller_ids(controllers)
+        modes = cls._channel_mode_ids(chan_mode)
+        axes = [ids.tolist(), np.atleast_1d(seeds).tolist(),
+                np.atleast_1d(V).tolist(), np.atleast_1d(lam).tolist(),
+                np.atleast_1d(energy_scale).tolist(),
+                np.atleast_1d(mean_gain).tolist(),
+                np.atleast_1d(min_gain).tolist(),
+                np.atleast_1d(max_gain).tolist(),
+                np.atleast_1d(sample_count).tolist(),
+                modes.tolist(),
+                np.atleast_1d(bad_gain).tolist(),
+                np.atleast_1d(p_gb).tolist(),
+                np.atleast_1d(p_bg).tolist(),
+                np.atleast_1d(dropout).tolist()]
+        rows = list(itertools.product(*axes))
+        cols = list(zip(*rows))
+        return cls(
+            controller=np.asarray(cols[0], np.int32),
+            seed=np.asarray(cols[1], np.int64),
+            V=np.asarray(cols[2], np.float32),
+            lam=np.asarray(cols[3], np.float32),
+            energy_scale=np.asarray(cols[4], np.float32),
+            mean_gain=np.asarray(cols[5], np.float32),
+            min_gain=np.asarray(cols[6], np.float32),
+            max_gain=np.asarray(cols[7], np.float32),
+            sample_count=np.asarray(cols[8], np.int32),
+            chan_mode=np.asarray(cols[9], np.int32),
+            bad_gain=np.asarray(cols[10], np.float32),
+            p_gb=np.asarray(cols[11], np.float32),
+            p_bg=np.asarray(cols[12], np.float32),
+            dropout=np.asarray(cols[13], np.float32),
+        )
+
+    def take(self, idx: np.ndarray) -> "ScenarioGrid":
+        """Sub-grid of the given scenario indices (grid order kept)."""
+        return ScenarioGrid(**{f.name: getattr(self, f.name)[idx]
+                               for f in dataclasses.fields(self)})
+
+    @classmethod
+    def concat(cls, grids: "List[ScenarioGrid]") -> "ScenarioGrid":
+        """Stack several grids into one (lane order = submission
+        order)."""
+        if not grids:
+            raise ValueError("no grids to concatenate")
+        return cls(**{f.name: np.concatenate(
+            [getattr(g, f.name) for g in grids])
+            for f in dataclasses.fields(grids[0])})
+
+    def controller_names(self) -> list:
+        return [pol.POLICIES[c] for c in self.controller]
+
+    def channel_mode_names(self) -> list:
+        return [CHANNEL_MODES[m] for m in self.chan_mode]
+
+    def channel_config(self, s: int) -> ChannelConfig:
+        """Scenario ``s``'s channel statistics as a ``ChannelConfig``."""
+        return ChannelConfig(
+            mean_gain=float(self.mean_gain[s]),
+            min_gain=float(self.min_gain[s]),
+            max_gain=float(self.max_gain[s]),
+            seed=int(self.seed[s]),
+            mode=CHANNEL_MODES[int(self.chan_mode[s])],
+            bad_gain=float(self.bad_gain[s]),
+            p_gb=float(self.p_gb[s]), p_bg=float(self.p_bg[s]),
+            dropout=float(self.dropout[s]))
+
+    def scenario_system_params(self, sp: sm.SystemParams, s: int
+                               ) -> sm.SystemParams:
+        """Scenario ``s``'s SystemParams — the exact parameters a
+        ``run_scan`` reproduction of lane ``s`` must use (the arena's
+        lanes are built from them): K from the grid, the energy budget
+        scaled in float32."""
+        scale = torch.tensor(float(self.energy_scale[s]),
+                             dtype=torch.float32)
+        return dataclasses.replace(
+            sp, sample_count=int(self.sample_count[s]),
+            energy_budget=sp.energy_budget * scale.to(sp.device))
+
+
+def scenario_keys(grid: ScenarioGrid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-scenario keys, int64 ``[S]`` CPU tensors: ``(channel_keys,
+    rollout_keys)``.  ``rollout_keys[s]`` is the key ``run_scan`` draws
+    from ``torch.Generator().manual_seed(int(grid.seed[s]))`` (one
+    ``randint``), so that generator replays lane s; ``channel_keys[s] =
+    draws.fold(seed, CHANNEL_STREAM)`` keys the lane's channels and
+    dropout mask, a stream apart from the generator's."""
+    seeds = torch.as_tensor(np.asarray(grid.seed, np.int64))
+    rollout = torch.stack([
+        torch.randint(0, 2 ** 62, (),
+                      generator=torch.Generator().manual_seed(int(seed)))
+        for seed in grid.seed])
+    return draws.fold(seeds, CHANNEL_STREAM), rollout
+
+
+def derive_hyperparams(sp: sm.SystemParams, grid: ScenarioGrid, mu, nu,
+                       loss_scale=1.0) -> ScenarioGrid:
+    """Fill the grid's (lam, V) from per-scenario (mu, nu) via the
+    Sec. VII-B estimates (``core.controller.estimate_hyperparams_arrays``
+    in float32), using each scenario's own K, mean channel gain and
+    scaled energy budget."""
+    s = len(grid)
+    mu, nu = _as_f32(mu, s), _as_f32(nu, s)
+    loss_scale = _as_f32(loss_scale, s)
+    lam = np.zeros(s, np.float32)
+    v = np.zeros(s, np.float32)
+    dev = sp.device
+    for i in range(s):
+        lam_i, v_i, _, _ = estimate_hyperparams_arrays(
+            grid.scenario_system_params(sp, i), float(grid.mean_gain[i]),
+            loss_scale=float(loss_scale[i]),
+            mu=torch.tensor(mu[i], device=dev),
+            nu=torch.tensor(nu[i], device=dev))
+        lam[i], v[i] = float(lam_i), float(v_i)
+    return dataclasses.replace(grid, lam=lam, V=v)
+
+
+class Arena:
+    """Runs a :class:`ScenarioGrid` as one lane-batched rollout over one
+    engine (a ``RoundEngine``; its ``device`` is the arena's).
+
+    ``batch='vmap'`` (the only mode ported) lays the lanes out as one set
+    of S-wide operations on the data plane (the JAX package's name;
+    here the control plane runs per lane, see the module docstring).
+    ``k_mode`` picks how a mixed-K grid runs: ``'pad'`` (default) — one
+    rollout padded to ``K_max``; ``'group'`` — one rollout per distinct
+    K, lanes scattered back to grid order.  ``mesh``, ``batch='map'``,
+    ``k_mode='auto'`` and ``chunk_size`` raise ``NotImplementedError``,
+    and so do ``cost_model`` and ``max_executables`` at any value but
+    their defaults: they are ``'auto'``'s.
+
+    ``metrics`` is the arena's :class:`~repro_torch.obs.metrics.
+    MetricsRegistry`: ``arena.runs``, ``arena.dispatches`` and the
+    device-input caches' ``arena.input_cache.hits`` / ``.misses`` (lane
+    constants, channels and dropout masks keyed by grid content,
+    learning rates by value, at most 16 entries each).
+    """
+
+    def __init__(self, engine, mesh=None, mesh_axis: str = "data",
+                 batch: str = "vmap", k_mode: str = "pad",
+                 cost_model=None, max_executables: int = 4,
+                 chunk_size: Optional[int] = None):
+        if batch not in ("vmap", "map"):
+            raise ValueError(f"unknown batch mode {batch!r} "
+                             "(expected 'vmap' or 'map')")
+        if k_mode not in ("pad", "group", "auto"):
+            raise ValueError(f"unknown k_mode {k_mode!r} "
+                             "(expected 'pad', 'group' or 'auto')")
+        if cost_model is not None or max_executables != 4:
+            raise NotImplementedError(
+                f"Arena(cost_model=, max_executables=) (the planner of "
+                f"k_mode='auto') {_LATER}")
+        if mesh is not None:
+            raise NotImplementedError(f"Arena(mesh=) {_LATER}")
+        if batch == "map":
+            raise NotImplementedError(f"Arena(batch='map') {_LATER}")
+        if k_mode == "auto":
+            raise NotImplementedError(
+                f"Arena(k_mode='auto') (the dispatch planner's probe and "
+                f"bucketed runs) {_LATER}")
+        if chunk_size is not None:
+            raise NotImplementedError(
+                f"Arena(chunk_size=) (the streaming pipeline) {_LATER}")
+        self.engine = engine
+        self.device = engine.device
+        self.batch = batch
+        self.k_mode = k_mode
+        self.metrics = MetricsRegistry()
+        self._input_cache_cap = 16
+        self._lane_cache: Dict[bytes, dict] = {}
+        self._lr_cache: Dict[bytes, torch.Tensor] = {}
+        self._chan_cache: Dict[bytes, torch.Tensor] = {}
+
+    # -- registry views ------------------------------------------------------
+
+    @property
+    def input_cache_hits(self) -> int:
+        return self.metrics.counter("arena.input_cache.hits").value
+
+    @property
+    def input_cache_misses(self) -> int:
+        return self.metrics.counter("arena.input_cache.misses").value
+
+    # -- device inputs -------------------------------------------------------
+
+    @staticmethod
+    def _grid_digest(grid: ScenarioGrid, extra: tuple = ()) -> bytes:
+        """Content hash of every grid column (+ ``extra``): the key of the
+        device-input caches."""
+        hasher = hashlib.sha1()
+        for f in dataclasses.fields(grid):
+            hasher.update(np.ascontiguousarray(
+                getattr(grid, f.name)).tobytes())
+        hasher.update(repr(extra).encode())
+        return hasher.digest()
+
+    def _cached(self, cache: dict, key, make):
+        hit = cache.get(key)
+        if hit is not None:
+            self.metrics.counter("arena.input_cache.hits").inc()
+            return hit
+        self.metrics.counter("arena.input_cache.misses").inc()
+        if len(cache) >= self._input_cache_cap:
+            cache.pop(next(iter(cache)))
+        cache[key] = value = make()
+        return value
+
+    def _columns(self, grid: ScenarioGrid, *names) -> list:
+        return [torch.as_tensor(getattr(grid, n), device=self.device)
+                for n in names]
+
+    def sample_channels(self, grid: ScenarioGrid, num_rounds: int,
+                        num_devices: int) -> torch.Tensor:
+        """Every scenario's channel sequence, ``[S, T, N]`` on the
+        arena's device, drawn in one lane-batched call from the
+        per-scenario (channel key, mode, mean, clip, chain) columns
+        (``fl.environment.sample_channel_sequence``).  Cached by (grid
+        content, T, N)."""
+        def make():
+            with obs.span("arena.upload", what="channels",
+                          lanes=len(grid), rounds=num_rounds):
+                keys = scenario_keys(grid)[0].to(self.device)
+                return sample_channel_sequence(
+                    keys, num_rounds, num_devices, *self._columns(
+                        grid, "chan_mode", "mean_gain", "bad_gain",
+                        "min_gain", "max_gain", "p_gb", "p_bg"))
+        return self._cached(self._chan_cache, self._grid_digest(
+            grid, ("chan", num_rounds, num_devices)), make)
+
+    def sample_dropout(self, grid: ScenarioGrid, num_rounds: int,
+                       num_devices: int) -> torch.Tensor:
+        """Every scenario's alive mask, ``[S, T, N]`` float32 (1.0 =
+        alive), from the dropout stream of the same channel keys
+        (``fl.environment.sample_dropout_mask``), so enabling the axis
+        never moves the gains.  Cached like :meth:`sample_channels`."""
+        def make():
+            with obs.span("arena.upload", what="dropout", lanes=len(grid),
+                          rounds=num_rounds):
+                keys = scenario_keys(grid)[0].to(self.device)
+                return sample_dropout_mask(keys, num_rounds, num_devices,
+                                           *self._columns(grid, "dropout"))
+        return self._cached(self._chan_cache, self._grid_digest(
+            grid, ("drop", num_rounds, num_devices)), make)
+
+    def _lane_inputs(self, grid: ScenarioGrid, sp: sm.SystemParams) -> dict:
+        """The per-lane constants: SystemParams (K and the scaled energy
+        budget, :meth:`ScenarioGrid.scenario_system_params`), V, lam and
+        K as ``[N]`` float32 (as ``run_scan`` passes them), the rollout
+        keys on the device.  Cached by grid content and base budget."""
+        def make():
+            with obs.span("arena.upload", what="lane_constants",
+                          lanes=len(grid)):
+                n, dev = sp.num_devices, self.device
+
+                def full(v) -> torch.Tensor:
+                    return torch.full((n,), float(v), dtype=torch.float32,
+                                      device=dev)
+                keys = scenario_keys(grid)[1].to(dev)
+                return dict(
+                    sp=[grid.scenario_system_params(sp, s)
+                        for s in range(len(grid))],
+                    V=[full(v) for v in grid.V],
+                    lam=[full(v) for v in grid.lam],
+                    kvec=[full(k) for k in grid.sample_count],
+                    keys=[keys[s] for s in range(len(grid))])
+        return self._cached(self._lane_cache, self._grid_digest(
+            grid, ("lane", sp.num_devices, sp.energy_budget.cpu().numpy()
+                   .tobytes())), make)
+
+    def _lr_device(self, lr_seq: np.ndarray) -> torch.Tensor:
+        """Device copy of the ``[T]`` learning rates, cached by value."""
+        return self._cached(
+            self._lr_cache, lr_seq.tobytes(),
+            lambda: torch.as_tensor(lr_seq, device=self.device))
+
+    # -- the lane-batched rollout ----------------------------------------------
+
+    def _run_group(self, global_params: Params, sp: sm.SystemParams, bank,
+                   grid: ScenarioGrid, h_all: torch.Tensor,
+                   lr_seq: np.ndarray, k_max: int, eval_bank=None,
+                   eval_every: Optional[int] = None,
+                   drop_all: Optional[torch.Tensor] = None,
+                   replay: Tuple[Any, Any] = (None, None)):
+        """One rollout of every lane of ``grid`` at ``k_max`` slots.
+        Returns ``([S, ...] params, [S, N] queues, metrics)``."""
+        engine = self.engine
+        round_fn, data = engine._lanes_plan(bank)
+        body = engine._build_lanes(k_max, round_fn, eval_bank,
+                                   int(eval_every or 0))
+        lane_in = self._lane_inputs(grid, sp)
+        rep_sel, rep_keys = replay
+        lanes = []
+        for s in range(len(grid)):
+            cid = int(grid.controller[s])
+
+            def decide(sp_s, h, queues, V, lam, kvec, cid=cid):
+                return pol.decide_by_id(cid, sp_s, h, queues, V, lam,
+                                        k=kvec)
+
+            def select(sp_s, t, h, queues, q, key, slots, kvec, cid=cid):
+                return pol.select_by_id(cid, sp_s, t, h, queues, q, key,
+                                        slots, kvec)
+
+            lanes.append(_Lane(
+                lane_in["sp"][s], k_max, int(grid.sample_count[s]),
+                lane_in["kvec"][s], lane_in["V"][s], lane_in["lam"][s],
+                lane_in["keys"][s], h_all[s],
+                None if drop_all is None else drop_all[s],
+                (None if rep_sel is None else rep_sel[s],
+                 None if rep_keys is None else rep_keys[s]),
+                decide, select, engine.cfg.local_epochs,
+                bank.bucket_examples,
+                queues0=torch.zeros(sp.num_devices, dtype=torch.float32,
+                                    device=self.device), index=s))
+        with obs.span("arena.dispatch", k_max=int(k_max), lanes=len(grid),
+                      rounds=int(h_all.shape[1])):
+            return body(global_params, lanes, data,
+                        self._lr_device(lr_seq))
+
+    def run(self, global_params: Params, sp: sm.SystemParams, bank,
+            grid: ScenarioGrid, num_rounds: int, lr_seq,
+            *, h_all=None, drop_all=None, eval_bank=None,
+            eval_every: Optional[int] = None,
+            chunk_size: Optional[int] = None, chunk_store=None,
+            replay_selected=None, replay_sort_keys=None) -> RolloutReport:
+        """Run every scenario of ``grid`` for ``num_rounds`` rounds.
+
+        ``global_params``: the shared initial model (never modified).
+        ``sp``: base SystemParams — each lane takes K and the scaled
+        energy budget from the grid.  ``bank``: the shared read-only
+        ClientBank.  ``lr_seq``: ``[T]`` learning rates shared across
+        scenarios.  ``h_all``: optional ``[S, T, N]`` channels (default
+        :meth:`sample_channels`).  ``drop_all``: optional ``[S, T, N]``
+        alive masks (default :meth:`sample_dropout` when any lane has
+        ``dropout > 0``).  ``eval_bank``: an
+        :class:`~repro_torch.sim.eval.EvalBank` evaluating the final
+        ``[S, ...]`` params in one batched call (``final_metrics``);
+        ``eval_every``: also evaluate inside the rollout every that many
+        rounds (``test_*`` columns).  ``replay_selected`` (``[S, T,
+        K_max]``) and ``replay_sort_keys`` (``[S, T, K_max, E, B]``)
+        replace the draws, for the parity tests only.
+
+        Lane s reproduces ``run_scan`` under the contract of the module
+        docstring.  Returns a :class:`RolloutReport`.
+        """
+        if chunk_size is not None or chunk_store is not None:
+            raise NotImplementedError(
+                f"Arena.run(chunk_size=, chunk_store=) (the streaming "
+                f"pipeline, the sweep service and its checkpoints) {_LATER}")
+        with obs.span("arena.run", k_mode=self.k_mode, lanes=len(grid),
+                      rounds=int(num_rounds)):
+            report = self._run_impl(
+                global_params, sp, bank, grid, num_rounds, lr_seq,
+                h_all=h_all, drop_all=drop_all, eval_bank=eval_bank,
+                eval_every=eval_every, replay_selected=replay_selected,
+                replay_sort_keys=replay_sort_keys)
+        self.metrics.counter("arena.runs").inc()
+        self.metrics.counter("arena.dispatches").inc(
+            int(report.meta["dispatches"]))
+        return report
+
+    def _run_impl(self, global_params: Params, sp: sm.SystemParams, bank,
+                  grid: ScenarioGrid, num_rounds: int, lr_seq, *,
+                  h_all=None, drop_all=None, eval_bank=None,
+                  eval_every=None, replay_selected=None,
+                  replay_sort_keys=None) -> RolloutReport:
+        """(The uninstrumented body of :meth:`run`.)"""
+        s, n, dev = len(grid), sp.num_devices, self.device
+        ScenarioGrid._check_sample_counts(grid.sample_count, n)
+        if sp.device.type != dev.type:
+            raise ValueError(f"SystemParams live on {sp.device}, the arena "
+                             f"on {dev}")
+        if eval_every is not None and eval_bank is None:
+            raise ValueError("eval_every requires an eval_bank")
+        lr_seq = np.asarray(lr_seq, np.float32)
+        if lr_seq.shape != (num_rounds,):
+            raise ValueError(f"lr_seq must have shape ({num_rounds},), "
+                             f"got {lr_seq.shape}")
+        if h_all is None:
+            h_all = self.sample_channels(grid, num_rounds, n)
+        h_all = torch.as_tensor(np.array(h_all, np.float32)
+                                if not isinstance(h_all, torch.Tensor)
+                                else h_all, dtype=torch.float32, device=dev)
+        if tuple(h_all.shape) != (s, num_rounds, n):
+            raise ValueError(f"h_all must have shape {(s, num_rounds, n)}, "
+                             f"got {tuple(h_all.shape)}")
+        if drop_all is None and np.any(np.asarray(grid.dropout) > 0.0):
+            drop_all = self.sample_dropout(grid, num_rounds, n)
+        if drop_all is not None:
+            drop_all = torch.as_tensor(
+                drop_all if isinstance(drop_all, torch.Tensor)
+                else np.asarray(drop_all, np.float32),
+                dtype=torch.float32, device=dev)
+            if tuple(drop_all.shape) != (s, num_rounds, n):
+                raise ValueError(f"drop_all must have shape "
+                                 f"{(s, num_rounds, n)}, got "
+                                 f"{tuple(drop_all.shape)}")
+        ks = np.unique(grid.sample_count)
+        k_max = int(ks.max())
+        rep_sel = (None if replay_selected is None else torch.as_tensor(
+            np.asarray(replay_selected).astype(np.int64), device=dev))
+        rep_keys = (None if replay_sort_keys is None else torch.as_tensor(
+            np.asarray(replay_sort_keys, np.float32), device=dev))
+        for got, want, what in (
+                (rep_sel, (s, num_rounds, k_max), "replay_selected"),
+                (rep_keys, (s, num_rounds, k_max,
+                            self.engine.cfg.local_epochs,
+                            bank.bucket_examples), "replay_sort_keys")):
+            if got is not None and tuple(got.shape) != want:
+                raise ValueError(f"{what} must be {list(want)}, got "
+                                 f"{list(got.shape)}")
+        meta = dict(k_mode=self.k_mode, k_groups=[int(k) for k in ks],
+                    k_max=k_max, batch=self.batch,
+                    bank_storage=getattr(bank, "storage", "fp32"),
+                    bank_nbytes=int(bank.nbytes))
+        common = dict(eval_bank=eval_bank, eval_every=eval_every)
+        if self.k_mode == "pad" or ks.size == 1:
+            with obs.span("arena.plan", k_mode="pad", lanes=s, k_max=k_max):
+                plan = DispatchPlan.padded(grid.sample_count)
+            params, queues, metrics = self._run_group(
+                global_params, sp, bank, grid, h_all, lr_seq, k_max,
+                drop_all=drop_all, replay=(rep_sel, rep_keys), **common)
+            queues = queues.cpu().numpy()
+            buckets = [dict(lanes=list(range(s)), k_pad=k_max, tiers=None,
+                            dispatches=1)]
+        else:
+            with obs.span("arena.plan", k_mode="group", lanes=s,
+                          k_max=k_max):
+                plan = DispatchPlan.grouped(grid.sample_count)
+            params, queues, metrics, buckets = None, np.zeros(
+                (s, n), np.float32), {}, []
+            for k in ks:
+                idx = np.flatnonzero(grid.sample_count == k)
+                idx_t = torch.as_tensor(idx, device=dev)
+                p_g, q_g, m_g = self._run_group(
+                    global_params, sp, bank, grid.take(idx),
+                    h_all[idx_t], lr_seq, int(k),
+                    drop_all=None if drop_all is None else drop_all[idx_t],
+                    replay=(None if rep_sel is None
+                            else rep_sel[idx_t][:, :, :k],
+                            None if rep_keys is None
+                            else rep_keys[idx_t][:, :, :k]), **common)
+                buckets.append(dict(lanes=[int(i) for i in idx],
+                                    k_pad=int(k), tiers=None, dispatches=1))
+                queues[idx] = q_g.cpu().numpy()
+                if params is None:
+                    params = {name: torch.empty((s,) + tuple(v.shape[1:]),
+                                                dtype=v.dtype, device=dev)
+                              for name, v in p_g.items()}
+                for name, v in p_g.items():
+                    params[name].index_copy_(0, idx_t, v)
+                for name, v in m_g.items():
+                    if name == "selected" and v.shape[-1] < k_max:
+                        v = np.concatenate([v, np.full(
+                            v.shape[:-1] + (k_max - v.shape[-1],), -1,
+                            v.dtype)], axis=-1)
+                    if name not in metrics:
+                        metrics[name] = np.zeros((s,) + v.shape[1:],
+                                                 v.dtype)
+                    metrics[name][idx] = v
+        meta.update(dispatches=len(buckets), plan=plan.describe(),
+                    buckets=buckets)
+        return RolloutReport(grid=grid, num_rounds=num_rounds,
+                             params=params, queues=queues, metrics=metrics,
+                             meta=meta,
+                             final_metrics=self._final_eval(eval_bank,
+                                                            params))
+
+    def _final_eval(self, eval_bank, params_stacked: Params
+                    ) -> Dict[str, np.ndarray]:
+        """One batched ``task.metrics`` call over the final ``[S, ...]``
+        params."""
+        if eval_bank is None:
+            return {}
+        with obs.span("arena.eval", what="final"):
+            return {"test_" + name: v for name, v in
+                    eval_bank.evaluate_stacked(params_stacked).items()}
+
+    def warmup(self, *args, **kwargs):
+        """Eager PyTorch compiles nothing ahead; the JAX package's AOT
+        warmup and its retrace watchdog wait."""
+        raise NotImplementedError(f"Arena.warmup (AOT warmup and the "
+                                  f"watchdog) {_LATER}")

@@ -346,3 +346,60 @@ def test_vector_width_of_a_flat_model():
     assert fk.vector_width(545_000, 8, [(1 << 20, 2)] * 3) == 8
     assert fk.vector_width(545_000, 8, [(1 << 20, 2), (1 << 20, 4)]) == 4
     assert fk.vector_width(64, 3, [((1 << 20) + 4, 4)]) == 1
+
+
+def _lanes(shapes, lanes, k, seed, dtype):
+    """``[S, ...]`` thetas, ``[S, K, ...]`` deltas and ``[S, K]`` coeffs."""
+    trees = [_tree(shapes, k, seed + s) for s in range(lanes)]
+    names = sorted(shapes)
+    thetas = [torch.stack([_torch(t[0], dtype)[n] for t in trees])
+              for n in names]
+    deltas = [torch.stack([_torch(t[1], dtype)[n] for t in trees])
+              for n in names]
+    coeffs = torch.stack([torch.as_tensor(t[2]) for t in trees])
+    coeffs[-1, -1] = 0.0                 # an inert slot, as padded K has
+    return names, thetas, deltas, coeffs
+
+
+@pytest.mark.parametrize("shapes,lanes,k", [(CNN_SHAPES, 3, 8),
+                                            (RAGGED_SHAPES, 4, 3)],
+                         ids=["cnn", "ragged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lane_references_are_bitwise_per_lane(shapes, lanes, k, dtype):
+    """``ref.aggregate_lanes_reference`` (and its fma-order twin) is the
+    one-model reference on each lane, bit for bit."""
+    names, thetas, deltas, coeffs = _lanes(shapes, lanes, k, 10, dtype)
+    plain = ref.aggregate_lanes_reference(thetas, deltas, coeffs)
+    exact = ref.aggregate_lanes_fma_reference(thetas, deltas, coeffs)
+    for s in range(lanes):
+        one = ref.aggregate_leaves_reference(
+            [t[s] for t in thetas], [d[s] for d in deltas], coeffs[s])
+        one_fma = ref.aggregate_leaves_fma_reference(
+            [t[s] for t in thetas], [d[s] for d in deltas], coeffs[s])
+        for i, name in enumerate(names):
+            assert torch.equal(plain[i][s], one[i]), (s, name)
+            assert torch.equal(exact[i][s], one_fma[i]), (s, name)
+            assert plain[i].dtype == thetas[i].dtype
+
+
+@pytest.mark.parametrize("shapes,lanes,k", [(CNN_SHAPES, 7, 8),
+                                            (RAGGED_SHAPES, 2, 5)],
+                         ids=["cnn", "ragged"])
+def test_aggregate_fused_lanes_is_aggregate_fused_per_lane(shapes, lanes, k):
+    """On the CPU, the arena's eq.-(4) step of S lanes equals S calls of
+    ``aggregate_fused``, and the ``ops`` wrapper dispatches it."""
+    names, thetas, deltas, coeffs = _lanes(shapes, lanes, k, 20, "float32")
+    params = dict(zip(names, thetas))
+    stacked = dict(zip(names, deltas))
+    out = server.aggregate_fused_lanes(params, stacked, coeffs)
+    for s in range(lanes):
+        one = server.aggregate_fused({n: v[s] for n, v in params.items()},
+                                     {n: v[s] for n, v in stacked.items()},
+                                     coeffs[s])
+        for name in names:
+            assert torch.equal(out[name][s], one[name]), (s, name)
+    via_ops = ops.fl_aggregate_lanes(thetas, deltas, coeffs, impl="ref")
+    for i, name in enumerate(names):
+        assert torch.equal(via_ops[i], out[name])
+    with pytest.raises(ValueError, match="impl='cuda' needs CUDA"):
+        server.aggregate_fused_lanes(params, stacked, coeffs, impl="cuda")

@@ -189,3 +189,66 @@ def test_full_bucket_mask_equals_unmasked():
     with pytest.raises(ValueError, match="sort_keys"):
         batched_local_sgd(tt.loss_fn, tp, xs, ys, 0.05, cfg, rows // bs,
                           sort_keys=keys[:, :1])
+
+
+def _per_client_case(masked):
+    """A width-4 CNN batch of 3 clients with their own starting models."""
+    k, rows, bs = 3, 16, 4
+    _, tt = _tasks("cnn")
+    gen = torch.Generator().manual_seed(8)
+    starts = [tt.init(gen) for _ in range(k)]
+    rng = np.random.default_rng(9)
+    xs = tt.device_layout(torch.as_tensor(
+        rng.normal(size=(k, rows) + SHAPE).astype(np.float32)))
+    ys = torch.as_tensor(rng.integers(0, 4, (k, rows)))
+    keys = torch.rand((k, 2, rows), generator=gen)
+    masks = {}
+    if masked:
+        n_ex = torch.tensor([16, 9, 5])
+        masks = dict(num_examples=n_ex,
+                     num_steps=torch.clamp(n_ex // bs, min=1))
+    return (tt, starts, xs, ys, keys, ClientConfig(local_epochs=2,
+                                                   batch_size=bs),
+            rows // bs, masks)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_per_client_starts_equal_the_shared_start(masked):
+    """Each client starting from a copy of one model (``per_client=True``)
+    is bitwise the shared-start call."""
+    tt, starts, xs, ys, keys, cfg, steps, masks = _per_client_case(masked)
+    shared = starts[0]
+    stacked = {n: v.unsqueeze(0).repeat(3, *([1] * v.dim()))
+               for n, v in shared.items()}
+    d0, l0 = batched_local_sgd(tt.loss_fn, shared, xs, ys, 0.05, cfg, steps,
+                               sort_keys=keys, **masks)
+    d1, l1 = batched_local_sgd(tt.loss_fn, stacked, xs, ys, 0.05, cfg,
+                               steps, sort_keys=keys, per_client=True,
+                               **masks)
+    assert torch.equal(l0, l1)
+    for name in d0:
+        assert torch.equal(d0[name], d1[name]), name
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_per_client_starts_equal_separate_calls(masked):
+    """Clients from different models: each client's delta (against its own
+    start) and loss are those of a one-client call from its model."""
+    tt, starts, xs, ys, keys, cfg, steps, masks = _per_client_case(masked)
+    stacked = {n: torch.stack([s[n] for s in starts]) for n in starts[0]}
+    deltas, losses = batched_local_sgd(tt.loss_fn, stacked, xs, ys, 0.05,
+                                       cfg, steps, sort_keys=keys,
+                                       per_client=True, **masks)
+    for i, start in enumerate(starts):
+        one = {k: v[i:i + 1] for k, v in masks.items()}
+        d_i, l_i = batched_local_sgd(tt.loss_fn, start, xs[i:i + 1],
+                                     ys[i:i + 1], 0.05, cfg, steps,
+                                     sort_keys=keys[i:i + 1], **one)
+        torch.testing.assert_close(losses[i:i + 1], l_i, atol=1e-6,
+                                   rtol=1e-6)
+        for name in d_i:
+            torch.testing.assert_close(deltas[name][i], d_i[name][0],
+                                       atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="per_client"):
+        batched_local_sgd(tt.loss_fn, starts[0], xs, ys, 0.05, cfg, steps,
+                          sort_keys=keys, per_client=True)

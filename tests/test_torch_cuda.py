@@ -247,6 +247,114 @@ def test_aggregate_fused_replays_in_a_cuda_graph(cuda):
         assert torch.equal(captured[name], eager[name]), name
 
 
+def _lane_leaves(shapes, lanes, k, seed, theta_dtype, delta_dtype, device):
+    """``[S, ...]`` thetas, ``[S, K, ...]`` deltas, ``[S, K]`` coeffs (the
+    last lane's last slot inert, coefficient 0, as padded K gives)."""
+    per = [_leaves(shapes, k, seed + s, theta_dtype, delta_dtype, device)
+           for s in range(lanes)]
+    thetas = [torch.stack([p[0][i] for p in per]) for i in range(len(shapes))]
+    deltas = [torch.stack([p[1][i] for p in per]) for i in range(len(shapes))]
+    coeffs = torch.stack([p[2] for p in per]).contiguous()
+    coeffs[-1, -1] = 0.0
+    return thetas, deltas, coeffs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("bfloat16", "bfloat16"),
+                                    ("float32", "bfloat16")],
+                         ids=["f32", "bf16", "f32_bf16"])
+@pytest.mark.parametrize("shapes,lanes,k", [
+    (list(CNN_SHAPES.values()), 7, 8), (RAGGED_SHAPES, 3, 3),
+    (RAGGED_SHAPES, 9, 5)], ids=["cnn", "ragged", "two_tables"])
+def test_lane_kernel_is_bitwise_its_fma_order_and_the_one_lane_calls(
+        cuda, dtypes, shapes, lanes, k):
+    """The lane kernel: bitwise ``ref.aggregate_lanes_fma_reference``,
+    bitwise S one-lane launches on each lane's tensors, within TOL of the
+    plain version; one launch per table (9 lanes x 8 ragged leaves = 72
+    segments: two tables)."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ref
+    td, dd = DTYPES[dtypes[0]], DTYPES[dtypes[1]]
+    thetas, deltas, coeffs = _lane_leaves(shapes, lanes, k, 31, td, dd, cuda)
+    cap = fk._library().fl_aggregate_max_segments()
+    before = fk.LAUNCHES["fl_aggregate_lanes"]
+    out = fk.fl_aggregate_lanes_cuda(thetas, deltas, coeffs)
+    launched = fk.LAUNCHES["fl_aggregate_lanes"] - before
+    exact = ref.aggregate_lanes_fma_reference(thetas, deltas, coeffs)
+    plain = ref.aggregate_lanes_reference(thetas, deltas, coeffs)
+    tol = TOL[dtypes[1]] if "bfloat16" in dtypes else TOL["float32"]
+    for i in range(len(shapes)):
+        assert out[i].dtype == td and out[i].shape == thetas[i].shape
+        assert torch.equal(out[i], exact[i]), i
+        torch.testing.assert_close(out[i].float(), plain[i].float(),
+                                   atol=tol, rtol=tol)
+    for s in range(lanes):
+        one = fk.fl_aggregate_leaves_cuda([t[s] for t in thetas],
+                                          [d[s] for d in deltas], coeffs[s])
+        for i in range(len(shapes)):
+            assert torch.equal(out[i][s], one[i]), (s, i)
+    assert launched == -(-lanes * len(shapes) // cap)
+
+
+@pytest.mark.cuda
+def test_lane_kernel_rejects_bad_inputs(cuda):
+    from repro_torch.fl import server
+    from repro_torch.kernels import fl_aggregate as fk
+    thetas, deltas, coeffs = _lane_leaves(list(CNN_SHAPES.values()), 3, 4,
+                                          5, torch.float32, torch.float32,
+                                          cuda)
+    for bad in (coeffs[0], coeffs[:2], coeffs[:, :3], coeffs.double(),
+                coeffs.t().contiguous().t(), coeffs.cpu()):
+        with pytest.raises(ValueError):
+            fk.fl_aggregate_lanes_cuda(thetas, deltas, bad)
+    with pytest.raises(ValueError):
+        fk.fl_aggregate_lanes_cuda(thetas, deltas[:-1], coeffs)
+    with pytest.raises(ValueError):
+        fk.fl_aggregate_lanes_cuda([t[:2] for t in thetas], deltas, coeffs)
+    with pytest.raises(ValueError, match="impl='ref'"):
+        server.aggregate_fused_lanes(
+            dict(enumerate(thetas)), dict(enumerate(deltas)), coeffs,
+            impl="ref")
+
+
+@pytest.mark.cuda
+def test_samplers_give_the_cpu_bits_on_the_card(cuda):
+    """The lane-batched channel samplers and dropout masks: the same keys
+    give the same bits on the card as on the CPU."""
+    from repro_torch.fl import environment as env
+    keys = torch.tensor([0, 3, 11, 42], dtype=torch.int64)
+    cols = dict(mode=torch.tensor([0, 1, 0, 1], dtype=torch.int32),
+                mean_gain=torch.tensor([0.1, 0.1, 0.05, 0.2]),
+                bad_gain=torch.tensor([0.02, 0.02, 0.02, 0.01]),
+                min_gain=torch.tensor([0.01] * 4),
+                max_gain=torch.tensor([0.5] * 4),
+                p_gb=torch.tensor([0.0, 0.2, 0.0, 0.05]),
+                p_bg=torch.tensor([0.0, 0.3, 0.0, 0.5]))
+    runs = []
+    for dev in ("cpu", cuda):
+        c = {n: v.to(dev) for n, v in cols.items()}
+        runs.append((env.sample_channel_sequence(keys.to(dev), 300, 120,
+                                                 **c).cpu(),
+                     env.sample_dropout_mask(
+                         keys.to(dev), 300, 120,
+                         torch.tensor([0.0, 0.2, 0.5, 0.9]).to(dev)).cpu()))
+    (h_cpu, d_cpu), (h_gpu, d_gpu) = runs
+    assert torch.equal(h_cpu, h_gpu)
+    assert torch.equal(d_cpu, d_gpu)
+
+
+@pytest.mark.cuda
+def test_arena_on_the_card_matches_the_cpu(cuda):
+    """The scenario arena's lanes on the card against the CPU and against
+    ``run_scan``: the check that ``chip_smoke.py`` runs."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.phase_reference_arena()
+
+
 @pytest.mark.cuda
 def test_trainer_on_the_card_matches_the_cpu(cuda):
     """Three LROA rounds on the card (CUDA kernel, cuDNN) against the CPU
