@@ -65,24 +65,41 @@ error is caught):
    the card against the CPU (channels and masks bitwise, selections
    exact, the rest within 1e-6, T lane launches on the card) and each
    card lane against its own ``run_scan`` on the card (selections exact,
-   the rest within 1e-6);
+   the rest within 1e-6); reference.tiered — the same trainer,
+   ``run_scan`` and arena checks (the arena in 'pad' and 'group') on a
+   3-rung tier ladder of 12 clients (:data:`TIERED`), the trainer also
+   on an int8 ladder, one ``fl_aggregate`` launch per round whatever
+   tiers it hits (queues card against CPU within 1e-4 there, the
+   control plane's spread at N = 12); reference.pool — a ``BankPool``
+   after churn (every tensor's storage unmoved) and a hierarchical
+   round, card against CPU;
 5. main path — the paper-scale CNN testbed (N = 120 Dirichlet-0.5
-   clients, K = 8, E = 2, batch 16, ``bank_mode='single'``): ``warmup()``,
-   then 3 LROA rounds through ``FederatedTrainer.run_round``, checking
-   finite losses, q on the simplex, moved queues, changed params and
-   exactly one ``fl_aggregate`` launch per round; profile — one more
-   round under ``torch.profiler``; scan — the paper's comparison on the
-   same testbed: the seven controllers' ``run_scan`` rollouts of 4
+   clients, K = 8, E = 2, batch 16) on the trainer's default bank, the
+   4-rung tier ladder: ``warmup()``, then 3 LROA rounds through
+   ``FederatedTrainer.run_round``, checking finite losses, q on the
+   simplex, moved queues, changed params and exactly one
+   ``fl_aggregate`` launch per round, logging the ladder and the tiers
+   each round hit; main.single — the same on one 2048-row bucket;
+   profile, profile.single — one more round of each under
+   ``torch.profiler``; scan — the paper's comparison on the single
+   bucket: the seven controllers' ``run_scan`` rollouts of 4
    rounds each from the same params over the same channels, each with
    its seconds, rounds/s, ``decide``'s share, modelled latency, final
    queue mean and last loss, exactly one ``fl_aggregate`` launch per
    round, q on the simplex and changed params; arena — the same
    comparison as one lane-batched ``Arena.run`` of the seven controllers
    (seed 0) over the scan phase's channels: each lane selects as the
-   scan phase's rollout, params within 1e-5, losses within 1e-5
-   relative, modelled latency within 1e-6 relative; one lane launch per
-   round; lane-rounds/s, each lane's ``decide`` share, the final
+   scan phase's rollout, params within :data:`ARENA_PARAM_TOL`, losses
+   within :data:`ARENA_LOSS_TOL` relative, modelled latency within 1e-6
+   relative, and one round held tighter (:func:`phase_arena_round`);
+   one lane launch per round; lane-rounds/s, each lane's ``decide`` share, the final
    ``EvalBank`` accuracies over the 7,500-example test set, peak memory;
+   arena.tiered — the arena's one-round checks on the ladder; scale —
+   one LROA round from the same params, selection and keys on the fp32
+   ladder, an int8 ladder (loss within 5%), the single bucket, a
+   120-slot ``BankPool`` after 8 evictions and re-admissions (within
+   1e-6 of the single bucket's round, storage unmoved) and a clustered
+   bucket flat and hierarchical (losses bitwise, params within 1e-5);
 6. serve.gemma2 — gemma2-27b at full width and depth (46 layers, bf16
    parameters and activations, ``attn_impl='flash'``), random weights
    from a seed: ``greedy_generate`` of 16 tokens after 2 prompts of 4352
@@ -178,6 +195,11 @@ LANE_POINTS = ((7, 8), (11, 8))
 SMALL = dict(num_devices=6, sample_count=3, local_epochs=2, batch_size=8,
              examples=400, image_shape=(8, 8, 1), num_classes=4, width=4,
              lr=0.1, rounds=3, seed=0)
+# the card-against-CPU testbed of the tier ladder: 12 clients of given
+# sizes whose buckets at batch 8 form 3 tiers (16, 32 and 64 rows; 4, 3
+# and 5 clients), K = 4 so rounds hit several tiers
+TIERED = dict(SMALL, num_devices=12, sample_count=4, examples=600,
+              sizes=(12, 20, 9, 30, 40, 28, 60, 15, 64, 33, 14, 50))
 # benchmarks/common.BenchConfig.paper_scale() at K = 8
 PAPER_SCALE = dict(num_devices=120, sample_count=8, local_epochs=2,
                    batch_size=16, examples=50_000, image_shape=(32, 32, 3),
@@ -630,7 +652,11 @@ def phase_aggregate_lanes(flush, hbm: float, f32_peak: float) -> list:
     return rows
 
 
-def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None):
+def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None,
+                  bank_mode: str = "auto", bank_storage: str = "fp32"):
+    """An LROA ``FederatedTrainer`` on ``cfg``'s testbed, on the bank
+    ``bank_mode`` builds (the trainer's default 'auto': the tier ladder
+    when the partition spans several tiers)."""
     from repro_torch.core import (LROAController, estimate_hyperparams,
                                   paper_default_params)
     from repro_torch.fl import (ChannelConfig, ChannelProcess, ClientConfig,
@@ -653,12 +679,15 @@ def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None):
                      batch_size=cfg["batch_size"]),
         paper_step_decay(cfg["lr"], cfg["rounds"]), test_data=data["test"],
         eval_every=max(cfg["rounds"] // 6, 1), seed=cfg["seed"],
-        bank_mode="single", device=device, sort_keys_fn=sort_keys_fn)
+        bank_mode=bank_mode, bank_storage=bank_storage, device=device,
+        sort_keys_fn=sort_keys_fn)
 
 
 def make_data(cfg: dict) -> dict:
     """The benchmark testbed (``benchmarks/common.build_testbed``), from
-    the port's numpy copies of the data layer."""
+    the port's numpy copies of the data layer; with ``cfg['sizes']``, the
+    training split cut into clients of those sizes instead of the
+    Dirichlet partition."""
     from repro_torch.data import (dirichlet_partition, make_client_datasets,
                                   synthetic_image_classification,
                                   train_test_split)
@@ -666,21 +695,34 @@ def make_data(cfg: dict) -> dict:
         cfg["examples"], cfg["image_shape"], cfg["num_classes"], noise=0.3,
         seed=cfg["seed"])
     (xtr, ytr), test = train_test_split(x, y, 0.15, seed=cfg["seed"] + 1)
-    parts = dirichlet_partition(ytr, cfg["num_devices"], 0.5,
-                                seed=cfg["seed"] + 2)
+    if "sizes" in cfg:
+        offs = np.cumsum((0,) + tuple(cfg["sizes"]))
+        parts = [np.arange(offs[i], offs[i + 1])
+                 for i in range(len(cfg["sizes"]))]
+    else:
+        parts = dirichlet_partition(ytr, cfg["num_devices"], 0.5,
+                                    seed=cfg["seed"] + 2)
     return dict(clients=make_client_datasets(xtr, ytr, parts), test=test,
                 sizes=np.asarray([len(p) for p in parts], np.float32))
 
 
-def phase_reference(devices=("cpu", "cuda")) -> None:
-    """The port on the card against the port on the CPU, on a small
-    testbed, with the same initial params and epoch keys.  The card's run
-    launches ``fl_aggregate`` once per round, the CPU's never.  Also run
-    by ``tests/test_torch_cuda.py``."""
-    from repro_torch.kernels import fl_aggregate as fk
+def _tiers_hit(bank, selected) -> list:
+    """The ladder's tiers a selection falls in ([0] on one bucket)."""
+    tier_of = getattr(bank, "tier_of", None)
+    sel = np.maximum(np.asarray(selected), 0)
+    return [0] if tier_of is None else np.unique(tier_of[sel]).tolist()
 
-    cfg = SMALL
+
+def phase_reference(devices=("cpu", "cuda"), cfg: dict = SMALL,
+                    bank_mode: str = "single", storage: str = "fp32",
+                    label: str = "reference") -> None:
+    """The port on the card against the port on the CPU, on a small
+    testbed, with the same initial params and epoch keys (drawn as wide
+    as the bank's widest bucket).  Each round of the card's run launches
+    ``fl_aggregate`` once, however many tiers it hits, the CPU's never.
+    Also run by ``tests/test_torch_cuda.py``."""
     from repro_torch.data import bucket_examples
+    from repro_torch.kernels import fl_aggregate as fk
 
     data = make_data(cfg)
     rows = bucket_examples([len(x) for x, _ in data["clients"]],
@@ -690,17 +732,23 @@ def phase_reference(devices=("cpu", "cuda")) -> None:
         key_rng = np.random.default_rng(123)
         trainer = build_trainer(
             device, cfg, data, sort_keys_fn=lambda k, r=key_rng: r.random(
-                (k, cfg["local_epochs"], rows), np.float32))
+                (k, cfg["local_epochs"], rows), np.float32),
+            bank_mode=bank_mode, bank_storage=storage)
+        require(trainer.bank.bucket_examples == rows,
+                f"{label}: the keys cover the widest bucket")
         gen = torch.Generator()
         gen.manual_seed(7)
         trainer.global_params = {
             name: p.to(device) for name, p in trainer.task.init(gen).items()}
-        before = fk.LAUNCHES["fl_aggregate"]
-        recs = [trainer.run_round(t) for t in range(cfg["rounds"])]
-        launched = fk.LAUNCHES["fl_aggregate"] - before
-        require(launched == (cfg["rounds"] if device == "cuda" else 0),
-                f"{device} run: {launched} fl_aggregate launches in "
-                f"{cfg['rounds']} rounds")
+        recs, per_round = [], []
+        for t in range(cfg["rounds"]):
+            before = fk.LAUNCHES["fl_aggregate"]
+            recs.append(trainer.run_round(t))
+            per_round.append(fk.LAUNCHES["fl_aggregate"] - before)
+        want = 1 if device == "cuda" else 0
+        require(per_round == [want] * cfg["rounds"],
+                f"{label} {device} run: fl_aggregate launches per round "
+                f"{per_round}, want {want}")
         runs.append((recs, {n: p.cpu() for n, p in
                             trainer.global_params.items()},
                      trainer.controller.queues.cpu()))
@@ -709,7 +757,10 @@ def phase_reference(devices=("cpu", "cuda")) -> None:
     param_err = max(float((pc[n] - pg[n]).abs().max()) for n in pc)
     loss_err = max(abs(a.mean_loss - b.mean_loss) for a, b in zip(rc, rg))
     queue_rel = float(((qc - qg).abs() / qc.abs().clamp(min=1.0)).max())
-    log("reference", rounds=cfg["rounds"], selections_equal=sel_equal,
+    log(label, rounds=cfg["rounds"], bank=type(trainer.bank).__name__,
+        storage=storage, tiers_hit=[_tiers_hit(trainer.bank, r.selected)
+                                    for r in rg],
+        selections_equal=sel_equal,
         param_max_abs_err=param_err, loss_max_abs_err=loss_err,
         queue_max_rel_err=queue_rel, tol=1e-4)
     require(sel_equal, "card and CPU select the same clients")
@@ -723,7 +774,9 @@ def _rel_err(a, b) -> float:
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
 
 
-def phase_reference_scan(devices=("cpu", "cuda")) -> None:
+def phase_reference_scan(devices=("cpu", "cuda"), cfg: dict = SMALL,
+                         bank_mode: str = "single",
+                         label: str = "reference.scan") -> None:
     """``RoundEngine.run_scan`` of every controller on the card against
     the same rollout on the CPU, on the small testbed of
     :func:`phase_reference`: the same initial params, channels, learning
@@ -736,15 +789,21 @@ def phase_reference_scan(devices=("cpu", "cuda")) -> None:
     card (``fl_aggregate`` adds the inert slots' exact zeros in order) and
     on the CPU, which runs on one thread here (with several, PyTorch's CPU
     reductions split the client axis by thread count, and K + 2 rows then
-    sum in another order: about 3e-8 apart).  Also run by
-    ``tests/test_torch_cuda.py``."""
+    sum in another order: about 3e-8 apart).  On a multi-tier ladder
+    (``bank_mode``, ``cfg``) each round still launches ``fl_aggregate``
+    once, and the padded rollout is held within 1e-6, not bitwise: its
+    inert slots train in client 0's tier and so change the size of that
+    tier's SGD call, and a one-client call (a plain convolution, not a
+    grouped one) rounds differently from a call of several.  Also run
+    by ``tests/test_torch_cuda.py``."""
     from repro_torch.core import POLICIES
     from repro_torch.fl import ChannelConfig, ChannelProcess
     from repro_torch.kernels import fl_aggregate as fk
 
-    cfg, rounds = SMALL, REFERENCE_SCAN_ROUNDS
+    rounds = REFERENCE_SCAN_ROUNDS
     n, k = cfg["num_devices"], cfg["sample_count"]
     data = make_data(cfg)
+    tiered = False
     h_seq = ChannelProcess(n, ChannelConfig(seed=cfg["seed"])
                            ).sample_sequence(rounds)
     drop = ChannelProcess(n, ChannelConfig(seed=cfg["seed"] + 1,
@@ -757,7 +816,8 @@ def phase_reference_scan(devices=("cpu", "cuda")) -> None:
     threads = torch.get_num_threads()
     for device in devices:
         torch.set_num_threads(1 if device == "cpu" else threads)
-        trainer = build_trainer(device, cfg, data)
+        trainer = build_trainer(device, cfg, data, bank_mode=bank_mode)
+        tiered = getattr(trainer.bank, "num_tiers", 1) > 1
         if init is None:
             init = trainer.task.init(torch.Generator().manual_seed(7))
         lr_seq = [trainer.lr_schedule(t) for t in range(rounds)]
@@ -785,8 +845,10 @@ def phase_reference_scan(devices=("cpu", "cuda")) -> None:
         queue_err = _rel_err(qg.numpy(), qc.numpy())
         metric_err = {name: _rel_err(mg[name], mc[name]) for name in mc
                       if name != "selected"}
-        log("reference.scan", policy=policy, extra=sorted(extra),
+        log(label, policy=policy, extra=sorted(extra),
             rounds=rounds, selections_equal=sel_equal,
+            tiers_hit=[_tiers_hit(trainer.bank, row)
+                       for row in mg["selected"]],
             selected=mg["selected"].tolist(), param_max_abs_err=param_err,
             queue_max_rel_err=queue_err, metric_max_rel_err=metric_err,
             q_min=mg["q_min"].tolist(), tol=1e-4)
@@ -803,7 +865,7 @@ def phase_reference_scan(devices=("cpu", "cuda")) -> None:
         p2, q2, m2 = runs[device, padded]
         err = max(float((p1[name] - p2[name]).abs().max()) for name in p1)
         bitwise = all(torch.equal(p1[name], p2[name]) for name in p1)
-        log("reference.scan.padded", device=device, k=k, k_max=k + 2,
+        log(f"{label}.padded", device=device, k=k, k_max=k + 2,
             params_bitwise_equal=bitwise, param_max_abs_err=err,
             selections_equal=bool(np.array_equal(m2["selected"][:, :k],
                                                  m1["selected"])))
@@ -811,8 +873,11 @@ def phase_reference_scan(devices=("cpu", "cuda")) -> None:
                 and np.all(m2["selected"][:, k:] == -1),
                 f"{device}: the padded rollout fills the first K slots as "
                 f"the unpadded one and marks the rest -1")
-        require(bitwise, f"{device}: the padded rollout's params are "
-                         f"bitwise the unpadded one's")
+        if not tiered:
+            require(bitwise, f"{device}: the padded rollout's params are "
+                             f"bitwise the unpadded one's")
+        require(err <= 1e-6, f"{device}: the padded rollout's params within "
+                             f"1e-6 of the unpadded one's ({err})")
 
 
 def phase_scan(trainer, cfg: dict = PAPER_SCALE,
@@ -917,7 +982,11 @@ def _arena_grid(hp, cfg: dict):
         dropout=[0.0] * 7 + [0.2, 0.0], num_devices=cfg["num_devices"])
 
 
-def phase_reference_arena(devices=("cpu", "cuda")) -> None:
+def phase_reference_arena(devices=("cpu", "cuda"), cfg: dict = SMALL,
+                          bank_mode: str = "single",
+                          k_modes: tuple = ("pad",),
+                          label: str = "reference.arena",
+                          queue_tol: float = 1e-6) -> None:
     """The scenario arena (``repro_torch.sim.Arena``) on the small testbed
     of :func:`phase_reference`, T = 3, ``eval_every=1``, channels and
     dropout drawn by the port's samplers from the grid's seeds: nine
@@ -927,33 +996,47 @@ def phase_reference_arena(devices=("cpu", "cuda")) -> None:
     ``fl_aggregate`` launches on the card, none on the CPU.  Then each
     card lane against its own ``run_scan`` on the card under the arena's
     contract (the generator of its seed, its channels and mask, K_max
-    slots): selections exact, the rest within 1e-6.  Also run by
+    slots): selections exact, the rest within 1e-6.  ``k_modes``: each
+    runs (under 'group', one lane launch per distinct K and round).
+    ``queue_tol`` bounds the final queues card against CPU: they are the
+    control plane's, the very code of ``run_scan`` (each card lane's
+    queues are held to its ``run_scan``'s within 1e-6), whose own
+    card-against-CPU spread grows with N.  Also run by
     ``tests/test_torch_cuda.py``."""
+    for k_mode in k_modes:
+        _reference_arena(devices, cfg, bank_mode, k_mode,
+                         f"{label}.{k_mode}" if len(k_modes) > 1 else label,
+                         queue_tol)
+
+
+def _reference_arena(devices, cfg: dict, bank_mode: str, k_mode: str,
+                     label: str, queue_tol: float) -> None:
     from repro_torch.kernels import fl_aggregate as fk
     from repro_torch.sim import Arena, EvalBank
 
-    cfg, rounds = SMALL, REFERENCE_SCAN_ROUNDS
+    rounds = REFERENCE_SCAN_ROUNDS
     data = make_data(cfg)
     init = None
     runs = {}
     threads = torch.get_num_threads()
     for device in devices:
         torch.set_num_threads(1 if device == "cpu" else threads)
-        trainer = build_trainer(device, cfg, data)
+        trainer = build_trainer(device, cfg, data, bank_mode=bank_mode)
         if init is None:
             init = trainer.task.init(torch.Generator().manual_seed(7))
         grid = _arena_grid(trainer.controller.hp, cfg)
         lr_seq = [trainer.lr_schedule(t) for t in range(rounds)]
         params = {name: p.to(device) for name, p in init.items()}
-        arena = Arena(trainer.engine)
+        arena = Arena(trainer.engine, k_mode=k_mode)
         evals = EvalBank(trainer.task, *data["test"], device=device)
         before = fk.LAUNCHES["fl_aggregate_lanes"]
         rep = arena.run(params, trainer.params, trainer.bank, grid, rounds,
                         lr_seq, eval_bank=evals, eval_every=1)
         launched = fk.LAUNCHES["fl_aggregate_lanes"] - before
-        require(launched == (rounds if device == "cuda" else 0),
-                f"{device} arena: {launched} fl_aggregate_lanes launches in "
-                f"{rounds} rounds")
+        want = rounds * rep.meta["dispatches"] if device == "cuda" else 0
+        require(launched == want,
+                f"{label} {device}: {launched} fl_aggregate_lanes launches "
+                f"in {rounds} rounds, want {want}")
         h_all = arena.sample_channels(grid, rounds, cfg["num_devices"])
         drop = arena.sample_dropout(grid, rounds, cfg["num_devices"])
         runs[device] = (rep, h_all.cpu(), drop.cpu(),
@@ -962,22 +1045,25 @@ def phase_reference_arena(devices=("cpu", "cuda")) -> None:
             continue
         k_max = int(grid.sample_count.max())
         for s in range(len(grid)):
+            # under 'group' a lane runs at its own K
+            k_lane = k_max if k_mode == "pad" else int(grid.sample_count[s])
             p, q, met = trainer.engine.run_scan(
                 params, grid.scenario_system_params(trainer.params, s),
                 trainer.bank, h_all[s].cpu().numpy(), lr_seq,
                 torch.Generator().manual_seed(int(grid.seed[s])),
                 policy=grid.controller_names()[s], V=grid.V[s],
                 lam=grid.lam[s], drop_seq=drop[s].cpu().numpy(),
-                k_max=k_max)
-            sel_equal = bool(np.array_equal(rep.metrics["selected"][s],
-                                            met["selected"]))
+                k_max=k_lane)
+            sel_equal = bool(np.array_equal(
+                rep.metrics["selected"][s][:, :k_lane], met["selected"])
+                and np.all(rep.metrics["selected"][s][:, k_lane:] == -1))
             param_err = max(float((rep.params[n][s] - p[n]).abs().max())
                             for n in p)
             bitwise = all(torch.equal(rep.params[n][s], p[n]) for n in p)
             metric_err = {n: _rel_err(rep.metrics[n][s], met[n])
                           for n in met if n != "selected"}
             queue_err = _rel_err(rep.queues[s], q.cpu().numpy())
-            log("reference.arena.lane", lane=s,
+            log(f"{label}.lane", lane=s,
                 policy=grid.controller_names()[s],
                 k=int(grid.sample_count[s]), selections_equal=sel_equal,
                 params_bitwise_equal=bitwise, param_max_abs_err=param_err,
@@ -998,7 +1084,12 @@ def phase_reference_arena(devices=("cpu", "cuda")) -> None:
                   for n in rc.metrics if n != "selected"}
     final_err = {n: _rel_err(rg.final_metrics[n], rc.final_metrics[n])
                  for n in rc.final_metrics}
-    log("reference.arena", lanes=len(rc.grid), rounds=rounds,
+    log(label, lanes=len(rc.grid), rounds=rounds,
+        k_mode=k_mode, bank=type(trainer.bank).__name__,
+        queue_tol=queue_tol,
+        tiers_hit=sorted({t for lane in rg.metrics["selected"]
+                          for row in lane
+                          for t in _tiers_hit(trainer.bank, row)}),
         channels_bitwise_equal=bool(torch.equal(hc, hg)),
         dropout_bitwise_equal=bool(torch.equal(dc, dg)),
         selections_equal=sel_equal, param_max_abs_err=param_err,
@@ -1008,10 +1099,118 @@ def phase_reference_arena(devices=("cpu", "cuda")) -> None:
     require(torch.equal(hc, hg) and torch.equal(dc, dg),
             "card and CPU draw the same channels and dropout masks")
     require(sel_equal, "arena: card and CPU select the same clients")
-    require(param_err <= 1e-6 and queue_err <= 1e-6 and
+    require(param_err <= 1e-6 and queue_err <= queue_tol and
             max(metric_err.values()) <= 1e-6 and
             max(final_err.values()) <= 1e-6,
-            "arena: card and CPU agree within 1e-6")
+            f"arena: card and CPU agree within 1e-6 (queues within "
+            f"{queue_tol})")
+
+
+def phase_reference_tiered(devices=("cpu", "cuda")) -> None:
+    """``reference.tiered``: the bank layer on the card against the CPU
+    on the tiered testbed (:data:`TIERED`, a 3-rung ladder): trainer
+    rounds on the fp32 and the int8 ladder, ``run_scan`` under the seven
+    controllers and LROA with dropout and padded K, the 9-lane arena in
+    'pad' and 'group', then the pool and the hierarchical round
+    (:func:`phase_reference_pool`)."""
+    from repro_torch.data import assign_tiers
+
+    _, buckets = assign_tiers(TIERED["sizes"], TIERED["batch_size"])
+    require(len(buckets) == 3, f"the tiered testbed spans 3 tiers, got "
+                               f"{buckets}")
+    phase_reference(devices, TIERED, "auto", "fp32", "reference.tiered")
+    phase_reference(devices, TIERED, "auto", "int8",
+                    "reference.tiered.int8")
+    phase_reference_scan(devices, TIERED, "auto", "reference.tiered.scan")
+    # at N = 12 the control plane's own card-against-CPU spread in the
+    # queues is 1e-6 to 2.2e-6 (reference.tiered, reference.tiered.scan,
+    # which hold them to 1e-4): the arena's queues are held to the same
+    phase_reference_arena(devices, TIERED, "auto", ("pad", "group"),
+                          "reference.tiered.arena", queue_tol=1e-4)
+    phase_reference_pool(devices)
+
+
+def phase_reference_pool(devices=("cpu", "cuda"), cfg: dict = TIERED
+                         ) -> None:
+    """The rest of the bank layer on the card against the CPU, on the
+    tiered testbed, from the same params, selection, coefficients and
+    epoch keys: (1) a ``BankPool`` of its 12 clients (one 64-row bucket)
+    after 3 evictions and re-admissions in another order: every tensor
+    keeps its ``data_ptr()``, one round within 1e-4 of the CPU's, one
+    ``fl_aggregate`` launch on the card; (2) a single bucket with 3
+    k-means clusters: ``round_step(hierarchical=True)`` within 1e-4 of
+    the CPU's, its losses bitwise the flat round's and its params within
+    1e-5 of them on each device, no ``fl_aggregate`` launch (the cluster
+    reduce is plain ``index_add_``).  Also run by
+    ``tests/test_torch_cuda.py``."""
+    from repro_torch.fl import BankPool, ClientBank
+    from repro_torch.kernels import fl_aggregate as fk
+
+    data = make_data(cfg)
+    clients = data["clients"]
+    k, epochs = cfg["sample_count"], cfg["local_epochs"]
+    rng = np.random.default_rng(3)
+    sel = rng.choice(len(clients), k)
+    coeffs = rng.dirichlet(np.ones(k)).astype(np.float32)
+    rows = max(len(x) for x, _ in clients)
+    runs = {}
+    for device in devices:
+        trainer = build_trainer(device, cfg, data, bank_mode="single")
+        engine, layout = trainer.engine, trainer.task.device_layout
+        init = {n: p.to(device) for n, p in trainer.task.init(
+            torch.Generator().manual_seed(7)).items()}
+        pool = BankPool(engine.cfg, capacity=len(clients),
+                        initial_clients=dict(enumerate(clients)),
+                        device=device, x_layout=layout)
+        ptrs = pool.data_ptrs()
+        for c in (4, 0, 9):
+            pool.evict(c)
+        for c in (9, 4, 0):
+            pool.admit(c, *clients[c])
+        require(pool.data_ptrs() == ptrs,
+                f"{device}: the pool's tensors keep their storage across "
+                f"churn")
+        keys = torch.as_tensor(np.random.default_rng(4).random(
+            (k, epochs, pool.bucket_examples), np.float32))
+        bank = ClientBank(clients, engine.cfg, device=device,
+                          x_layout=layout, clusters=3)
+        require(bank.bucket_examples == pool.bucket_examples >= rows,
+                "the pool and the bank share one bucket")
+        out, launches = {}, {}
+        for name, b, s, hier in (("pool", pool, pool.slots_for(sel), False),
+                                 ("flat", bank, sel, False),
+                                 ("hierarchical", bank, sel, True)):
+            before = fk.LAUNCHES["fl_aggregate"]
+            p, l = engine.round_step(init, b, s, coeffs, cfg["lr"], keys,
+                                     hierarchical=hier)
+            launches[name] = fk.LAUNCHES["fl_aggregate"] - before
+            out[name] = ({n: v.cpu() for n, v in p.items()}, l.cpu())
+        want = 1 if device == "cuda" else 0
+        require(launches == dict(pool=want, flat=want, hierarchical=0),
+                f"{device}: fl_aggregate launches {launches}")
+        (ph, lh), (pf, lf) = out["hierarchical"], out["flat"]
+        hier_err = max(float((ph[n] - pf[n]).abs().max()) for n in ph)
+        pool_err = max(float((out["pool"][0][n] - pf[n]).abs().max())
+                       for n in pf)
+        log("reference.pool.device", device=device, launches=launches,
+            churn_data_ptrs_equal=True, num_clusters=bank.num_clusters,
+            hierarchical_vs_flat_param_max_abs_err=hier_err,
+            hierarchical_losses_bitwise_flat=bool(torch.equal(lh, lf)),
+            pool_vs_bank_param_max_abs_err=pool_err)
+        require(torch.equal(lh, lf) and hier_err <= 1e-5,
+                f"{device}: the hierarchical round is the flat round's "
+                f"training with eq. (4) reassociated ({hier_err})")
+        runs[device] = out
+    cpu, card = devices
+    for name in runs[cpu]:
+        (pc, lc), (pg, lg) = runs[cpu][name], runs[card][name]
+        param_err = max(float((pc[n] - pg[n]).abs().max()) for n in pc)
+        loss_err = float((lc - lg).abs().max())
+        log("reference.pool", round=name, selected=sel.tolist(),
+            param_max_abs_err=param_err, loss_max_abs_err=loss_err,
+            tol=1e-4)
+        require(param_err <= 1e-4 and loss_err <= 1e-4,
+                f"{name} round: card and CPU agree within 1e-4")
 
 
 def phase_arena(trainer, scan: dict, test: tuple, cfg: dict = PAPER_SCALE,
@@ -1202,8 +1401,8 @@ def _lane_vs_scan(rep, s: int, policy: str, results: dict) -> tuple:
     return err, min([d for d in apart if d > 0.0] or [np.inf])
 
 
-def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE
-                      ) -> None:
+def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE,
+                      label: str = "arena") -> None:
     """The arena's data plane held tight at paper scale, over one round
     with cuDNN's deterministic algorithms: the seven controllers'
     one-round ``run_scan`` rollouts against (1) a one-lane LROA arena,
@@ -1215,8 +1414,13 @@ def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE
     rollout to the nearest other controller's.  The 56-client SGD
     convolves through other cuDNN kernels than the 8-client one, which
     is what (2) leaves room for; a lane that trained on another lane's
-    rows or took its coefficients would be a round's change away."""
+    rows or took its coefficients would be a round's change away.  Each
+    rollout launches ``fl_aggregate`` once and each arena
+    ``fl_aggregate_lanes`` once.  ``label`` 'arena.tiered' runs it on the
+    main path's tier ladder (the same channels, rates and params; the
+    tiers each lane's round hit are logged)."""
     from repro_torch.core import POLICIES
+    from repro_torch.kernels import fl_aggregate as fk
     from repro_torch.sim import Arena, ScenarioGrid
 
     engine, bank, sp = trainer.engine, trainer.bank, trainer.params
@@ -1225,6 +1429,8 @@ def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE
     grid = ScenarioGrid.create(list(POLICIES), seeds=cfg["seed"], V=hp.V,
                                lam=hp.lam, sample_count=cfg["sample_count"],
                                num_devices=cfg["num_devices"])
+    on_card = trainer.device.type == "cuda"
+    _reset_launch_counts()
     with cudnn_deterministic():
         results = {policy: engine.run_scan(
             scan["init"], sp, bank, h, lr,
@@ -1236,6 +1442,16 @@ def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE
                                 h_all=np.broadcast_to(h, (len(grid),)
                                                       + h.shape))
         trainer._sync()
+    launches = {name: fk.LAUNCHES[name]
+                for name in ("fl_aggregate", "fl_aggregate_lanes")}
+    want = (dict(fl_aggregate=len(POLICIES), fl_aggregate_lanes=2)
+            if on_card else dict(fl_aggregate=0, fl_aggregate_lanes=0))
+    log(f"{label}.round", bank=type(bank).__name__, launches=launches,
+        tiers_hit=[_tiers_hit(bank, rep.metrics["selected"][s][0])
+                   for s in range(len(grid))])
+    require(launches == want, f"{label}: launches {launches}, want {want} "
+                              f"(one per rollout round, one per arena "
+                              f"round)")
     p_scan, m_scan = results["lroa"]
     params_equal = all(torch.equal(one.params[n][0], p_scan[n])
                        for n in p_scan)
@@ -1243,7 +1459,7 @@ def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE
                         for n in m_scan)
     err = max(float((one.params[n][0] - p_scan[n]).abs().max())
               for n in p_scan)
-    log("arena.bitwise", lanes=1, rounds=1, cudnn_deterministic=True,
+    log(f"{label}.bitwise", lanes=1, rounds=1, cudnn_deterministic=True,
         params_bitwise_equal=params_equal,
         metrics_bitwise_equal=metrics_equal, param_max_abs_err=err)
     require(params_equal and metrics_equal,
@@ -1257,7 +1473,7 @@ def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE
                                         ref_met["selected"]))
         changed = max(float((results[policy][0][n] - scan["init"][n])
                             .abs().max()) for n in scan["init"])
-        log("arena.round.lane", lane=s, policy=policy, rounds=1,
+        log(f"{label}.round.lane", lane=s, policy=policy, rounds=1,
             cudnn_deterministic=True, selections_equal=sel_equal,
             param_max_abs_err_vs_scan=param_err,
             nearest_other_scan_max_abs_diff=nearest,
@@ -1275,32 +1491,65 @@ def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE
                 f"({param_err}, {nearest})")
 
 
-def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE) -> dict:
+def describe_bank(bank, cfg: dict) -> dict:
+    """The bank's ladder and footprint: tiers, bucket rows, clients and
+    steps per epoch per tier, device bytes beside what the one global
+    bucket would hold (``estimate_bank_nbytes``), and the mean bucket
+    rows a client is padded to."""
+    from repro_torch.fl import estimate_bank_nbytes
+
+    tiers = getattr(bank, "tiers", [bank])
+    sizes = bank.sizes
+    return dict(
+        kind=type(bank).__name__, storage=bank.storage, tiers=len(tiers),
+        rows=[b.bucket_examples for b in tiers],
+        clients=[b.num_clients for b in tiers],
+        steps_per_epoch=[b.steps_per_epoch for b in tiers],
+        bank_bytes=bank.nbytes,
+        single_bucket_bytes=estimate_bank_nbytes(
+            sizes, cfg["batch_size"], cfg["image_shape"]),
+        mean_bucket_rows=bank.padded_examples / len(sizes),
+        sizes_min=int(sizes.min()), sizes_median=float(np.median(sizes)),
+        sizes_max=int(sizes.max()))
+
+
+def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE,
+                    data: dict = None, bank_mode: str = "auto",
+                    label: str = "main") -> dict:
+    """The paper-scale trainer through ``FederatedTrainer.run_round``:
+    ``warmup()``, then ``ROUNDS`` LROA rounds on the bank ``bank_mode``
+    builds ('auto', the trainer's default: the tier ladder at the
+    paper's testbed; ``main.single`` runs 'single').  Finite losses, q on
+    the simplex, moved queues, changed params, exactly one
+    ``fl_aggregate`` launch per round; the ladder and the tiers each
+    round hit are logged."""
     from repro_torch.kernels import fl_aggregate as fk
     from repro_torch.obs import trace
 
     t0 = time.perf_counter()
-    data = make_data(cfg)
+    if data is None:
+        data = make_data(cfg)
     t_data = time.perf_counter() - t0
     t0 = time.perf_counter()
-    trainer = build_trainer(device, cfg, data)
-    torch.cuda.synchronize()
+    trainer = build_trainer(device, cfg, data, bank_mode=bank_mode)
+    trainer._sync()
     t_build = time.perf_counter() - t0
     bank = trainer.bank
     n_params = sum(p.numel() for p in trainer.global_params.values())
-    log("main.setup", data_s=t_data, trainer_s=t_build,
-        clients=cfg["num_devices"], sample_count=cfg["sample_count"],
-        bucket_rows=bank.bucket_examples, steps_per_epoch=bank.steps_per_epoch,
-        bank_bytes=bank.nbytes, model_params=n_params,
-        sizes_min=int(bank.sizes.min()), sizes_max=int(bank.sizes.max()))
+    ladder = describe_bank(bank, cfg)
+    log(f"{label}.setup", data_s=t_data, trainer_s=t_build,
+        num_clients=cfg["num_devices"], sample_count=cfg["sample_count"],
+        bank_mode=bank_mode, bucket_rows=bank.bucket_examples,
+        model_params=n_params, **ladder)
     t0 = time.perf_counter()
     trainer.warmup()
-    log("main.warmup", seconds=time.perf_counter() - t0)
+    log(f"{label}.warmup", seconds=time.perf_counter() - t0)
 
     before = {n: p.clone() for n, p in trainer.global_params.items()}
     queues0 = trainer.controller.queues.clone()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer._sync()
     per_round, rounds = [], []
     _reset_launch_counts()
     with trace.installed(trace.MemorySink()) as sink:
@@ -1309,52 +1558,181 @@ def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE) -> dict:
             count0 = fk.LAUNCHES["fl_aggregate"]
             t0 = time.perf_counter()
             rec = trainer.run_round(t)
-            torch.cuda.synchronize()
+            trainer._sync()
             per_round.append(time.perf_counter() - t0)
             rounds.append((rec, fk.LAUNCHES["fl_aggregate"] - count0))
             q = trainer.last_decision.q
             require(bool(torch.all(q > 0)) and
                     abs(float(q.sum()) - 1.0) <= 1e-5,
-                    f"round {t}: q on the simplex")
+                    f"{label} round {t}: q on the simplex")
         t_all = time.perf_counter() - t_all
     launches = dict(fk.LAUNCHES)
     decide_s = [r["dur"] for r in sink.by_name("controller.decide")]
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    want = 1 if device == "cuda" else 0
+    hits = []
     for t, (rec, n_launch) in enumerate(rounds):
-        log("main.round", t=t, seconds=per_round[t], decide_s=decide_s[t],
-            loss=rec.mean_loss, selected=rec.selected,
-            fl_aggregate_launches=n_launch, queue_mean=rec.queue_mean,
-            wall_time_model_s=rec.wall_time,
+        hits.append(_tiers_hit(bank, rec.selected))
+        log(f"{label}.round", t=t, seconds=per_round[t],
+            decide_s=decide_s[t], loss=rec.mean_loss, selected=rec.selected,
+            tiers_hit=hits[-1], fl_aggregate_launches=n_launch,
+            queue_mean=rec.queue_mean, wall_time_model_s=rec.wall_time,
             test_accuracy=rec.test_accuracy)
-        require(np.isfinite(rec.mean_loss), f"round {t}: finite loss")
-        require(n_launch == 1, f"round {t}: one fl_aggregate launch, "
-                               f"got {n_launch}")
-    require(launches["fl_aggregate"] == ROUNDS,
-            f"{ROUNDS} fl_aggregate launches in the main path")
+        require(np.isfinite(rec.mean_loss), f"{label} round {t}: finite "
+                                            f"loss")
+        require(n_launch == want, f"{label} round {t}: {want} fl_aggregate "
+                                  f"launch, got {n_launch}")
+    require(launches["fl_aggregate"] == want * ROUNDS,
+            f"{want * ROUNDS} fl_aggregate launches in {label}")
     moved = float((trainer.controller.queues - queues0).abs().max())
     changed = max(float((trainer.global_params[n] - before[n]).abs().max())
                   for n in before)
     finite = all(bool(torch.isfinite(p).all())
                  for p in trainer.global_params.values())
-    require(moved > 0.0, "the queues moved")
-    require(changed > 0.0 and finite, "the params changed and are finite")
+    require(moved > 0.0, f"{label}: the queues moved")
+    require(changed > 0.0 and finite, f"{label}: the params changed and "
+                                      f"are finite")
     summary = dict(rounds=ROUNDS, seconds=t_all, rounds_per_s=ROUNDS / t_all,
                    round_s_median=statistics.median(per_round),
                    decide_s_median=statistics.median(decide_s),
                    bank_bytes=bank.nbytes, peak_mem_bytes=peak,
                    queue_max_change=moved, param_max_change=changed,
-                   launches=launches)
-    log("main", **summary)
-    summary.update(trainer=trainer, test=data["test"])
+                   tiers_hit=hits, launches=launches)
+    log(label, **summary)
+    summary.update(trainer=trainer, test=data["test"], data=data)
     return summary
 
 
-def phase_profile(trainer, t: int) -> None:
+def phase_profile(trainer, t: int, label: str = "profile") -> None:
     """One more round under ``torch.profiler``: device time by kernel,
     launches, and the device's busy share of the round's wall time (the
     profiler slows the host side, so the share is a lower bound)."""
-    _, prof = _profiled(lambda: trainer.run_round(t))
-    log("profile", round_s=prof.pop("wall_s"), **prof)
+    rec, prof = _profiled(lambda: trainer.run_round(t))
+    log(label, bank=type(trainer.bank).__name__, round_s=prof.pop("wall_s"),
+        tiers_hit=_tiers_hit(trainer.bank, rec.selected), **prof)
+
+
+def phase_scale(trainer, single, data: dict, cfg: dict = PAPER_SCALE
+                ) -> dict:
+    """The scale plane at paper scale: one LROA round (the main path's
+    controller decides on a fresh channel draw, K clients drawn by q, the
+    eq.-(4) weights; epoch keys as wide as the widest bucket) from the
+    same params, selection, coefficients and keys through
+    ``RoundEngine.round_step`` on: the main path's fp32 ladder and an
+    int8 ladder (bank bytes; the int8 loss within 5% of the fp32 one);
+    a ``BankPool`` of capacity 120 after 8 clients are evicted and
+    re-admitted (every tensor keeps its ``data_ptr()``; params within
+    1e-6 of the single bucket's round, bitwise logged); and a single
+    bucket with 8 k-means clusters, flat and hierarchical (losses
+    bitwise, params within 1e-5).  cuDNN's deterministic algorithms.
+    One ``fl_aggregate`` launch per flat round, none for the
+    hierarchical one."""
+    from repro_torch.fl import BankPool, ClientBank, sample_clients
+    from repro_torch.fl import aggregation_weights
+    from repro_torch.kernels import fl_aggregate as fk
+
+    dev = trainer.device
+    engine, task = trainer.engine, trainer.task
+    k = cfg["sample_count"]
+    h = torch.as_tensor(trainer.channel.sample(), device=dev)
+    q = trainer.controller.decide(h).q.cpu().numpy()
+    sel = sample_clients(np.random.default_rng(cfg["seed"] + 5), q, k)
+    coeffs = aggregation_weights(sel, q, trainer.w, k)
+    keys = torch.rand((k, cfg["local_epochs"], trainer.bank.bucket_examples),
+                      generator=torch.Generator(device=dev).manual_seed(11),
+                      device=dev)
+    init = task.init(torch.Generator(device=dev).manual_seed(cfg["seed"]
+                                                             + 1))
+    lr = trainer.lr_schedule(0)
+    clients = data["clients"]
+    t0 = time.perf_counter()
+    int8 = engine.make_bank(clients, storage="int8")
+    pool = BankPool(engine.cfg, capacity=cfg["num_devices"],
+                    initial_clients=dict(enumerate(clients)), device=dev,
+                    x_layout=task.device_layout)
+    ptrs = pool.data_ptrs()
+    churn = [int(c) for c in np.random.default_rng(cfg["seed"] + 6).choice(
+        cfg["num_devices"], 8, replace=False)]
+    for c in churn:
+        pool.evict(c)
+    for c in reversed(churn):
+        pool.admit(c, *clients[c])
+    clustered = ClientBank(clients, engine.cfg, device=dev,
+                           x_layout=task.device_layout, clusters=8)
+    trainer._sync()
+    build_s = time.perf_counter() - t0
+    out, rows = {}, []
+    with cudnn_deterministic():
+        for name, bank, s, hier in (
+                ("fp32_ladder", trainer.bank, sel, False),
+                ("int8_ladder", int8, sel, False),
+                ("single", single.bank, sel, False),
+                ("pool", pool, pool.slots_for(sel), False),
+                ("clustered_flat", clustered, sel, False),
+                ("hierarchical", clustered, sel, True)):
+            _reset_launch_counts()
+            trainer._sync()
+            t0 = time.perf_counter()
+            p, l = engine.round_step(init, bank, s, coeffs, lr, keys,
+                                     hierarchical=hier)
+            trainer._sync()
+            seconds = time.perf_counter() - t0
+            out[name] = (p, l)
+            row = dict(bank=name, seconds=seconds,
+                       loss=float(l.mean()), bank_bytes=bank.nbytes,
+                       bytes_per_client=bank.bytes_per_client,
+                       fl_aggregate_launches=fk.LAUNCHES["fl_aggregate"],
+                       finite=all(bool(torch.isfinite(v).all())
+                                  for v in p.values()))
+            log("scale.round", **row)
+            require(row["finite"] and np.isfinite(row["loss"]),
+                    f"scale {name}: finite")
+            require(row["fl_aggregate_launches"] ==
+                    (0 if hier or dev.type != "cuda" else 1),
+                    f"scale {name}: fl_aggregate launches "
+                    f"{row['fl_aggregate_launches']}")
+            rows.append(row)
+
+    def dev_max(a, b):
+        return max(float((out[a][0][n] - out[b][0][n]).abs().max())
+                   for n in init)
+
+    fp32_loss, int8_loss = rows[0]["loss"], rows[1]["loss"]
+    summary = dict(
+        selected=sel.tolist(), tiers_hit=_tiers_hit(trainer.bank, sel),
+        build_s=build_s, churn=churn,
+        pool_data_ptrs_equal=pool.data_ptrs() == ptrs,
+        pool_admits=pool.admits, pool_evicts=pool.evicts,
+        int8_bank_bytes=int8.nbytes, fp32_bank_bytes=trainer.bank.nbytes,
+        single_bank_bytes=single.bank.nbytes, pool_bank_bytes=pool.nbytes,
+        int8_loss_rel_err=abs(int8_loss - fp32_loss) / abs(fp32_loss),
+        int8_param_max_abs_diff=dev_max("int8_ladder", "fp32_ladder"),
+        ladder_vs_single_param_max_abs_diff=dev_max("fp32_ladder",
+                                                    "single"),
+        ladder_vs_single_loss_rel_diff=abs(fp32_loss - rows[2]["loss"])
+        / abs(rows[2]["loss"]),
+        pool_vs_single_param_max_abs_err=dev_max("pool", "single"),
+        pool_vs_single_bitwise=all(torch.equal(out["pool"][0][n],
+                                               out["single"][0][n])
+                                   for n in init),
+        hierarchical_vs_flat_param_max_abs_err=dev_max("hierarchical",
+                                                       "clustered_flat"),
+        hierarchical_losses_bitwise_flat=bool(torch.equal(
+            out["hierarchical"][1], out["clustered_flat"][1])),
+        num_clusters=clustered.num_clusters)
+    log("scale", **summary)
+    require(summary["pool_data_ptrs_equal"],
+            "the pool's tensors keep their storage across churn")
+    require(summary["int8_loss_rel_err"] <= 5e-2,
+            f"the int8 ladder's loss within 5% of the fp32 ladder's "
+            f"({summary['int8_loss_rel_err']})")
+    require(summary["pool_vs_single_param_max_abs_err"] <= 1e-6,
+            "the pool's round is the single bucket's within 1e-6")
+    require(summary["hierarchical_losses_bitwise_flat"] and
+            summary["hierarchical_vs_flat_param_max_abs_err"] <= 1e-5,
+            "the hierarchical round is the flat round reassociated")
+    del int8, pool, clustered, out
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -1474,6 +1852,15 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, scale=pt["scale"],
                 enable_gqa=True), iters=pt["iters"], flush=flush)
+        elif pt["label"] == "gemma2.local":
+            # the window as a boolean mask; SDPA has no soft-cap
+            pos = torch.arange(sq, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - pt["window"])
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=pt["scale"],
+                enable_gqa=True), iters=pt["iters"], flush=flush)
+            del mask
         row = dict(
             label=pt["label"], shape=list(pt["shape"]), dtype=_dname(dtype),
             causal=pt["causal"], window=pt["window"], softcap=pt["softcap"],
@@ -1781,13 +2168,15 @@ def phase_profile_serve(run: dict) -> None:
 
 
 def kernels_line(points: list, leaves: dict, lanes: list,
-                 main_summary: dict, scan_summary: dict, arena_summary: dict,
+                 main_summary: dict, single_summary: dict,
+                 scan_summary: dict, arena_summary: dict,
                  flash: list, ssd: list, gemma: dict, mamba: dict, smi: str,
                  sass: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
-    paths (the LROA rounds and the seven controllers' rollouts; the
-    arena's lane-batched rounds; the gemma2 and the mamba2 generation)
-    and its numbers at that path's shapes."""
+    paths (the LROA rounds on the ladder and on the single bucket, and
+    the seven controllers' rollouts; the arena's lane-batched rounds;
+    the gemma2 and the mamba2 generation) and its numbers at that path's
+    shapes."""
     m = next(p for p in points if (p["n"], p["k"]) == MAIN_POINT[:2]
              and p["dtype"] == "float32")
     fg = next(r for r in flash if r["label"] == "gemma2.global")
@@ -1814,10 +2203,12 @@ def kernels_line(points: list, leaves: dict, lanes: list,
         entry("fl_aggregate", "src/repro_torch/kernels/csrc/fl_aggregate.cu",
               "src/repro/kernels/fl_aggregate.py:35",
               main_summary["launches"]["fl_aggregate"]
+              + single_summary["launches"]["fl_aggregate"]
               + scan_summary["launches"]["fl_aggregate"],
               dict(fused, library_ms=None),
               launches_by_path={
                   "main": main_summary["launches"]["fl_aggregate"],
+                  "main.single": single_summary["launches"]["fl_aggregate"],
                   "scan": scan_summary["launches"]["fl_aggregate"]},
               max_abs_err_all_points=max(
                   [p["max_abs_err"] for p in points] + [fused["max_abs_err"]]
@@ -1885,7 +2276,7 @@ def kernels_line(points: list, leaves: dict, lanes: list,
                     "shape, causal, no window or soft-cap",
               variants={"local_window_4096": {
                   k: fl[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by")},
+                                     "library_ms", "bound_ms", "bound_by")},
                   "global_bshd_views": {
                   k: fb[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by")},
@@ -2017,16 +2408,25 @@ def main() -> int:
     phase_reference_lm()
     phase_reference_scan()
     phase_reference_arena()
+    phase_reference_tiered()
     main_summary = phase_main_path()
-    trainer = main_summary.pop("trainer")
-    test = main_summary.pop("test")
-    phase_profile(trainer, ROUNDS)
+    ladder = main_summary.pop("trainer")
+    data = main_summary.pop("data")
+    single_summary = phase_main_path(data=data, bank_mode="single",
+                                     label="main.single")
+    single = single_summary.pop("trainer")
+    test = single_summary.pop("test")
+    del main_summary["test"], single_summary["data"]
+    phase_profile(ladder, ROUNDS)
+    phase_profile(single, ROUNDS, "profile.single")
     with cudnn_deterministic():
-        scan_summary = phase_scan(trainer)
-    arena_summary = phase_arena(trainer, scan_summary, test)
+        scan_summary = phase_scan(single)
+    arena_summary = phase_arena(single, scan_summary, test)
+    phase_arena_round(ladder, scan_summary, label="arena.tiered")
+    phase_scale(ladder, single, data)
     for key in ("h_seq", "lr_seq", "init", "results"):
         del scan_summary[key]
-    del trainer, test
+    del ladder, single, test, data
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2041,8 +2441,9 @@ def main() -> int:
         del mamba[key]
 
     print(json.dumps(kernels_line(points, leaves, lanes, main_summary,
-                                  scan_summary, arena_summary, flash, ssd,
-                                  gemma, mamba, smi, sass)), flush=True)
+                                  single_summary, scan_summary,
+                                  arena_summary, flash, ssd, gemma, mamba,
+                                  smi, sass)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

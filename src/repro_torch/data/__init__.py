@@ -1,12 +1,16 @@
 """repro_torch.data — numpy copies of the JAX package's data layer:
-synthetic datasets, the Dirichlet partition, and the bank's bucketing."""
+synthetic datasets, the Dirichlet partition, the bank's bucketing,
+its int8 codes and its k-means cluster routing."""
 
 from repro_torch.data.partition import dirichlet_partition
-from repro_torch.data.pipeline import (assign_tiers, bucket_examples,
-                                       bucket_num_batches,
+from repro_torch.data.pipeline import (assign_clusters, assign_tiers,
+                                       bucket_examples, bucket_num_batches,
                                        client_bucket_examples,
+                                       client_cluster_features,
+                                       dequantize_stack, kmeans_clusters,
                                        make_client_datasets, pad_client_data,
-                                       stack_client_arrays, train_test_split,
+                                       quantize_stack, stack_client_arrays,
+                                       train_test_split,
                                        validate_client_data)
 from repro_torch.data.synthetic import (synthetic_image_classification,
                                         synthetic_lm_tokens)

@@ -1,8 +1,9 @@
 """Host half of the ClientBank data plane — a numpy copy of the parts of
 ``repro.data.pipeline`` the port uses (the port imports nothing of the JAX
 package): bucketing, cyclic tiling into ``[N, B, ...]`` stacks, tier
-assignment, input validation, client shards and the train/test split.
-Same inputs, same arrays.
+assignment, input validation, the int8 codes of a bank's rows, the
+k-means routing of hierarchical aggregation, client shards and the
+train/test split.  Same inputs, same arrays.
 
 Bucket invariants (see ``repro_torch.fl.client``):
 
@@ -12,9 +13,8 @@ Bucket invariants (see ``repro_torch.fl.client``):
   (:func:`pad_client_data`) contains every example; the *applied*
   per-epoch step count stays ``max(n // bs, 1)``.
 * :func:`bucket_examples` is the single GLOBAL bucket of a
-  ``ClientBank``; :func:`assign_tiers` is the ladder a multi-tier bank
-  would use (the port builds single-bucket banks only, and uses the
-  ladder to tell when a partition needs more than one tier).
+  ``ClientBank``; :func:`assign_tiers` is the ladder of a
+  ``TieredClientBank`` (one bucket per tier).
 """
 
 from __future__ import annotations
@@ -140,6 +140,107 @@ def validate_client_data(client_data: Sequence[Tuple[np.ndarray, np.ndarray]]
                 f"does not match client 0's "
                 f"(x {ref_x[0]} {ref_x[1]}, y {ref_y[0]} {ref_y[1]}) — "
                 f"all clients must stack to one [N, B, ...] shape")
+
+
+def quantize_stack(stack: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-client affine int8 quantization of a ``[N, B, ...]`` stack.
+
+    Each client row (leading-axis slice) gets its own affine code over
+    its value range: ``scale_i = (max_i - min_i) / 255`` (1.0 for a
+    constant row) and a float zero offset, with codes stored int8.  The
+    dequantization is ``x_hat = q.astype(f32) * scale + zero`` — exactly
+    the elementwise graph the round engine's fused gather replays on
+    device — and the QUANTIZATION ERROR CONTRACT is
+    ``|x_hat - x| <= 0.5 * scale_i`` per element (half a code step; the
+    f32 round-trip adds at most a few ulps on top).
+
+    Returns ``(q int8 [N, B, ...], scale f32 [N], zero f32 [N])``.
+    Deterministic — re-quantizing identical rows reproduces identical
+    codes, which is what makes pool evict/re-admit round-trips exact.
+    """
+    stack = np.asarray(stack)
+    n = stack.shape[0]
+    flat = stack.reshape(n, -1).astype(np.float32)
+    mn = flat.min(axis=1)
+    mx = flat.max(axis=1)
+    scale = (mx - mn) / np.float32(255.0)
+    scale = np.where(scale > 0, scale, np.float32(1.0)).astype(np.float32)
+    q = np.clip(np.rint((flat - mn[:, None]) / scale[:, None]),
+                0, 255).astype(np.int16) - 128
+    zero = (mn + np.float32(128.0) * scale).astype(np.float32)
+    return (q.astype(np.int8).reshape(stack.shape), scale, zero)
+
+
+def dequantize_stack(q: np.ndarray, scale: np.ndarray,
+                     zero: np.ndarray) -> np.ndarray:
+    """Host mirror of the in-gather dequantization: ``q * scale + zero``
+    broadcast over each client row (f32)."""
+    q = np.asarray(q)
+    shape = (q.shape[0],) + (1,) * (q.ndim - 1)
+    return (q.astype(np.float32) * scale.reshape(shape).astype(np.float32)
+            + zero.reshape(shape).astype(np.float32))
+
+
+def client_cluster_features(
+        client_data: Sequence[Tuple[np.ndarray, np.ndarray]]
+        ) -> np.ndarray:
+    """Per-client summary features for hierarchical-aggregation k-means:
+    mean and std of the flattened example features plus ``log1p(n_i)`` —
+    host-side, O(sum_i n_i), computed once at bank construction (and per
+    admit for the streaming pool)."""
+    rows = []
+    for x, _ in client_data:
+        flat = np.asarray(x, np.float32).reshape(np.asarray(x).shape[0], -1)
+        rows.append(np.concatenate([
+            flat.mean(axis=0), flat.std(axis=0),
+            [np.log1p(np.float32(flat.shape[0]))]]))
+    return np.stack(rows).astype(np.float32)
+
+
+def kmeans_clusters(features: np.ndarray, num_clusters: int,
+                    iters: int = 25, seed: int = 0
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Plain deterministic Lloyd k-means on ``[N, D]`` features.
+
+    Host-side numpy only (the cluster routing is control-plane data, like
+    tier assignment).  Returns ``(labels int32 [N], centroids f32
+    [num_clusters, D])``.  ``num_clusters`` is clamped to N; an emptied
+    cluster is re-seeded to the point farthest from its centroid, so
+    every cluster id stays populated.
+    """
+    feats = np.asarray(features, np.float32)
+    n = feats.shape[0]
+    k = max(1, min(int(num_clusters), n))
+    rng = np.random.default_rng(seed)
+    centroids = feats[rng.choice(n, size=k, replace=False)].copy()
+    labels = np.zeros(n, np.int32)
+    for _ in range(max(int(iters), 1)):
+        d2 = ((feats[:, None, :] - centroids[None, :, :]) ** 2).sum(axis=2)
+        new_labels = d2.argmin(axis=1).astype(np.int32)
+        for c in range(k):
+            members = feats[new_labels == c]
+            if members.size:
+                centroids[c] = members.mean(axis=0)
+            else:                    # re-seed an emptied cluster
+                far = int(d2.min(axis=1).argmax())
+                centroids[c] = feats[far]
+                new_labels[far] = c
+        if np.array_equal(new_labels, labels):
+            labels = new_labels
+            break
+        labels = new_labels
+    return labels, centroids
+
+
+def assign_clusters(features: np.ndarray,
+                    centroids: np.ndarray) -> np.ndarray:
+    """Nearest-centroid assignment (the pool's admit-time routing —
+    centroids are fitted once on the initial population and stay fixed,
+    so an admitted client's cluster never depends on admission order)."""
+    feats = np.atleast_2d(np.asarray(features, np.float32))
+    d2 = ((feats[:, None, :] - centroids[None, :, :]) ** 2).sum(axis=2)
+    return d2.argmin(axis=1).astype(np.int32)
 
 
 def stack_client_arrays(client_data: Sequence[Tuple[np.ndarray, np.ndarray]],

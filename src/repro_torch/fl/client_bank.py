@@ -1,38 +1,108 @@
-"""ClientBank — the device-resident FL data plane; the port of the
-single-bucket ``repro.fl.client_bank.ClientBank``.
+"""ClientBank — the device-resident FL data plane; the port of
+``repro.fl.client_bank`` without a mesh.
 
 ALL N clients' bucketed data is tiled and stacked to ``[N, B, ...]`` once
 at construction, uploaded once, and every round gathers its K selected
 rows on the device (``index_select``) — no per-round host-to-device
 transfer of client data.
 
-* The inputs are stored in fp32, in the layout the task reads
-  (``x_layout``, e.g. ``CNNTask.device_layout``: NHWC -> NCHW), applied
-  once at upload so no SGD step permutes its batch.
+* The inputs are stored in the layout the task reads (``x_layout``,
+  e.g. ``CNNTask.device_layout``: NHWC -> NCHW), applied once at upload
+  so no SGD step permutes its batch.
 * Labels are stored int64 (what ``F.cross_entropy`` takes), the
   ``num_steps`` / ``num_examples`` masks as int64 ``[N]``.
 * One GLOBAL bucket ``B = bucket_num_batches(max_i ceil(n_i / bs)) * bs``
   covers every client (see ``repro_torch.data.pipeline``); the masks
   keep padded clients at their true step counts and examples.
+* The host keeps a private copy of every client's true (x, y) — ``sum_i
+  n_i`` rows, never the tiled form — for :meth:`ClientBank.client_view`
+  and the test-only :meth:`ClientBank.gather_host`.
 
-This slice ports the single-bucket fp32 bank only: the multi-tier
-``TieredClientBank``, ``storage='int8'`` and cluster routing are the
-scale plane (ROADMAP A6) and raise here.
+The scale plane behind the same interface:
+
+* ``storage='int8'``: the xs stack holds per-client affine int8 codes
+  (``data.pipeline.quantize_stack``, in the task's layout) and ``[N]``
+  f32 ``x_scale`` / ``x_zero``; the round engine dequantizes the K
+  selected rows right after the gather (``quant_args``), so fp32 rows
+  exist only at ``[K, B, ...]``.
+* ``clusters=k``: host k-means over per-client features
+  (``data.pipeline.kmeans_clusters``), ``cluster_of`` on the host and on
+  the device, for ``RoundEngine.round_step(hierarchical=True)``.
+* :class:`TieredClientBank`: the tier ladder, one :class:`ClientBank`
+  per power-of-two size tier (``data.pipeline.assign_tiers``) and the
+  maps ``tier_of`` / ``pos_in_tier``, so device rows are ``sum_t N_t
+  B_t`` instead of ``N * max_i n_i``.
+* :class:`BankPool`: a fixed ``[N_cap, B, ...]`` stack whose population
+  churns by writing rows in place: its tensors are never reallocated
+  (the torch form of the JAX package's zero-retrace contract).
+* ``nbytes`` / ``bytes_per_client`` / :func:`estimate_bank_nbytes`: the
+  device footprint as a tracked number.
+
+Client-axis sharding (``mesh=``) is ROADMAP A8 and raises here.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.data.pipeline import (stack_client_arrays,
+from repro_torch.data.pipeline import (assign_clusters, assign_tiers,
+                                       client_bucket_examples,
+                                       client_cluster_features,
+                                       dequantize_stack, kmeans_clusters,
+                                       pad_client_data, quantize_stack,
+                                       stack_client_arrays,
                                        validate_client_data)
 from repro_torch.fl.client import ClientConfig
+from repro_torch.obs.metrics import MetricsRegistry
 
-SCALE_PLANE = ("is part of the scale plane (ROADMAP A6), not yet ported to "
-               "repro_torch")
+#: what ``mesh=`` raises with
+MESH = "client-axis sharding (mesh=) is not ported yet (ROADMAP A8)"
+
+_STORAGES = ("fp32", "int8")
+
+Layout = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _check_storage(storage: str) -> str:
+    if storage not in _STORAGES:
+        raise ValueError(f"storage must be one of {_STORAGES}, "
+                         f"got {storage!r}")
+    return storage
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(MESH)
+
+
+def _nbytes(tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def estimate_bank_nbytes(sizes: Sequence[int], batch_size: int,
+                         feature_shape: Tuple[int, ...],
+                         label_shape: Tuple[int, ...] = (),
+                         storage: str = "fp32") -> int:
+    """Device bytes a single-bucket :class:`ClientBank` WOULD hold, with
+    no allocation: the ``[N, B, ...]`` xs stack (f32, or int8 codes), the
+    int64 labels, the two int64 ``[N]`` masks and (int8) the f32
+    ``[N]`` scale and zero — :attr:`ClientBank.nbytes` of the port (its
+    labels and masks are int64, so this is not the JAX package's
+    number)."""
+    _check_storage(storage)
+    n = len(sizes)
+    b = max(client_bucket_examples(int(s), batch_size) for s in sizes)
+    feat = int(np.prod(feature_shape, dtype=np.int64)) if feature_shape else 1
+    lab = int(np.prod(label_shape, dtype=np.int64)) if label_shape else 1
+    total = n * b * feat * (1 if storage == "int8" else 4)
+    total += n * b * lab * 8
+    total += 2 * n * 8                       # num_steps / num_examples
+    if storage == "int8":
+        total += 2 * n * 4                   # x_scale / x_zero
+    return int(total)
 
 
 class ClientBank:
@@ -40,28 +110,33 @@ class ClientBank:
 
     def __init__(self, client_data: Sequence[tuple],
                  client_cfg: ClientConfig, device="cuda",
-                 x_layout: Optional[Callable[[torch.Tensor],
-                                             torch.Tensor]] = None,
-                 storage: str = "fp32", clusters: Optional[int] = None):
-        if storage != "fp32":
-            raise NotImplementedError(f"storage={storage!r} {SCALE_PLANE}")
-        if clusters is not None:
-            raise NotImplementedError(f"clusters= {SCALE_PLANE}")
+                 x_layout: Layout = None, storage: str = "fp32",
+                 clusters: Optional[int] = None, mesh=None):
+        _check_mesh(mesh)
         validate_client_data(client_data)
         self.batch_size = client_cfg.batch_size
-        self.storage = storage
+        self.storage = _check_storage(storage)
         self.device = torch.device(device)
+        # private host copies of the TRUE data (client_view, gather_host)
+        self._clients = [(np.array(x), np.array(y)) for x, y in client_data]
         host_x, host_y, num_steps, num_examples = stack_client_arrays(
-            client_data, self.batch_size)
-        self._num_examples = num_examples
+            self._clients, self.batch_size)
+        self._num_steps, self._num_examples = num_steps, num_examples
+        self._tiled: Optional[tuple] = None
         self.num_clients = host_x.shape[0]
         self.bucket_examples = host_x.shape[1]
         self.steps_per_epoch = self.bucket_examples // self.batch_size
         # every client exactly fills the bucket => the masks are inert and
         # the unmasked SGD path runs
         self.uniform = bool(np.all(num_examples == self.bucket_examples))
-        xs = torch.as_tensor(host_x.astype(np.float32, copy=False),
-                             device=self.device)
+        if self.storage == "int8":
+            host_x, scale, zero = quantize_stack(host_x)
+            self.x_scale = torch.as_tensor(scale, device=self.device)
+            self.x_zero = torch.as_tensor(zero, device=self.device)
+        else:
+            host_x = host_x.astype(np.float32, copy=False)
+            self.x_scale = self.x_zero = None
+        xs = torch.as_tensor(host_x, device=self.device)
         self.xs = (x_layout(xs) if x_layout is not None else xs).contiguous()
         self.ys = torch.as_tensor(host_y.astype(np.int64),
                                   device=self.device)
@@ -69,6 +144,17 @@ class ClientBank:
                                          device=self.device)
         self.num_examples = torch.as_tensor(num_examples.astype(np.int64),
                                             device=self.device)
+        if clusters is not None:
+            feats = client_cluster_features(self._clients)
+            self.cluster_of, self.cluster_centroids = kmeans_clusters(
+                feats, clusters)
+            self.num_clusters = int(self.cluster_centroids.shape[0])
+            self.cluster_of_device = torch.as_tensor(
+                self.cluster_of.astype(np.int64), device=self.device)
+        else:
+            self.cluster_of = self.cluster_centroids = None
+            self.num_clusters = 0
+            self.cluster_of_device = None
 
     @property
     def sizes(self) -> np.ndarray:
@@ -76,10 +162,31 @@ class ClientBank:
         return self._num_examples
 
     @property
+    def true_examples(self) -> int:
+        """``sum_i n_i`` — the irreducible example count."""
+        return int(self._num_examples.sum())
+
+    @property
+    def padded_examples(self) -> int:
+        """``N * B`` — device rows held (incl. tiling padding)."""
+        return self.num_clients * self.bucket_examples
+
+    @property
     def nbytes(self) -> int:
-        """Device bytes held: the xs/ys stacks and the two masks."""
-        arrs = [self.xs, self.ys, self.num_steps, self.num_examples]
-        return int(sum(a.numel() * a.element_size() for a in arrs))
+        """Device bytes held: the xs/ys stacks, the two masks and (int8)
+        the scale/zero codes."""
+        return _nbytes([self.xs, self.ys, self.num_steps, self.num_examples]
+                       + [t for t in self.quant_args() if t is not None])
+
+    @property
+    def bytes_per_client(self) -> float:
+        return self.nbytes / self.num_clients
+
+    def quant_args(self) -> Tuple[Optional[torch.Tensor],
+                                  Optional[torch.Tensor]]:
+        """Per-client affine codes ``(x_scale, x_zero)`` for the
+        dequantizing gather, or ``(None, None)`` in fp32 mode."""
+        return self.x_scale, self.x_zero
 
     def device_args(self) -> Tuple[torch.Tensor, torch.Tensor,
                                    Optional[torch.Tensor],
@@ -89,3 +196,372 @@ class ClientBank:
         if self.uniform:
             return self.xs, self.ys, None, None
         return self.xs, self.ys, self.num_steps, self.num_examples
+
+    # -- host-side views ---------------------------------------------------
+
+    def gather_host(self, selected: np.ndarray
+                    ) -> Tuple[np.ndarray, np.ndarray,
+                               Optional[np.ndarray], Optional[np.ndarray]]:
+        """The selected clients' tiled rows ``[K, B, ...]`` from the host
+        copies, in the host (NHWC) layout and always UNQUANTIZED, even
+        for an int8 bank (the reference the quantization bound is stated
+        against); the masks are None when every selected client fills
+        the bucket.  For tests; the tiled stacks are cached at first
+        use."""
+        if self._tiled is None:
+            self._tiled = stack_client_arrays(self._clients,
+                                              self.batch_size)[:2]
+        host_x, host_y = self._tiled
+        idx = np.asarray(selected, np.int64)
+        xs, ys = host_x[idx], host_y[idx]
+        if np.all(self._num_examples[idx] == self.bucket_examples):
+            return xs, ys, None, None
+        return xs, ys, self._num_steps[idx], self._num_examples[idx]
+
+    def client_view(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Client ``i``'s true (x, y): the bank's private host copy."""
+        return self._clients[i]
+
+
+class TieredClientBank:
+    """Bucket-ladder bank: one :class:`ClientBank` per power-of-two size
+    tier, plus global-index maps.
+
+    ``tier_of[i]`` names client i's tier and ``pos_in_tier[i]`` its row in
+    that tier's stack (members keep ascending global order, so a one-tier
+    ladder has ``pos_in_tier == arange(N)`` and its tier IS the
+    single-bucket bank).  ``tier_of_device`` / ``pos_device`` are the
+    same maps on the device, for routing a selection that lives there
+    (``run_scan``, the arena).  ``bucket_examples`` is the widest rung:
+    epoch keys are drawn that wide and slot k in tier t reads their first
+    ``B_t`` columns (the port's draws are prefix-stable in the row)."""
+
+    def __init__(self, client_data: Sequence[tuple],
+                 client_cfg: ClientConfig, device="cuda",
+                 x_layout: Layout = None, max_tiers: int = 4,
+                 assignment: Optional[tuple] = None, storage: str = "fp32",
+                 mesh=None):
+        _check_mesh(mesh)
+        validate_client_data(client_data)
+        self.batch_size = client_cfg.batch_size
+        self.storage = _check_storage(storage)
+        self.device = torch.device(device)
+        sizes = [int(np.asarray(x).shape[0]) for x, _ in client_data]
+        self.num_clients = len(sizes)
+        # a caller that already ran the ladder decision (make_bank's
+        # 'auto') hands its assignment over
+        if assignment is None:
+            assignment = assign_tiers(sizes, self.batch_size, max_tiers)
+        self.tier_of, self.tier_buckets = assignment
+        self.num_tiers = len(self.tier_buckets)
+        self.bucket_examples = int(self.tier_buckets[-1])
+        self.tier_members = [np.flatnonzero(self.tier_of == t)
+                             for t in range(self.num_tiers)]
+        pos = np.zeros(self.num_clients, np.int32)
+        for members in self.tier_members:
+            pos[members] = np.arange(members.size, dtype=np.int32)
+        self.pos_in_tier = pos
+        self.tiers = [ClientBank([client_data[i] for i in members],
+                                 client_cfg, device=device,
+                                 x_layout=x_layout, storage=storage)
+                      for members in self.tier_members]
+        self.tier_of_device = torch.as_tensor(
+            self.tier_of.astype(np.int64), device=self.device)
+        self.pos_device = torch.as_tensor(pos.astype(np.int64),
+                                          device=self.device)
+
+    @property
+    def sizes(self) -> np.ndarray:
+        """True per-client dataset sizes ``n_i`` in GLOBAL order ([N])."""
+        out = np.zeros(self.num_clients, np.int32)
+        for members, bank in zip(self.tier_members, self.tiers):
+            out[members] = bank.sizes
+        return out
+
+    @property
+    def true_examples(self) -> int:
+        return sum(bank.true_examples for bank in self.tiers)
+
+    @property
+    def padded_examples(self) -> int:
+        """``sum_t N_t * B_t`` — device rows held across the ladder."""
+        return sum(bank.padded_examples for bank in self.tiers)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes held across the ladder (the tiers' stacks)."""
+        return sum(bank.nbytes for bank in self.tiers)
+
+    @property
+    def bytes_per_client(self) -> float:
+        return self.nbytes / self.num_clients
+
+    def client_view(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Client ``i``'s true (x, y) via its tier's host copy."""
+        return self.tiers[self.tier_of[i]].client_view(
+            int(self.pos_in_tier[i]))
+
+
+class BankPool:
+    """Slot-recycled pool: a fixed-capacity device-resident ``[N_cap, B,
+    ...]`` bank whose population churns without reallocating.
+
+    The stacks are allocated ONCE at ``(capacity, B)``; :meth:`admit`
+    tiles a client's rows to ``B``, optionally quantizes them, and writes
+    them into a free slot of the same tensors (one row copy per stack);
+    :meth:`evict` only returns the slot to the free list.  Every tensor
+    keeps its storage for the pool's life (:meth:`data_ptrs`).
+
+    It has the bank interface (``device_args`` / ``quant_args`` / sizes /
+    accounting), so ``RoundEngine.round_step`` / ``run_scan`` and the
+    arena run on it.  Unlike :class:`ClientBank`: ``uniform`` is always
+    False (the masks stay valid for any resident mix); selection is over
+    SLOTS (:meth:`sample_slots`, :meth:`slots_for`), and an empty slot
+    holds inert rows (one step over zeros).  Tallies (``pool.admits``,
+    ``pool.evicts``, ``pool.uploads``, ``pool.resident``,
+    ``pool.quant.abs_err``) live in its :class:`MetricsRegistry`,
+    ``registry``.
+    """
+
+    def __init__(self, client_cfg: ClientConfig, capacity: int,
+                 max_examples: Optional[int] = None,
+                 feature_shape: Optional[Tuple[int, ...]] = None,
+                 label_shape: Tuple[int, ...] = (),
+                 feature_dtype=np.float32, label_dtype=np.int32,
+                 storage: str = "fp32", clusters: Optional[int] = None,
+                 initial_clients: Optional[Dict[object, tuple]] = None,
+                 device="cuda", x_layout: Layout = None):
+        self.batch_size = client_cfg.batch_size
+        self.storage = _check_storage(storage)
+        self.registry = MetricsRegistry()
+        self.device = torch.device(device)
+        self._layout = x_layout
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        init_items = list(initial_clients.items()) if initial_clients else []
+        if init_items:
+            validate_client_data([pair for _, pair in init_items])
+            if len(init_items) > self.capacity:
+                raise ValueError(f"{len(init_items)} initial clients exceed "
+                                 f"pool capacity {self.capacity}")
+            x0, y0 = (np.asarray(a) for a in init_items[0][1])
+            feature_shape, label_shape = x0.shape[1:], y0.shape[1:]
+            feature_dtype, label_dtype = x0.dtype, y0.dtype
+            sizes = [np.asarray(x).shape[0] for _, (x, _) in init_items]
+            max_examples = max(int(max_examples or 0), max(sizes))
+        elif feature_shape is None or max_examples is None:
+            raise ValueError("an empty pool needs feature_shape and "
+                             "max_examples to fix its static [N_cap, B, "
+                             "...] shape up front")
+        self.feature_shape = tuple(feature_shape)
+        self.label_shape = tuple(label_shape)
+        self.feature_dtype = np.dtype(feature_dtype)
+        self.label_dtype = np.dtype(label_dtype)
+        if not np.issubdtype(self.feature_dtype, np.floating):
+            raise ValueError(f"feature_dtype {self.feature_dtype} is not a "
+                             f"float dtype")
+        self.bucket_examples = client_bucket_examples(int(max_examples),
+                                                      self.batch_size)
+        self.steps_per_epoch = self.bucket_examples // self.batch_size
+        self.num_clients = self.capacity          # the bank interface's N
+        self.uniform = False
+        b, dev = self.bucket_examples, self.device
+        # empty slots: one step over zeros, full-bucket num_examples,
+        # identity codes
+        xs = torch.zeros((self.capacity, b) + self.feature_shape,
+                         dtype=torch.int8 if self.storage == "int8"
+                         else torch.float32, device=dev)
+        self.xs = self._laid_out(xs)
+        self.ys = torch.zeros((self.capacity, b) + self.label_shape,
+                              dtype=torch.int64, device=dev)
+        self.num_steps = torch.ones(self.capacity, dtype=torch.int64,
+                                    device=dev)
+        self.num_examples = torch.full((self.capacity,), b,
+                                       dtype=torch.int64, device=dev)
+        if self.storage == "int8":
+            self.x_scale = torch.ones(self.capacity, dtype=torch.float32,
+                                      device=dev)
+            self.x_zero = torch.zeros(self.capacity, dtype=torch.float32,
+                                      device=dev)
+        else:
+            self.x_scale = self.x_zero = None
+        # centroids fitted ONCE on the initial population, so an admitted
+        # client's cluster never depends on admission order
+        if clusters is not None:
+            if not init_items:
+                raise ValueError("clusters needs initial_clients to fit "
+                                 "centroids on")
+            feats = client_cluster_features([p for _, p in init_items])
+            _, self.cluster_centroids = kmeans_clusters(feats, clusters)
+            self.num_clusters = int(self.cluster_centroids.shape[0])
+            self.cluster_of = np.zeros(self.capacity, np.int32)
+            self.cluster_of_device = torch.zeros(self.capacity,
+                                                 dtype=torch.int64,
+                                                 device=dev)
+        else:
+            self.cluster_centroids = self.cluster_of = None
+            self.num_clusters = 0
+            self.cluster_of_device = None
+        self._buffer_names = ["xs", "ys", "num_steps", "num_examples"]
+        if self.storage == "int8":
+            self._buffer_names += ["x_scale", "x_zero"]
+        if self.cluster_of_device is not None:
+            self._buffer_names += ["cluster_of_device"]
+        self.slot_of: Dict[object, int] = {}
+        self._free: List[int] = list(range(self.capacity - 1, -1, -1))
+        self._host: Dict[object, tuple] = {}
+        self._sizes = np.zeros(self.capacity, np.int32)
+        for cid, (x, y) in init_items:
+            self.admit(cid, x, y)
+
+    def _laid_out(self, xs: torch.Tensor) -> torch.Tensor:
+        return (self._layout(xs) if self._layout is not None
+                else xs).contiguous()
+
+    # -- churn --------------------------------------------------------------
+
+    def admit(self, client_id, x: np.ndarray, y: np.ndarray) -> int:
+        """Bring a client resident: tile, quantize (int8), and write its
+        rows into a free slot of the pool's tensors.  Returns the slot."""
+        if client_id in self.slot_of:
+            raise ValueError(f"client {client_id!r} is already resident "
+                             f"(slot {self.slot_of[client_id]})")
+        if not self._free:
+            raise ValueError(f"pool is full ({self.capacity} slots) — "
+                             f"evict before admitting")
+        x, y = np.asarray(x), np.asarray(y)
+        validate_client_data([(x, y)])
+        if (x.dtype, x.shape[1:]) != (self.feature_dtype,
+                                      self.feature_shape) or \
+           (y.dtype, y.shape[1:]) != (self.label_dtype, self.label_shape):
+            raise ValueError(
+                f"client {client_id!r}: (x {x.dtype} {x.shape[1:]}, "
+                f"y {y.dtype} {y.shape[1:]}) does not match the pool's "
+                f"static spec (x {self.feature_dtype} {self.feature_shape},"
+                f" y {self.label_dtype} {self.label_shape})")
+        n = int(x.shape[0])
+        if n > self.bucket_examples:
+            raise ValueError(
+                f"client {client_id!r}: {n} examples exceed the pool "
+                f"bucket B={self.bucket_examples} — size the pool's "
+                f"max_examples for the largest admissible client")
+        px, py = pad_client_data(x, y, self.bucket_examples)
+        rows = {"ys": py.astype(np.int64),
+                "num_steps": np.int64(max(n // self.batch_size, 1)),
+                "num_examples": np.int64(n)}
+        if self.storage == "int8":
+            q, scale, zero = quantize_stack(px[None])
+            err = float(np.abs(dequantize_stack(q, scale, zero)
+                               - px[None].astype(np.float32)).max())
+            self.registry.histogram("pool.quant.abs_err").observe(err)
+            rows["xs"] = q
+            rows["x_scale"], rows["x_zero"] = scale[0], zero[0]
+        else:
+            rows["xs"] = px[None].astype(np.float32)
+        slot = self._free.pop()
+        if self.cluster_of_device is not None:
+            cid = assign_clusters(client_cluster_features([(x, y)]),
+                                  self.cluster_centroids)[0]
+            self.cluster_of[slot] = cid
+            rows["cluster_of_device"] = np.int64(cid)
+        for name in self._buffer_names:
+            row = torch.as_tensor(rows[name], device=self.device)
+            if name == "xs":
+                row = self._laid_out(row)[0]
+            getattr(self, name)[slot].copy_(row)
+        self.slot_of[client_id] = slot
+        self._host[client_id] = (x.copy(), y.copy())
+        self._sizes[slot] = n
+        self.registry.counter("pool.admits").inc()
+        self.registry.counter("pool.uploads").inc()
+        self.registry.gauge("pool.resident").set(len(self.slot_of))
+        return slot
+
+    def evict(self, client_id) -> int:
+        """Return a client's slot to the free list (no device work: the
+        rows stay until a later admit overwrites them).  Returns it."""
+        if client_id not in self.slot_of:
+            raise ValueError(f"client {client_id!r} is not resident")
+        slot = self.slot_of.pop(client_id)
+        self._free.append(slot)
+        self._host.pop(client_id, None)
+        self._sizes[slot] = 0
+        self.registry.counter("pool.evicts").inc()
+        self.registry.gauge("pool.resident").set(len(self.slot_of))
+        return slot
+
+    def data_ptrs(self) -> Dict[str, int]:
+        """Each device tensor's storage address: unchanged by any churn."""
+        return {name: getattr(self, name).data_ptr()
+                for name in self._buffer_names}
+
+    # -- slot views ---------------------------------------------------------
+
+    def slots_for(self, client_ids: Sequence) -> np.ndarray:
+        """Resident clients' slots, in the given order ([K] int32)."""
+        return np.asarray([self.slot_of[c] for c in client_ids], np.int32)
+
+    def sample_slots(self, rng: np.random.Generator, k: int) -> np.ndarray:
+        """``k`` distinct OCCUPIED slots, drawn from ``rng``."""
+        occupied = np.asarray(sorted(self.slot_of.values()), np.int32)
+        if k > occupied.size:
+            raise ValueError(f"asked for {k} slots but only "
+                             f"{occupied.size} are occupied")
+        return np.asarray(rng.choice(occupied, size=k, replace=False),
+                          np.int32)
+
+    def client_view(self, client_id) -> Tuple[np.ndarray, np.ndarray]:
+        """A resident client's true (x, y): the pool's host copy."""
+        return self._host[client_id]
+
+    # -- bank interface -----------------------------------------------------
+
+    def device_args(self) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor, torch.Tensor]:
+        """(xs, ys, num_steps, num_examples); the masks are always
+        present."""
+        return self.xs, self.ys, self.num_steps, self.num_examples
+
+    def quant_args(self) -> Tuple[Optional[torch.Tensor],
+                                  Optional[torch.Tensor]]:
+        return self.x_scale, self.x_zero
+
+    @property
+    def sizes(self) -> np.ndarray:
+        """Per-SLOT true sizes ``n_i`` (0 for an empty slot; [N_cap])."""
+        return self._sizes
+
+    @property
+    def true_examples(self) -> int:
+        return int(self._sizes.sum())
+
+    @property
+    def padded_examples(self) -> int:
+        return self.capacity * self.bucket_examples
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes held — fixed at construction."""
+        return _nbytes(getattr(self, name) for name in self._buffer_names)
+
+    @property
+    def bytes_per_client(self) -> float:
+        """:attr:`nbytes` over CAPACITY (slots exist, occupied or not)."""
+        return self.nbytes / self.capacity
+
+    @property
+    def num_resident(self) -> int:
+        return len(self.slot_of)
+
+    @property
+    def admits(self) -> int:
+        return int(self.registry.get("pool.admits"))
+
+    @property
+    def evicts(self) -> int:
+        return int(self.registry.get("pool.evicts"))
+
+    @property
+    def uploads(self) -> int:
+        return int(self.registry.get("pool.uploads"))

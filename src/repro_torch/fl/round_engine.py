@@ -1,35 +1,55 @@
-"""Device-resident FL round engine over a ClientBank — the port of
-``repro.fl.round_engine.RoundEngine``'s single-bucket paths: one round
+"""Device-resident FL round engine over a client bank — the port of
+``repro.fl.round_engine.RoundEngine`` without a mesh: one round
 (:meth:`RoundEngine.round_step`) and a whole rollout of Algorithm 1
-(:meth:`RoundEngine.run_scan`).
+(:meth:`RoundEngine.run_scan`), on a single-bucket ``ClientBank``, the
+tier ladder (``TieredClientBank``) or a ``BankPool``, fp32 or int8.
 
 A round is
 
-    gather the K selected rows of the bank       (index_select on device)
+    gather the K selected rows of the bank       (index_select on device;
+                                                  int8 rows dequantized
+                                                  right after it)
       -> K-client batched E-epoch local SGD       (client.batched_local_sgd)
       -> eq.-(4) aggregation                      (server.aggregate_fused;
                                                    ONE hand-written CUDA
                                                    fl_aggregate launch)
 
 with no per-round host-to-device transfer of client data.  One gather
-core (:meth:`_gathered_round`) feeds one round core (:meth:`_round_core`),
-as in the JAX package.
+(:func:`_gather`) feeds one training core (:meth:`RoundEngine._train`)
+on every path.
+
+The tier ladder.  The JAX package runs all K slots through every tier
+the selection hits (non-members gather row 0 with a zeroed coefficient)
+and sums the tiers' aggregates.  The port computes the same eq. (4)
+without that zeroed work: the K slots are routed by ``tier_of``, each
+tier that gets a member trains only its member slots (one
+``batched_local_sgd`` at its ``steps_per_epoch``, on the first ``B_t``
+columns of the slots' epoch keys), the deltas go back to slot order,
+and ONE ``fl_aggregate`` launch reduces all K of them — however many
+tiers the round hits.  Padded and dropped slots still train, as in the
+reference, with coefficient 0.  The result differs from the reference
+only in the f32 order of the cross-tier sum.  A selection inside one
+tier, and every round of a one-tier ladder, is that tier's
+single-bucket round, bit for bit.
 
 ``run_scan`` runs T rounds of decide -> select -> train -> aggregate ->
 queue update under any controller of ``repro_torch.core.policy.POLICIES``
 as a Python loop whose state (params, queues, per-round metrics) stays
-on the device: the host reads back only what Algorithm 2's while-loops
-read (one norm per iteration), and the metrics once, at the end.
+on the device: the host reads back what Algorithm 2's while-loops read
+(one norm per iteration), the metrics once, at the end, and — on a
+multi-tier ladder — the K slots' tier ids once per round, since the
+sizes of the tier calls depend on them.
 
 The scenario arena (``repro_torch.sim.Arena``) runs S such rollouts as
 one (:meth:`RoundEngine._build_lanes`): the same per-round control plane
-per lane, one gather, one SGD over S·K_max clients and one lane-batched
-eq.-(4) launch per round (:meth:`RoundEngine._lanes_plan`).
+per lane, one gather (per hit tier), one SGD over S·K_max clients (per
+hit tier; the S·K tier ids read back once per round) and one
+lane-batched eq.-(4) launch per round (:meth:`RoundEngine._lanes_plan`).
 
-This slice ports the single-bucket bank (``make_bank`` with
-``'single'``, or ``'auto'`` when the partition fits one tier) without a
-mesh.  The tier ladder, the host-stacked round and the client-axis
-sharding are later slices (ROADMAP queue A) and raise or are absent here.
+``round_step(hierarchical=True)`` reduces eq. (4) cluster by cluster
+over a bank built with ``clusters=`` (``server.aggregate_hierarchical``,
+plain PyTorch).  The host-stacked round and client-axis sharding
+(``mesh=``, ROADMAP A8) are not ported.
 """
 
 from __future__ import annotations
@@ -46,11 +66,60 @@ from repro_torch.core import system_model as sm
 from repro_torch.data.pipeline import assign_tiers, validate_client_data
 from repro_torch.fl import client as fl_client
 from repro_torch.fl import server as fl_server
-from repro_torch.fl.client_bank import SCALE_PLANE, ClientBank
+from repro_torch.fl.client_bank import (ClientBank, TieredClientBank,
+                                        _check_mesh)
+from repro_torch.kernels import ref
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.obs import trace as obs_trace
 
 Params = Dict[str, torch.Tensor]
+
+
+def _one_bucket(bank):
+    """A one-tier ladder IS its bucket: the tier's bank; else ``bank``."""
+    if isinstance(bank, TieredClientBank) and bank.num_tiers == 1:
+        return bank.tiers[0]
+    return bank
+
+
+def bank_layout_key(bank, tier_subset=None) -> tuple:
+    """The layout of ``bank``'s SGD calls, as the JAX package keys its
+    executables: per tier (of ``tier_subset``, default all) ``(tier,
+    steps_per_epoch, masked, int8)`` for a multi-tier ladder, else
+    ``(steps_per_epoch, masked, int8)``; ``masked`` is ``not
+    uniform``, exactly when ``device_args`` returns the step masks."""
+    bank = _one_bucket(bank)
+    if isinstance(bank, TieredClientBank):
+        tiers = (range(bank.num_tiers) if tier_subset is None
+                 else tier_subset)
+        return tuple((int(t), bank.tiers[t].steps_per_epoch,
+                      not bank.tiers[t].uniform,
+                      bank.tiers[t].storage == "int8") for t in tiers)
+    return (bank.steps_per_epoch, not bank.uniform, bank.storage == "int8")
+
+
+def _gather(bank, idx: torch.Tensor):
+    """THE gather: rows ``idx`` (``[K]`` int64 on the device) of a
+    one-bucket bank's stacks -> ``(xs, ys, num_steps, num_examples)``.
+    An int8 bank's rows are dequantized right after the gather, at ``[K,
+    B, ...]``: ``q * scale + zero`` rounded once per element
+    (``ref.fma_f32``), the fused multiply-add XLA gives the JAX
+    package's gather (``data.pipeline.dequantize_stack``, a product then
+    a sum, may differ from it in the last bit)."""
+    all_x, all_y, all_steps, all_sizes = bank.device_args()
+    scale, zero = bank.quant_args()
+    xs = torch.index_select(all_x, 0, idx)
+    if scale is not None:
+        shape = (-1,) + (1,) * (xs.dim() - 1)
+        xs = ref.fma_f32(xs.to(torch.float32),
+                         torch.index_select(scale, 0, idx).reshape(shape),
+                         torch.index_select(zero, 0, idx).reshape(shape))
+    ys = torch.index_select(all_y, 0, idx)
+    ns = None if all_steps is None else torch.index_select(all_steps, 0,
+                                                           idx)
+    ne = None if all_sizes is None else torch.index_select(all_sizes, 0,
+                                                           idx)
+    return xs, ys, ns, ne
 
 
 class RoundEngine:
@@ -58,11 +127,12 @@ class RoundEngine:
 
     ``impl`` selects the eq.-(4) path (see ``repro_torch.kernels.ops``):
     'auto' launches the CUDA kernel on a CUDA device and runs the plain
-    per-leaf reduce on the CPU.
+    per-leaf reduce on the CPU.  ``mesh=`` raises (ROADMAP A8).
     """
 
     def __init__(self, task, client_cfg: fl_client.ClientConfig,
-                 impl: str = "auto", device="cuda"):
+                 impl: str = "auto", device="cuda", mesh=None):
+        _check_mesh(mesh)
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.task = task
@@ -70,66 +140,113 @@ class RoundEngine:
         self.impl = impl
         self.device = torch.device(device)
 
-    def make_bank(self, client_data, tiered: str = "auto") -> ClientBank:
+    def make_bank(self, client_data, tiered: str = "auto",
+                  max_tiers: int = 4, storage: str = "fp32",
+                  clusters: Optional[int] = None):
         """Build the device-resident bank this engine's rounds gather from.
 
-        ``tiered``: 'single' forces the one-global-bucket
-        :class:`ClientBank`; 'auto' builds it when the partition fits one
-        size tier.  A multi-tier ladder ('tiered', or 'auto' on a
-        partition spanning several tiers) raises ``NotImplementedError``.
+        ``tiered``: 'auto' builds the :class:`TieredClientBank` ladder when
+        the partition spans more than one size tier (``assign_tiers`` with
+        ``max_tiers``) and the single-bucket :class:`ClientBank` when it
+        fits one; 'single' forces the one global bucket; 'tiered' forces
+        the ladder, even of one rung.  ``storage``: 'fp32' or 'int8'
+        (per-client affine codes, dequantized in the gather).
+        ``clusters``: fit k-means routing for ``round_step(...,
+        hierarchical=True)`` — single-bucket banks only.
         """
         if tiered not in ("auto", "single", "tiered"):
             raise ValueError(f"unknown bank mode {tiered!r}")
-        if tiered == "tiered":
-            raise NotImplementedError(f"TieredClientBank {SCALE_PLANE}")
+        validate_client_data(client_data)
+        assignment = None
         if tiered == "auto":
-            validate_client_data(client_data)
             sizes = [int(np.asarray(x).shape[0]) for x, _ in client_data]
-            _, buckets = assign_tiers(sizes, self.cfg.batch_size)
-            if len(buckets) > 1:
-                raise NotImplementedError(
-                    f"this partition spans {len(buckets)} bucket tiers; "
-                    f"the multi-tier TieredClientBank {SCALE_PLANE} — "
-                    f"pass bank_mode='single' for one global bucket")
-        return ClientBank(client_data, self.cfg, device=self.device,
-                          x_layout=self.task.device_layout)
+            # the ladder is built from this very assignment
+            assignment = assign_tiers(sizes, self.cfg.batch_size, max_tiers)
+            tiered = "single" if len(assignment[1]) == 1 else "tiered"
+        kw = dict(device=self.device, x_layout=self.task.device_layout,
+                  storage=storage)
+        if tiered == "single":
+            return ClientBank(client_data, self.cfg, clusters=clusters, **kw)
+        if clusters is not None:
+            raise ValueError("clusters= needs a single-bucket bank "
+                             "(tiered='single'), got a tier ladder")
+        return TieredClientBank(client_data, self.cfg, max_tiers=max_tiers,
+                                assignment=assignment, **kw)
 
-    # -- shared round core -------------------------------------------------
+    # -- the training core ---------------------------------------------------
 
-    def _round_core(self, params: Params, xs, ys, coeffs, lr, num_steps,
-                    num_examples, steps: int, sort_keys
-                    ) -> Tuple[Params, torch.Tensor]:
-        """Train the stacked clients, then aggregate (eq. 4)."""
-        deltas, losses = fl_client.batched_local_sgd(
-            self.task.loss_fn, params, xs, ys, lr, self.cfg, steps,
-            num_steps=num_steps, num_examples=num_examples,
-            sort_keys=sort_keys)
-        return fl_server.aggregate_fused(params, deltas, coeffs,
-                                         impl=self.impl), losses
+    def _sgd(self, params: Params, bank, idx: torch.Tensor, lr,
+             sort_keys: torch.Tensor, per_client: bool
+             ) -> Tuple[Params, torch.Tensor]:
+        """One ``batched_local_sgd`` over rows ``idx`` of a one-bucket
+        bank, on the first ``B`` columns of the ``[K, E, >= B]`` keys."""
+        xs, ys, ns, ne = _gather(bank, idx)
+        rows = bank.bucket_examples
+        if sort_keys.shape[-1] != rows:
+            sort_keys = sort_keys[..., :rows]
+        return fl_client.batched_local_sgd(
+            self.task.loss_fn, params, xs, ys, lr, self.cfg,
+            bank.steps_per_epoch, num_steps=ns, num_examples=ne,
+            sort_keys=sort_keys, per_client=per_client)
 
-    def _gathered_round(self, params: Params, all_x, all_y, all_steps,
-                        all_sizes, selected, coeffs, lr, steps: int,
-                        sort_keys) -> Tuple[Params, torch.Tensor]:
-        """THE gather core: take K clients' rows from the ``[N, ...]``
-        bank stacks on the device and run the round on them."""
-        xs = torch.index_select(all_x, 0, selected)
-        ys = torch.index_select(all_y, 0, selected)
-        ns = None if all_steps is None else torch.index_select(
-            all_steps, 0, selected)
-        ne = None if all_sizes is None else torch.index_select(
-            all_sizes, 0, selected)
-        return self._round_core(params, xs, ys, coeffs, lr, ns, ne, steps,
-                                sort_keys)
+    def _train(self, params: Params, bank, selected: torch.Tensor, lr,
+               sort_keys: torch.Tensor, per_client: bool = False,
+               tier_sel: Optional[np.ndarray] = None
+               ) -> Tuple[Params, torch.Tensor]:
+        """Local SGD of the slots ``selected`` (``[K]`` int64 on the
+        device) -> deltas ``[K, ...]`` and losses ``[K]`` in slot order.
 
-    def round_step(self, global_params: Params, bank: ClientBank,
+        A one-bucket bank trains every slot in one call.  A multi-tier
+        ladder routes the slots by tier: each tier that gets a member
+        trains its member slots in one call (rows from its stacks at
+        ``pos_in_tier``), and the results are scattered back to slot
+        order.  ``tier_sel`` (host ``[K]``) names the slots' tiers; when
+        None they are read back from the device, the one synchronisation
+        of a tiered round.  ``per_client``: ``params`` are ``[K, ...]``
+        starts, one per slot (the arena's lanes)."""
+        bank = _one_bucket(bank)
+        if not isinstance(bank, TieredClientBank):
+            return self._sgd(params, bank, selected, lr, sort_keys,
+                             per_client)
+        if tier_sel is None:
+            tier_sel = bank.tier_of_device.index_select(
+                0, selected).cpu().numpy()
+        pos = bank.pos_device.index_select(0, selected)
+        k = selected.shape[0]
+        deltas, losses = {}, None
+        for t in np.unique(tier_sel):
+            m = torch.as_tensor(np.flatnonzero(tier_sel == t),
+                                device=selected.device)
+            starts = ({name: v.index_select(0, m)
+                       for name, v in params.items()} if per_client
+                      else params)
+            d, l = self._sgd(starts, bank.tiers[int(t)],
+                             pos.index_select(0, m), lr,
+                             sort_keys.index_select(0, m), per_client)
+            if losses is None:
+                losses = l.new_empty(k)
+                deltas = {name: v.new_empty((k,) + tuple(v.shape[1:]))
+                          for name, v in d.items()}
+            losses.index_copy_(0, m, l)
+            for name, v in d.items():
+                deltas[name].index_copy_(0, m, v)
+        return deltas, losses
+
+    def round_step(self, global_params: Params, bank,
                    selected: np.ndarray, coeffs: np.ndarray, lr: float,
-                   sort_keys: torch.Tensor) -> Tuple[Params, torch.Tensor]:
+                   sort_keys: torch.Tensor, hierarchical: bool = False
+                   ) -> Tuple[Params, torch.Tensor]:
         """One round gathered from the device-resident bank.
 
-        ``selected``: [K] client indices; ``coeffs``: [K] per-draw eq.-(4)
-        weights; ``sort_keys``: [K, E, B] uniform epoch-order keys.
+        ``selected``: [K] client indices (slots of a ``BankPool``);
+        ``coeffs``: [K] per-draw eq.-(4) weights; ``sort_keys``: [K, E, B]
+        uniform epoch-order keys (``B`` the widest rung of a ladder).
         Returns (new global params, per-client losses [K]); the launches
-        are queued on the current stream and not waited for.
+        are queued on the current stream and not waited for.  A ladder
+        routes the slots on the host (``tier_of``); an empty selection
+        returns a copy of the params.  ``hierarchical=True`` reduces
+        eq. (4) over the bank's k-means clusters (a bank built with
+        ``clusters=``; single-bucket banks and pools only).
         """
         selected = np.asarray(selected)
         if selected.size and not (0 <= int(selected.min()) and
@@ -137,69 +254,71 @@ class RoundEngine:
             raise IndexError(
                 f"selected indices {selected} out of range for bank of "
                 f"{bank.num_clients} clients")
-        all_x, all_y, all_steps, all_sizes = bank.device_args()
+        if hierarchical:
+            if isinstance(bank, TieredClientBank):
+                raise ValueError("hierarchical aggregation is single-bucket "
+                                 "only, got a tier ladder")
+            if getattr(bank, "cluster_of_device", None) is None:
+                raise ValueError("hierarchical=True needs a bank built with "
+                                 "clusters=... (no cluster routing on this "
+                                 "bank)")
+        bank = _one_bucket(bank)
         dev = self.device
         with obs_trace.span("engine.round", k=int(selected.size)):
-            return self._gathered_round(
-                global_params, all_x, all_y, all_steps, all_sizes,
-                torch.as_tensor(selected.astype(np.int64), device=dev),
-                torch.as_tensor(np.asarray(coeffs, np.float32), device=dev),
-                lr, bank.steps_per_epoch,
-                torch.as_tensor(sort_keys, dtype=torch.float32, device=dev))
+            if selected.size == 0:
+                return ({name: v.clone() for name, v in
+                         global_params.items()},
+                        torch.zeros(0, dtype=torch.float32, device=dev))
+            sel = torch.as_tensor(selected.astype(np.int64), device=dev)
+            deltas, losses = self._train(
+                global_params, bank, sel, lr,
+                torch.as_tensor(sort_keys, dtype=torch.float32, device=dev),
+                tier_sel=(bank.tier_of[selected]
+                          if isinstance(bank, TieredClientBank) else None))
+            coeffs = torch.as_tensor(np.asarray(coeffs, np.float32),
+                                     device=dev)
+            if hierarchical:
+                return fl_server.aggregate_hierarchical(
+                    global_params, deltas, coeffs,
+                    bank.cluster_of_device.index_select(0, sel),
+                    bank.num_clusters), losses
+            return fl_server.aggregate_fused(global_params, deltas, coeffs,
+                                             impl=self.impl), losses
 
     # -- multi-round rollout -----------------------------------------------
 
-    def _scan_plan(self, bank: ClientBank):
-        """(round_fn, data) — the data-plane half of a rollout over
-        ``bank``: ``round_fn(params, data, selected, coeffs, lr,
-        sort_keys)`` is the single-bucket gathered round and ``data`` the
-        bank's device tensors.  A tiered bank raises, as ``make_bank``
-        does."""
-        if not isinstance(bank, ClientBank):
-            raise NotImplementedError(
-                f"run_scan over a {type(bank).__name__}: the multi-tier "
-                f"TieredClientBank {SCALE_PLANE}")
-        steps = bank.steps_per_epoch
+    def _scan_plan(self, bank):
+        """The data-plane half of a rollout over ``bank``:
+        ``round_fn(params, selected, coeffs, lr, sort_keys)`` trains the
+        ``[K]`` slots (:meth:`_train`) and applies eq. (4) in one
+        ``fl_aggregate`` launch on a CUDA device."""
 
-        def round_fn(params, data, selected, coeffs, lr, sort_keys):
-            return self._gathered_round(params, *data, selected, coeffs,
-                                        lr, steps, sort_keys)
+        def round_fn(params, selected, coeffs, lr, sort_keys):
+            deltas, losses = self._train(params, bank, selected, lr,
+                                         sort_keys)
+            return fl_server.aggregate_fused(params, deltas, coeffs,
+                                             impl=self.impl), losses
 
-        return round_fn, bank.device_args()
+        return round_fn
 
-    def _lanes_plan(self, bank: ClientBank):
-        """(round_fn, data) of a lane-batched rollout over ``bank``:
-        ``round_fn(params, data, selected, coeffs, lr, sort_keys)`` takes
-        ``[S, ...]`` params, ``[S, K]`` selections and coefficients and
-        ``[S, K, E, B]`` epoch keys, gathers the S·K selected rows of the
-        shared bank in one ``index_select``, runs ONE E-epoch SGD over
-        the S·K clients (each from its lane's model, repeated over the
-        lane's slots on the device) and the eq.-(4) step of every lane
-        (``server.aggregate_fused_lanes``: one lane-batched
+    def _lanes_plan(self, bank):
+        """The data plane of a lane-batched rollout over ``bank``:
+        ``round_fn(params, selected, coeffs, lr, sort_keys)`` takes ``[S,
+        ...]`` params, ``[S, K]`` selections and coefficients and ``[S, K,
+        E, B]`` epoch keys, trains the S·K slots, each from its lane's
+        model (:meth:`_train` with ``per_client=True``: one SGD call, or
+        one per hit tier of a ladder), and applies every lane's eq.-(4)
+        step (``server.aggregate_fused_lanes``: one lane-batched
         ``fl_aggregate`` launch on a CUDA device).  Returns the ``[S,
         ...]`` params and the ``[S, K]`` losses."""
-        if not isinstance(bank, ClientBank):
-            raise NotImplementedError(
-                f"an arena over a {type(bank).__name__}: the multi-tier "
-                f"TieredClientBank {SCALE_PLANE}")
-        steps = bank.steps_per_epoch
 
-        def round_fn(params, data, selected, coeffs, lr, sort_keys):
-            all_x, all_y, all_steps, all_sizes = data
+        def round_fn(params, selected, coeffs, lr, sort_keys):
             lanes, k = selected.shape
-            flat = selected.reshape(-1)
-            ns = None if all_steps is None else torch.index_select(
-                all_steps, 0, flat)
-            ne = None if all_sizes is None else torch.index_select(
-                all_sizes, 0, flat)
             starts = {name: v.repeat_interleave(k, dim=0)
                       for name, v in params.items()}
-            deltas, losses = fl_client.batched_local_sgd(
-                self.task.loss_fn, starts, torch.index_select(all_x, 0, flat),
-                torch.index_select(all_y, 0, flat), lr, self.cfg, steps,
-                num_steps=ns, num_examples=ne,
-                sort_keys=sort_keys.reshape((lanes * k,)
-                                            + tuple(sort_keys.shape[2:])),
+            deltas, losses = self._train(
+                starts, bank, selected.reshape(-1), lr,
+                sort_keys.reshape((lanes * k,) + tuple(sort_keys.shape[2:])),
                 per_client=True)
             deltas = {name: d.reshape((lanes, k) + tuple(d.shape[1:]))
                       for name, d in deltas.items()}
@@ -207,7 +326,7 @@ class RoundEngine:
                                                     impl=self.impl),
                     losses.reshape(lanes, k))
 
-        return round_fn, bank.device_args()
+        return round_fn
 
     def _build_scan(self, k: int, decide_fn, round_fn, select_fn):
         """The rollout body: a function running T rounds on the device.
@@ -215,7 +334,8 @@ class RoundEngine:
         ``decide_fn(sp, h, queues, V, lam, kvec)`` is the control plane,
         ``select_fn(sp, t, h, queues, q, key, slots, kvec)`` fills the
         slots (prefix-stable in the slot index), ``round_fn`` is the data
-        plane from :meth:`_scan_plan`.
+        plane from :meth:`_scan_plan`; ``rows``, the body's argument, is
+        the width of the epoch keys (the bank's widest bucket).
 
         Padded-K contract (the JAX package's): ``k`` is the slot count
         K_max; ``k_act`` and ``kvec`` (``[N]`` float32) carry the true K.
@@ -242,15 +362,14 @@ class RoundEngine:
         """
         epochs = self.cfg.local_epochs
 
-        def scan_fn(params, queues, sp, data, h_seq, drop_seq, lr_seq, key,
+        def scan_fn(params, queues, sp, rows, h_seq, drop_seq, lr_seq, key,
                     V, lam, kvec, k_act, replay):
             lane = _Lane(sp, k, k_act, kvec, V, lam, key, h_seq, drop_seq,
-                         replay, decide_fn, select_fn, epochs,
-                         data[0].shape[1])
+                         replay, decide_fn, select_fn, epochs, rows)
             outs = []
             for t in range(h_seq.shape[0]):
                 dec, selected, sort_keys, coeffs = _control(lane, t, queues)
-                params, losses = round_fn(params, data, selected, coeffs,
+                params, losses = round_fn(params, selected, coeffs,
                                           lr_seq[t], sort_keys)
                 queues, out = _outputs(lane, t, dec, queues, selected,
                                        losses)
@@ -280,14 +399,14 @@ class RoundEngine:
         emits ``test_<metric>`` ``[S]`` columns holding the latest
         evaluation (a step curve).
 
-        The body takes ``(params, lanes, data, lr_seq)``: ``params`` the
+        The body takes ``(params, lanes, lr_seq)``: ``params`` the
         shared initial model (copied to ``[S, ...]``), ``lanes`` a list of
         :class:`_Lane`.  It returns ``([S, ...] params, [S, N] queues,
         metrics)`` with every metric ``[S, T]`` numpy (``selected`` ``[S,
         T, k]``).
         """
 
-        def lanes_fn(params, lanes, data, lr_seq):
+        def lanes_fn(params, lanes, lr_seq):
             s_count = len(lanes)
             params = {name: v.unsqueeze(0).expand(
                 (s_count,) + tuple(v.shape)).clone()
@@ -306,7 +425,7 @@ class RoundEngine:
                 with obs_trace.span("engine.lanes_round", t=t,
                                     lanes=s_count, k=k):
                     params, losses = round_fn(
-                        params, data, torch.stack([c[1] for c in control]),
+                        params, torch.stack([c[1] for c in control]),
                         torch.stack([c[3] for c in control]), lr_seq[t],
                         torch.stack([c[2] for c in control]))
                 for i, ln in enumerate(lanes):
@@ -346,7 +465,7 @@ class RoundEngine:
         return pol.SELECT_FNS[pol.SELECTION_MODES[policy]]
 
     def run_scan(self, global_params: Params, sp: sm.SystemParams,
-                 bank: ClientBank, h_seq: np.ndarray, lr_seq: np.ndarray,
+                 bank, h_seq: np.ndarray, lr_seq: np.ndarray,
                  gen: torch.Generator, *, queues: Optional[torch.Tensor] = None,
                  policy: str = "lroa", V: float = 0.0, lam: float = 0.0,
                  drop_seq: Optional[np.ndarray] = None,
@@ -367,16 +486,19 @@ class RoundEngine:
         ([T, N], 1.0 = alive) threads realised dropouts.  ``k_max``
         (default ``sp.sample_count``) pads the slots beyond the true K
         with inert ones (see :meth:`_build_scan`).  ``replay_selected``
-        ([T, k_max]) and ``replay_sort_keys`` ([T, k_max, E, B]) replace
-        the draws, for the parity tests.
+        ([T, k_max]) and ``replay_sort_keys`` ([T, k_max, E, B], ``B`` the
+        bank's widest bucket: slot k in tier t reads the first ``B_t``
+        columns) replace the draws, for the parity tests.  ``bank``: a
+        ``ClientBank``, ``TieredClientBank`` or ``BankPool``.
 
         Returns (final params, final queues, per-round metrics as numpy:
         ``loss``, ``wall_time``, ``energy_mean``, ``queue_mean``,
         ``queue_norm``, ``q_min``, ``q_max`` of shape [T] and
         ``selected`` [T, k_max], -1 in inert slots, the JAX package's
         names; and ``q_sum`` [T], the port's check that every round's q
-        lies on the simplex).  Every round's
-        eq.-(4) step is one ``fl_aggregate`` launch on a CUDA device.
+        lies on the simplex).  Every round's eq.-(4) step is one
+        ``fl_aggregate`` launch on a CUDA device, however many tiers the
+        round hits.
         """
         if policy not in pol.POLICY_IDS:
             raise ValueError(f"unknown policy {policy!r} (scan-traceable: "
@@ -389,7 +511,7 @@ class RoundEngine:
         k = k_act if k_max is None else int(k_max)
         if k < k_act:
             raise ValueError(f"k_max={k} is below the true K={k_act}")
-        round_fn, data = self._scan_plan(bank)
+        round_fn = self._scan_plan(bank)
         dev, n = self.device, sp.num_devices
         if sp.device.type != dev.type:
             raise ValueError(f"SystemParams live on {sp.device}, the engine "
@@ -436,7 +558,7 @@ class RoundEngine:
 
         with obs_trace.span("engine.round", what="run_scan", policy=policy,
                             rounds=num_rounds, k=k_act):
-            return scan_fn(global_params, queues, sp, data, h_seq, drop_seq,
+            return scan_fn(global_params, queues, sp, rows, h_seq, drop_seq,
                            lr_seq, key, full(V), full(lam),
                            full(float(k_act)), k_act, replay)
 

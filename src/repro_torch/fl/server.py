@@ -22,6 +22,10 @@ leading ``[K, ...]`` axis on every leaf.
   deltas, ``[S, K]`` coeffs), one lane-batched ``fl_aggregate`` launch
   on a CUDA device, and on the CPU :func:`aggregate_fused`'s arithmetic
   per lane.
+* ``aggregate_hierarchical`` is eq. (4) as a cluster-then-global
+  reduce (the scale plane's routing, ``index_add_`` for the segment
+  sum); plain PyTorch on every device, as the JAX package's
+  ``segment_sum`` form is plain XLA.
 * ``ParamRavel`` is the JAX package's flat-vector adapter, kept for the
   flat entry points (``ops.fl_aggregate``, ``ops.fl_delta_reduce``).
 """
@@ -140,6 +144,31 @@ def aggregate_fused_lanes(params_stacked: Params, deltas_stacked: Params,
     return dict(zip(names, ops.fl_aggregate_lanes(
         [params_stacked[n] for n in names],
         [deltas_stacked[n] for n in names], coeffs, impl=impl)))
+
+
+def aggregate_hierarchical(global_params: Params, stacked_deltas: Params,
+                           coeffs: torch.Tensor, cluster_sel: torch.Tensor,
+                           num_clusters: int) -> Params:
+    """eq. (4) as cluster partials, then one global sum.
+
+    ``cluster_sel[k]`` names the cluster of the k-th selected client; per
+    leaf the weighted deltas ``c_k d_k`` (f32) are summed into
+    ``[num_clusters, ...]`` partials with ``index_add_``, the partials
+    summed over the cluster axis and added to theta in f32, then cast to
+    theta's dtype.  The same sum as :func:`aggregate_stacked`,
+    reassociated: equal to it within f32 resolution, not bitwise."""
+    device = next(iter(global_params.values())).device
+    coeffs = coeffs.to(device=device, dtype=torch.float32)
+    sel = cluster_sel.to(device=device, dtype=torch.int64)
+    out = {}
+    for name, p in global_params.items():
+        d = stacked_deltas[name].to(torch.float32)
+        c = coeffs.reshape((-1,) + (1,) * (d.dim() - 1))
+        partials = torch.zeros((num_clusters,) + tuple(d.shape[1:]),
+                               dtype=torch.float32, device=device)
+        partials.index_add_(0, sel, c * d)
+        out[name] = (p.to(torch.float32) + partials.sum(dim=0)).to(p.dtype)
+    return out
 
 
 def fedavg_reference(global_params: Params, deltas: Sequence[Params],

@@ -3,24 +3,31 @@ comparison (``LROAController`` or a ``repro_torch.core.baselines``
 controller), with wall-clock latency and energy accounting — the port of
 ``repro.fl.trainer``'s fused path.
 
-All N clients' bucketed data is uploaded to the device once, into a
-single-bucket :class:`~repro_torch.fl.client_bank.ClientBank`, when the
-trainer is built.  Per round t:
+All N clients' bucketed data is uploaded to the device once, when the
+trainer is built: into the tier ladder
+(:class:`~repro_torch.fl.client_bank.TieredClientBank`) when the partition
+spans several size tiers (``bank_mode='auto'``, the default: a skewed
+non-iid split, as the paper's testbed is), else into a single-bucket
+:class:`~repro_torch.fl.client_bank.ClientBank`; ``bank_storage='int8'``
+keeps its rows as per-client int8 codes.  Per round t:
 
   1. observe channel gains h^t (ChannelProcess)                      [host]
   2. the controller decides (f^t, p^t, q^t) — Algorithm 2 for LROA [device]
   3. sample K draws with replacement by q^t; DivFL picks its K
      clients by its greedy instead (``DivFLController.select``)     [host]
   4. + 5. ``RoundEngine.round_step``: gather the K selected clients from
-     the bank, train them as one batch (E epochs of masked mini-batch
-     SGD), and apply the unbiased eq.-(4) aggregation through one launch
-     of the hand-written CUDA ``fl_aggregate`` kernel            [device]
+     the bank, train them as one batch per tier they fall in (E epochs
+     of masked mini-batch SGD), and apply the unbiased eq.-(4)
+     aggregation through one launch of the hand-written CUDA
+     ``fl_aggregate`` kernel                                      [device]
   6. the queues update; latency += max_{n in K^t} T_n^t (eq. 10)   [device]
 
 The same ``seed`` gives the JAX trainer's channel gains and selections
 (numpy streams).  The model init and the per-client epoch keys come from
 ``torch.Generator``s; ``sort_keys_fn`` replaces the latter (the parity
-tests pass the reference's keys through it).
+tests pass the reference's keys through it).  The keys are ``[K, E, B]``
+with ``B`` the bank's widest bucket; a client in a narrower tier reads
+their first ``B_t`` columns.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from repro_torch.core.baselines import DivFLController
 from repro_torch.core.controller import realized_round_time
 from repro_torch.fl import client as fl_client
 from repro_torch.fl import server as fl_server
+from repro_torch.fl.client_bank import TieredClientBank
 from repro_torch.fl.environment import ChannelProcess
 from repro_torch.fl.round_engine import RoundEngine
 from repro_torch.obs import trace as obs_trace
@@ -78,7 +86,8 @@ class FederatedTrainer:
                  test_data: Optional[tuple] = None,
                  eval_every: int = 10, seed: int = 0,
                  bank_mode: str = "auto", impl: str = "auto", device="cuda",
-                 sort_keys_fn: Optional[Callable[[int], np.ndarray]] = None):
+                 sort_keys_fn: Optional[Callable[[int], np.ndarray]] = None,
+                 bank_storage: str = "fp32"):
         if len(client_data) != params.num_devices:
             raise ValueError(f"{len(client_data)} client datasets for "
                              f"{params.num_devices} devices")
@@ -96,7 +105,8 @@ class FederatedTrainer:
         self.engine = RoundEngine(task, client_cfg, impl=impl,
                                   device=self.device)
         # the ONE upload of client data: every round reads the bank
-        self.bank = self.engine.make_bank(client_data, tiered=bank_mode)
+        self.bank = self.engine.make_bank(client_data, tiered=bank_mode,
+                                          storage=bank_storage)
         self.test_data = None
         if test_data is not None:
             x = torch.as_tensor(np.asarray(test_data[0], np.float32),
@@ -125,17 +135,27 @@ class FederatedTrainer:
     def warmup(self) -> None:
         """Run every code path a round takes once — the kernel build, the
         cuDNN/cuBLAS set-up, the solver — without changing any trainer
-        state: a round on a copy of the params with zero lr and zero
-        coefficients, keys from a throwaway generator, one decision."""
+        state: rounds on a copy of the params with zero lr and zero
+        coefficients, keys from a throwaway generator, one decision.  On
+        a ladder, one round per tier (each tier's SGD shape) and one whose
+        slots cycle through the tiers (the routed round)."""
         k = self.params.sample_count
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
         keys = torch.rand((k, self.client_cfg.local_epochs,
                            self.bank.bucket_examples), generator=gen,
                           device=self.device)
+        sels = [np.zeros(k, np.int64)]
+        if isinstance(self.bank, TieredClientBank) and \
+                self.bank.num_tiers > 1:
+            reps = [int(m[0]) for m in self.bank.tier_members]
+            sels = [np.full(k, r, np.int64) for r in reps]
+            sels.append(np.asarray([reps[i % len(reps)] for i in range(k)],
+                                   np.int64))
         p = {name: v.clone() for name, v in self.global_params.items()}
-        self.engine.round_step(p, self.bank, np.zeros(k, np.int64),
-                               np.zeros(k, np.float32), 0.0, keys)
+        for sel in sels:
+            self.engine.round_step(p, self.bank, sel,
+                                   np.zeros(k, np.float32), 0.0, keys)
         self.controller.decide(torch.ones(self.params.num_devices,
                                           device=self.device))
         if self.test_data is not None:

@@ -5,7 +5,8 @@ The paper's evaluation is a grid of rollouts: every controller across
 seeds, V and lambda, energy budgets, channel statistics, K and dropout.
 The arena stacks the S scenarios struct-of-arrays (:class:`ScenarioGrid`)
 and runs them as ONE rollout over one engine and one shared, read-only
-ClientBank (``RoundEngine._build_lanes``):
+client bank (``RoundEngine._build_lanes``): a ``ClientBank``, the tier
+ladder ``TieredClientBank``, a ``BankPool``, fp32 or int8:
 
 * **Control plane per lane.**  Every round each lane runs its own
   controller's ``decide_by_id`` / ``select_by_id`` with its own solver
@@ -15,7 +16,9 @@ ClientBank (``RoundEngine._build_lanes``):
   the bank in one ``index_select``, one E-epoch SGD trains all S·K_max
   clients (each from its lane's model), and every lane's eq.-(4) step is
   one lane-batched ``fl_aggregate`` launch on a CUDA device
-  (``server.aggregate_fused_lanes``).
+  (``server.aggregate_fused_lanes``).  On a multi-tier ladder the S·K_max
+  slots' tier ids are read back once a round, and the gather and the SGD
+  run once per tier that gets a member; the launch stays one.
 * **K as data.**  A mixed-K grid runs padded to ``K_max`` (``k_mode=
   'pad'``, the default: one rollout; slots beyond a lane's K are inert,
   so its model trajectory is the unpadded one) or grouped by K
@@ -49,8 +52,7 @@ Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item (A7): ``batch='map'``, ``mesh=``, ``chunk_size`` /
 ``chunk_store`` (the streaming pipeline, ``sim/service.py`` and
 ``checkpoint/``), ``k_mode='auto'`` (the planner's probe and bucketed
-runs), ``warmup`` with its watchdog; tiered banks raise in the engine
-(A1).
+runs), ``warmup`` with its watchdog.
 """
 
 from __future__ import annotations
@@ -71,7 +73,8 @@ from repro_torch.fl.environment import (CHANNEL_MODE_IDS, CHANNEL_MODES,
                                         ChannelConfig,
                                         sample_channel_sequence,
                                         sample_dropout_mask)
-from repro_torch.fl.round_engine import _Lane
+from repro_torch.fl.client_bank import TieredClientBank
+from repro_torch.fl.round_engine import _Lane, bank_layout_key
 from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.sim.dispatch import DispatchPlan
@@ -547,7 +550,7 @@ class Arena:
         """One rollout of every lane of ``grid`` at ``k_max`` slots.
         Returns ``([S, ...] params, [S, N] queues, metrics)``."""
         engine = self.engine
-        round_fn, data = engine._lanes_plan(bank)
+        round_fn = engine._lanes_plan(bank)
         body = engine._build_lanes(k_max, round_fn, eval_bank,
                                    int(eval_every or 0))
         lane_in = self._lane_inputs(grid, sp)
@@ -577,8 +580,7 @@ class Arena:
                                     device=self.device), index=s))
         with obs.span("arena.dispatch", k_max=int(k_max), lanes=len(grid),
                       rounds=int(h_all.shape[1])):
-            return body(global_params, lanes, data,
-                        self._lr_device(lr_seq))
+            return body(global_params, lanes, self._lr_device(lr_seq))
 
     def run(self, global_params: Params, sp: sm.SystemParams, bank,
             grid: ScenarioGrid, num_rounds: int, lr_seq,
@@ -591,7 +593,8 @@ class Arena:
         ``global_params``: the shared initial model (never modified).
         ``sp``: base SystemParams — each lane takes K and the scaled
         energy budget from the grid.  ``bank``: the shared read-only
-        ClientBank.  ``lr_seq``: ``[T]`` learning rates shared across
+        client bank (single bucket, ladder or pool; fp32 or int8).
+        ``lr_seq``: ``[T]`` learning rates shared across
         scenarios.  ``h_all``: optional ``[S, T, N]`` channels (default
         :meth:`sample_channels`).  ``drop_all``: optional ``[S, T, N]``
         alive masks (default :meth:`sample_dropout` when any lane has
@@ -672,10 +675,14 @@ class Arena:
             if got is not None and tuple(got.shape) != want:
                 raise ValueError(f"{what} must be {list(want)}, got "
                                  f"{list(got.shape)}")
+        tiers = (list(range(bank.num_tiers))
+                 if getattr(bank, "num_tiers", 1) > 1 else None)
         meta = dict(k_mode=self.k_mode, k_groups=[int(k) for k in ks],
                     k_max=k_max, batch=self.batch,
-                    bank_storage=getattr(bank, "storage", "fp32"),
-                    bank_nbytes=int(bank.nbytes))
+                    bank_storage=bank.storage, bank_nbytes=int(bank.nbytes),
+                    bank_bytes_per_client=bank.bytes_per_client,
+                    bank_layout=bank_layout_key(bank),
+                    tier_work=self._tier_work(bank))
         common = dict(eval_bank=eval_bank, eval_every=eval_every)
         if self.k_mode == "pad" or ks.size == 1:
             with obs.span("arena.plan", k_mode="pad", lanes=s, k_max=k_max):
@@ -684,7 +691,7 @@ class Arena:
                 global_params, sp, bank, grid, h_all, lr_seq, k_max,
                 drop_all=drop_all, replay=(rep_sel, rep_keys), **common)
             queues = queues.cpu().numpy()
-            buckets = [dict(lanes=list(range(s)), k_pad=k_max, tiers=None,
+            buckets = [dict(lanes=list(range(s)), k_pad=k_max, tiers=tiers,
                             dispatches=1)]
         else:
             with obs.span("arena.plan", k_mode="group", lanes=s,
@@ -704,7 +711,8 @@ class Arena:
                             None if rep_keys is None
                             else rep_keys[idx_t][:, :, :k]), **common)
                 buckets.append(dict(lanes=[int(i) for i in idx],
-                                    k_pad=int(k), tiers=None, dispatches=1))
+                                    k_pad=int(k), tiers=tiers,
+                                    dispatches=1))
                 queues[idx] = q_g.cpu().numpy()
                 if params is None:
                     params = {name: torch.empty((s,) + tuple(v.shape[1:]),
@@ -728,6 +736,15 @@ class Arena:
                              meta=meta,
                              final_metrics=self._final_eval(eval_bank,
                                                             params))
+
+    def _tier_work(self, bank) -> Dict[int, float]:
+        """``{tier: rows trained per slot per round}`` (local epochs x
+        steps per epoch x batch), per rung of a ladder; a one-bucket
+        bank is tier 0 — the JAX package's cost-model weights."""
+        banks = bank.tiers if isinstance(bank, TieredClientBank) else [bank]
+        epochs = float(self.engine.cfg.local_epochs)
+        return {t: epochs * b.steps_per_epoch * b.batch_size
+                for t, b in enumerate(banks)}
 
     def _final_eval(self, eval_bank, params_stacked: Params
                     ) -> Dict[str, np.ndarray]:

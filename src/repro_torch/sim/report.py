@@ -17,8 +17,11 @@ lane-batched rollouts the run executed: 1 for ``k_mode='pad'``, one per
 distinct K for ``'group'``), ``plan`` (the
 ``repro_torch.sim.dispatch.DispatchPlan`` it executed, JSON-shaped) and
 ``buckets`` (one entry per lane-batched rollout: its ``lanes``,
-``k_pad`` and ``dispatches``); and the bank's ``bank_storage`` /
-``bank_nbytes``.  The compile-cache keys (``executables_built``,
+``k_pad``, ``tiers`` — the ladder's rungs, None for one bucket — and
+``dispatches``); and the bank's ``bank_storage``, ``bank_nbytes``,
+``bank_bytes_per_client``, ``bank_layout`` (``round_engine.
+bank_layout_key``) and ``tier_work`` (rows trained per slot per round,
+per tier).  The compile-cache keys (``executables_built``,
 ``executables_cached``, ``traces``) have no meaning without a compiler
 and are absent.  :meth:`RolloutReport.dispatch_accounting` cross-checks
 that the per-bucket counters add up to the run's.  The reducers turn all

@@ -380,6 +380,34 @@ def test_run_scan_on_the_card_matches_the_cpu(cuda):
     smoke.phase_reference_scan()
 
 
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["fp32", "int8"])
+def test_tiered_trainer_on_the_card_matches_the_cpu(cuda, storage):
+    """Three LROA rounds on a 3-rung ladder (fp32, and int8 codes
+    dequantized in the gather) on the card against the CPU: selections
+    equal, the rest within 1e-4, exactly one ``fl_aggregate`` launch per
+    round however many tiers it hits (``chip_smoke.py``'s
+    ``reference.tiered``)."""
+    smoke = _chip_smoke()
+    smoke.phase_reference(cfg=smoke.TIERED, bank_mode="auto",
+                          storage=storage, label="reference.tiered")
+
+
+@pytest.mark.cuda
+def test_pool_and_hierarchical_round_on_the_card_match_the_cpu(cuda):
+    """A ``BankPool`` after churn (storage unmoved) and a hierarchical
+    round on the card against the CPU (``reference.pool``)."""
+    _chip_smoke().phase_reference_pool()
+
+
 # (B, H, Hkv, Sq, Sk, D): tests/test_kernels.py, then a D = 128 and a
 # D = 256 point with several query and kv tiles and ragged ends (Sq <= Sk,
 # so every query row sees at least one key under every mask below)

@@ -204,12 +204,13 @@ def test_run_scan_rejects_what_it_cannot_run(bed):
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(ValueError, match="scan-traceable"):
         eng.run_scan(*args, gen, policy="bogus")
-    tiered = bed["jeng"].make_bank(bed["clients"], tiered="tiered")
-    with pytest.raises(NotImplementedError, match="TieredClientBank"):
+    tiered = eng.make_bank(bed["clients"], tiered="tiered")
+    with pytest.raises(ValueError, match="replay_sort_keys"):
         eng.run_scan(bed["tp0"], bed["tp"], tiered, bed["h"], bed["lr"],
-                     gen)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        eng.make_bank(bed["clients"], tiered="tiered")
+                     gen, replay_sort_keys=np.zeros(
+                         (T, K, E, tiered.tier_buckets[0])))
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        tfl.RoundEngine(eng.task, eng.cfg, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="k_max"):
         eng.run_scan(*args, gen, k_max=K - 1)
     with pytest.raises(ValueError, match="replay_selected"):

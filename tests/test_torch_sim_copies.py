@@ -1,8 +1,9 @@
-"""The port's copies of the JAX package's numpy-only scenario modules give
-the originals' results: ``sim.dispatch`` (plans, permutations, the
-planner over a set of inputs, footprints), ``sim.cost_model``,
-``obs.metrics``, and ``RolloutReport``'s reducers on the same metric
-arrays (params as torch tensors in the port)."""
+"""The port's copies of the JAX package's numpy-only modules give the
+originals' results: ``sim.dispatch`` (plans, permutations, the planner
+over a set of inputs, footprints), ``sim.cost_model``, ``obs.metrics``,
+``RolloutReport``'s reducers on the same metric arrays (params as torch
+tensors in the port), and the scale plane's part of ``data.pipeline``
+(the int8 codes, the k-means cluster routing), bitwise."""
 
 import math
 
@@ -11,8 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro.data.pipeline as jpipe  # noqa: E402
 import repro.obs.metrics as jmetrics  # noqa: E402
 import repro.sim as jsim  # noqa: E402
+import repro_torch.data as td  # noqa: E402
 import repro_torch.obs.metrics as tmetrics  # noqa: E402
 import repro_torch.sim as tsim  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
@@ -202,3 +205,43 @@ def test_report_take_and_chunk_concat_match_reference(reports):
             v, jsim.concat_chunk_metrics(chunks)[n])
     with pytest.raises(ValueError):
         tsim.concat_chunk_metrics([])
+
+
+def test_quantize_copies_match_reference_and_half_step_bound():
+    rng = np.random.default_rng(0)
+    stack = rng.normal(size=(6, 16, 4)).astype(np.float32) * \
+        rng.uniform(0.1, 10.0, size=(6, 1, 1)).astype(np.float32)
+    stack[2] = 2.5                                  # a constant row
+    got, want = td.quantize_stack(stack), jpipe.quantize_stack(stack)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    q, scale, zero = got
+    assert q.dtype == np.int8 and scale.shape == zero.shape == (6,)
+    deq = td.dequantize_stack(q, scale, zero)
+    np.testing.assert_array_equal(deq, jpipe.dequantize_stack(q, scale,
+                                                              zero))
+    assert (np.abs(deq - stack) <= 0.5 * scale[:, None, None] + 1e-7).all()
+    np.testing.assert_array_equal(deq[2], stack[2])
+
+
+def test_cluster_copies_match_reference():
+    from repro.data import synthetic_image_classification
+    sizes = [48, 20, 33, 48, 9, 40, 48, 12, 30, 48]
+    x, y = synthetic_image_classification(sum(sizes), (4, 4, 1), 2,
+                                          noise=0.3, seed=0)
+    offs = np.cumsum([0] + sizes)
+    cd = [(x[offs[i]:offs[i + 1]], y[offs[i]:offs[i + 1]])
+          for i in range(len(sizes))]
+    feats = td.client_cluster_features(cd)
+    np.testing.assert_array_equal(feats,
+                                  jpipe.client_cluster_features(cd))
+    for k in (1, 3, 20):
+        (la, ca), (lb, cb) = (td.kmeans_clusters(feats, k),
+                              jpipe.kmeans_clusters(feats, k))
+        np.testing.assert_array_equal(la, lb)
+        np.testing.assert_array_equal(ca, cb)
+        np.testing.assert_array_equal(td.assign_clusters(feats, ca),
+                                      jpipe.assign_clusters(feats, cb))
+    labels, cents = td.kmeans_clusters(feats, 3)
+    np.testing.assert_array_equal(td.kmeans_clusters(feats, 3)[0], labels)
+    assert set(np.unique(labels)) <= set(range(3))

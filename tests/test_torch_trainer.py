@@ -203,19 +203,23 @@ def test_bank_layout_matches_reference_bank():
 
 
 def test_unported_bank_modes_raise():
+    """Only client-axis sharding (A8) is left unported in the bank
+    layer: the ladder, int8 storage and cluster routing build."""
     clients, _ = _testbed(seed=0, num_devices=12, examples=900)
     cfg = tfl.ClientConfig(local_epochs=E, batch_size=BS)
     engine = tfl.RoundEngine(tm.MLPTask(input_dim=64, num_classes=4), cfg,
                              device="cpu")
     assert len(td.assign_tiers([len(x) for x, _ in clients], BS)[1]) > 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        engine.make_bank(clients, tiered="tiered")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        engine.make_bank(clients, tiered="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tfl.ClientBank(clients, cfg, device="cpu", storage="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tfl.ClientBank(clients, cfg, device="cpu", clusters=2)
+    for mode in ("tiered", "auto"):
+        assert isinstance(engine.make_bank(clients, tiered=mode),
+                          tfl.TieredClientBank)
+    assert tfl.ClientBank(clients, cfg, device="cpu",
+                          storage="int8").xs.dtype == torch.int8
+    assert tfl.ClientBank(clients, cfg, device="cpu",
+                          clusters=2).num_clusters == 2
+    for build in (tfl.ClientBank, tfl.TieredClientBank):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            build(clients, cfg, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="bank mode"):
         engine.make_bank(clients, tiered="ladder")
     uniform = [(np.ones((16, 8, 8, 1), np.float32), np.zeros(16, np.int32))
