@@ -72,7 +72,14 @@ error is caught):
    tiers it hits (queues card against CPU within 1e-4 there, the
    control plane's spread at N = 12); reference.pool — a ``BankPool``
    after churn (every tensor's storage unmoved) and a hierarchical
-   round, card against CPU;
+   round, card against CPU; reference.sweep — the sweep layer on the
+   tiered testbed: a ``SweepService`` over ``Arena(k_mode='auto',
+   chunk_size=2)`` with in-rollout evaluation, two submissions (the
+   seven controllers at K = 4; LROA and Uni-D at K = 2 and 6 with
+   dropout) coalesced, T = 6, killed after its first checkpoint and
+   resumed bitwise on each device, another lr schedule finding no
+   checkpoint, card against CPU within 1e-6 (queues 1e-4), one lane
+   launch per bucket round;
 5. main path — the paper-scale CNN testbed (N = 120 Dirichlet-0.5
    clients, K = 8, E = 2, batch 16) on the trainer's default bank, the
    4-rung tier ladder: ``warmup()``, then 3 LROA rounds through
@@ -94,7 +101,15 @@ error is caught):
    relative, and one round held tighter (:func:`phase_arena_round`);
    one lane launch per round; lane-rounds/s, each lane's ``decide`` share, the final
    ``EvalBank`` accuracies over the 7,500-example test set, peak memory;
-   arena.tiered — the arena's one-round checks on the ladder; scale —
+   arena.map — LROA, Uni-D and DivFL under ``Arena(batch='map')``, each
+   lane bitwise its scan rollout, one one-lane ``fl_aggregate`` launch
+   per lane round; arena.tiered — the arena's one-round checks on the
+   ladder; sweep — the sweep layer at paper scale on the ladder: nine
+   lanes in two coalesced submissions through the ``SweepService``
+   (``k_mode='auto'``, chunks of 2, T = 6), killed and resumed bitwise,
+   the same selections and modelled latency as ``k_mode='pad'``, the
+   plan, store saves and loads (seconds, bytes), lane-rounds/s
+   and ``CostModel.calibrate``; scale —
    one LROA round from the same params, selection and keys on the fp32
    ladder, an int8 ladder (loss within 5%), the single bucket, a
    120-slot ``BankPool`` after 8 evictions and re-admissions (within
@@ -131,6 +146,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -187,6 +203,9 @@ ROUND_SEPARATION = 10
 ARENA_PARAM_TOL = 5e-2
 ARENA_LOSS_TOL = 5e-3
 ARENA_SEPARATION = 2
+# the sweep phases: rounds of each sweep, rounds per chunk
+SWEEP_ROUNDS = 6
+SWEEP_CHUNK = 2
 # the lane kernel's points: (lanes, K) at the CNN's six leaves (f32), the
 # scenario arena's round at paper scale (7 controllers, K = 8) and a grid
 # of 11 lanes, 66 segments: more than one table
@@ -909,7 +928,7 @@ def phase_scan(trainer, cfg: dict = PAPER_SCALE,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     trainer._sync()
-    rows, results = [], {}
+    rows, results, final_queues = [], {}, {}
     _reset_launch_counts()
     t_all = time.perf_counter()
     for policy in POLICIES:
@@ -947,7 +966,7 @@ def phase_scan(trainer, cfg: dict = PAPER_SCALE,
                 f"{policy}: the params changed and are finite")
         rows.append(row)
         results[policy] = (params, met)
-        del queues
+        final_queues[policy] = queues
     t_all = time.perf_counter() - t_all
     launches = dict(fk.LAUNCHES)
     lroa = rows[0]["latency_total_s"]
@@ -964,8 +983,10 @@ def phase_scan(trainer, cfg: dict = PAPER_SCALE,
     log("scan", **summary)
     require(launches["fl_aggregate"] == want * len(rows),
             f"{want * len(rows)} fl_aggregate launches in the scan phase")
-    # what phase_arena reproduces lane by lane (not logged)
-    summary.update(h_seq=h_seq, lr_seq=lr_seq, init=init, results=results)
+    # what phase_arena and phase_arena_map reproduce lane by lane (not
+    # logged)
+    summary.update(h_seq=h_seq, lr_seq=lr_seq, init=init, results=results,
+                   queues=final_queues)
     return summary
 
 
@@ -1489,6 +1510,457 @@ def phase_arena_round(trainer, scan: dict, cfg: dict = PAPER_SCALE,
                 f"arena round lane {policy}: within 1/{ROUND_SEPARATION} "
                 f"of the distance to the nearest other one-round scan "
                 f"({param_err}, {nearest})")
+
+
+# -- the streaming sweep layer: chunked, checkpointed arena runs behind the
+# -- SweepService, k_mode='auto', batch='map'
+
+
+class _Kill(Exception):
+    """A sweep's simulated death, raised by a wrapped ``store.save``."""
+
+
+def _instrument_store(store, rows: list, kill: bool = False) -> dict:
+    """Wrap ``store.save`` / ``store.load`` to log each save's and each
+    hit's seconds and file bytes into ``rows``; with ``kill``, the first
+    save then raises :class:`_Kill`.  Returns the tally of kills."""
+    save, load, fired = store.save, store.load, {"kills": 0}
+
+    def nbytes(tag):
+        return sum(os.path.getsize(os.path.join(
+            store.directory, f"{tag}_{part}.npz"))
+            for part in ("carry", "metrics"))
+
+    def timed_save(tag, t_next, carry, metrics):
+        t0 = time.perf_counter()
+        save(tag, t_next, carry, metrics)
+        rows.append(dict(op="save", tag=tag, t=int(t_next),
+                         seconds=time.perf_counter() - t0,
+                         bytes=nbytes(tag)))
+        if kill:
+            fired["kills"] += 1
+            raise _Kill()
+
+    def timed_load(tag):
+        t0 = time.perf_counter()
+        hit = load(tag)
+        if hit is not None:
+            rows.append(dict(op="load", tag=tag, t=int(hit[0]),
+                             seconds=time.perf_counter() - t0,
+                             bytes=nbytes(tag)))
+        return hit
+
+    store.save, store.load = timed_save, timed_load
+    return fired
+
+
+def _sweep(engine, params, sp, bank, subs, lr_seq, ckdir, rows,
+           kill: bool = False, cost_model=None, **service_kw):
+    """Submit the grids ``subs`` to a fresh ``SweepService`` over a fresh
+    ``Arena(engine, k_mode='auto', chunk_size=SWEEP_CHUNK,
+    cost_model=cost_model)`` checkpointing into ``ckdir``, and drain it.
+    Returns ``(reports, service, kills)``; with ``kill`` the store dies at
+    its first save, which must fire once (reports None)."""
+    from repro_torch.sim import Arena, SweepService
+
+    arena = Arena(engine, k_mode="auto", chunk_size=SWEEP_CHUNK,
+                  cost_model=cost_model)
+    svc = SweepService(arena, params, sp, bank, checkpoint_dir=ckdir,
+                       **service_kw)
+    fired = _instrument_store(svc.store, rows, kill)
+    tickets = [svc.submit(grid, len(lr_seq), lr_seq) for grid in subs]
+    if kill:
+        try:
+            svc.run_pending()
+        except _Kill:
+            pass
+        require(fired["kills"] == 1, f"the sweep was killed once, "
+                                     f"{fired['kills']} times")
+        return None, svc, fired["kills"]
+    done = svc.run_pending()
+    require(done == tickets, f"the service completed {done}, want "
+                             f"{tickets}")
+    require(svc.stats["coalesced_lanes"] == [sum(len(g) for g in subs)],
+            f"the submissions ran as one coalesced batch: "
+            f"{svc.stats['coalesced_lanes']}")
+    return [svc.result(t) for t in tickets], svc, 0
+
+
+def _reports_bitwise(a, b) -> bool:
+    """Params, queues, every metric column and the final evaluation of
+    two reports, bit for bit."""
+    return (all(torch.equal(a.params[n], b.params[n]) for n in a.params)
+            and np.array_equal(a.queues, b.queues)
+            and sorted(a.metrics) == sorted(b.metrics)
+            and all(np.array_equal(a.metrics[n], b.metrics[n])
+                    for n in a.metrics)
+            and sorted(a.final_metrics) == sorted(b.final_metrics)
+            and all(np.array_equal(a.final_metrics[n], b.final_metrics[n])
+                    for n in a.final_metrics))
+
+
+def _sweep_kill_resume(engine, params, sp, bank, subs, lr_seq, root: str,
+                       label: str, other_lr: bool = False,
+                       **service_kw) -> dict:
+    """The uninterrupted sweep, the killed one, with ``other_lr`` a
+    resubmission under another learning-rate schedule into the killed
+    one's directory (which must find no checkpoint: the tag covers the
+    schedule), and the resume (which must load exactly one), each run's
+    launches read with the counts set to 0 before it.  The resumed
+    reports must be bitwise the uninterrupted ones."""
+    from repro_torch.kernels import fl_aggregate as fk
+
+    rows, out = [], {}
+    killdir = os.path.join(root, "killed")
+
+    def timed(fn):
+        _reset_launch_counts()
+        _sync(bank)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(bank)
+        return res, time.perf_counter() - t0, {
+            k: fk.LAUNCHES[k] for k in ("fl_aggregate",
+                                        "fl_aggregate_lanes")}
+
+    (whole, svc_w, _), out["seconds"], out["launches_whole"] = timed(
+        lambda: _sweep(engine, params, sp, bank, subs, lr_seq,
+                       os.path.join(root, "whole"), rows, **service_kw))
+    (_, svc_k, _), out["kill_seconds"], out["launches_killed"] = timed(
+        lambda: _sweep(engine, params, sp, bank, subs, lr_seq, killdir,
+                       rows, kill=True, **service_kw))
+    require(len(os.listdir(killdir)) == 4,
+            f"{label}: the killed sweep left one checkpoint pair")
+    if other_lr:
+        other = [0.5 * lr for lr in lr_seq]
+        (_, svc_o, _), _, _ = timed(
+            lambda: _sweep(engine, params, sp, bank, subs, other, killdir,
+                           rows, **service_kw))
+        out["other_lr_loads"] = svc_o.store.loads
+        require(svc_o.store.loads == 0,
+                f"{label}: another lr schedule finds no checkpoint")
+    (resumed, svc_r, _), out["resume_seconds"], out["launches_resumed"] = \
+        timed(lambda: _sweep(engine, params, sp, bank, subs, lr_seq,
+                             killdir, rows, **service_kw))
+    require(svc_r.store.loads == 1 and os.listdir(killdir) == [],
+            f"{label}: the resume loaded the checkpoint once and finished it")
+    plan = whole[0].meta["plan"]
+    out.update(
+        whole=whole, resumed=resumed, plan=plan, store_rows=rows,
+        bank_digest_s=[v for svc in (svc_w, svc_k, svc_r) for v in
+                       svc.metrics.histogram("arena.bank_digest_s").values],
+        saves=[svc.store.saves for svc in (svc_w, svc_k, svc_r)],
+        loads=[svc.store.loads for svc in (svc_w, svc_k, svc_r)],
+        dispatches=[r.meta["dispatches"] for r in whole],
+        resume_dispatches=[r.meta["dispatches"] for r in resumed],
+        bitwise=all(_reports_bitwise(a, b)
+                    for a, b in zip(whole, resumed)))
+    return out
+
+
+def _sync(bank) -> None:
+    if bank.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _require_sweep_launches(out: dict, rounds: int, on_card: bool,
+                            label: str) -> None:
+    """One lane launch per bucket round: T per bucket uninterrupted, the
+    first chunk of the first bucket when killed, the rest on resume."""
+    buckets = len(out["plan"])
+    want = {"launches_whole": rounds * buckets,
+            "launches_killed": SWEEP_CHUNK,
+            "launches_resumed": rounds * buckets - SWEEP_CHUNK}
+    for key, n in want.items():
+        got = out[key]
+        require(got == dict(fl_aggregate=0,
+                            fl_aggregate_lanes=n if on_card else 0),
+                f"{label}: {key} {got}, want {n} fl_aggregate_lanes")
+
+
+def phase_reference_sweep(devices=("cpu", "cuda")) -> None:
+    """``reference.sweep``: the sweep layer on the card against the CPU,
+    on the tiered testbed (:data:`TIERED`).  A ``SweepService`` over
+    ``Arena(engine, k_mode='auto', chunk_size=2)`` with in-rollout
+    evaluation every 2 rounds, T = 6, priced as the JAX package prices
+    but with no compile (the default prices plan one bucket; this plan
+    splits the lanes by K, so the stitching and each bucket's own
+    checkpoint run on the card too): submission 1, the seven
+    controllers at K = 4; submission 2, LROA and Uni-D at K = 2 and at
+    K = 6 with 10% dropout; the two coalesced into one batch.  On each
+    device: killed after its first save, a resubmission under another lr
+    schedule finds no checkpoint, and the resume is bitwise the
+    uninterrupted run (the card's runs with cuDNN's deterministic
+    algorithms).  Card against CPU (one thread): plans and selections
+    equal, params, metrics and test columns within 1e-6, queues within
+    1e-4 (the control plane's spread at N = 12, as ``reference.tiered``),
+    the same store saves and loads; one lane launch per bucket round on
+    the card.  Also run by ``tests/test_torch_cuda.py``."""
+    from repro_torch.core import POLICIES
+    from repro_torch.sim import CostModel, EvalBank, ScenarioGrid
+
+    cfg, rounds = TIERED, SWEEP_ROUNDS
+    n = cfg["num_devices"]
+    data = make_data(cfg)
+    init, runs = None, {}
+    threads = torch.get_num_threads()
+    for device in devices:
+        torch.set_num_threads(1 if device == "cpu" else threads)
+        trainer = build_trainer(device, cfg, data)
+        if init is None:
+            init = trainer.task.init(torch.Generator().manual_seed(7))
+        hp = trainer.controller.hp
+        subs = [ScenarioGrid.create(list(POLICIES), seeds=list(range(7)),
+                                    V=hp.V, lam=hp.lam, sample_count=4,
+                                    num_devices=n),
+                ScenarioGrid.create(["lroa", "uni_d"] * 2,
+                                    seeds=[7, 8, 9, 10], V=hp.V, lam=hp.lam,
+                                    sample_count=[2, 2, 6, 6], dropout=0.1,
+                                    num_devices=n)]
+        lr_seq = [trainer.lr_schedule(t) for t in range(rounds)]
+        evals = EvalBank(trainer.task, *data["test"], device=device)
+        with cudnn_deterministic(device == "cuda"), \
+                tempfile.TemporaryDirectory() as root:
+            out = _sweep_kill_resume(
+                trainer.engine, {k: p.to(device) for k, p in init.items()},
+                trainer.params, trainer.bank, subs, lr_seq, root,
+                "reference.sweep", eval_bank=evals, eval_every=2,
+                other_lr=True, cost_model=CostModel(compile_cost=0.0))
+        log("reference.sweep.resume", device=device, rounds=rounds,
+            lanes=[len(g) for g in subs], plan=out["plan"],
+            dispatches=out["dispatches"],
+            resume_dispatches=out["resume_dispatches"],
+            saves=out["saves"], loads=out["loads"],
+            other_lr_loads=out["other_lr_loads"],
+            resumed_bitwise_equal=out["bitwise"],
+            launches=[out[k] for k in ("launches_whole", "launches_killed",
+                                       "launches_resumed")])
+        require(out["bitwise"], f"reference.sweep {device}: the resumed "
+                                f"sweep is bitwise the uninterrupted one")
+        _require_sweep_launches(out, rounds, device == "cuda",
+                                f"reference.sweep {device}")
+        runs[device] = out
+    torch.set_num_threads(threads)
+    cpu, card = (runs[d] for d in devices)
+    errs = dict(param=0.0, metric=0.0, test=0.0, final=0.0, queue=0.0)
+    sel_equal = True
+    for rc, rg in zip(cpu["whole"], card["whole"]):
+        sel_equal &= bool(np.array_equal(rc.metrics["selected"],
+                                         rg.metrics["selected"]))
+        errs["param"] = max(errs["param"], max(
+            float((rc.params[k] - rg.params[k].cpu()).abs().max())
+            for k in rc.params))
+        for k in rc.metrics:
+            if k != "selected":
+                key = "test" if k.startswith("test_") else "metric"
+                errs[key] = max(errs[key], _rel_err(rg.metrics[k],
+                                                    rc.metrics[k]))
+        errs["final"] = max([errs["final"]] + [
+            _rel_err(rg.final_metrics[k], rc.final_metrics[k])
+            for k in rc.final_metrics])
+        errs["queue"] = max(errs["queue"], _rel_err(rg.queues, rc.queues))
+    same_store = (cpu["saves"], cpu["loads"]) == (card["saves"],
+                                                  card["loads"])
+    log("reference.sweep", lanes=sum(len(r.grid) for r in card["whole"]),
+        rounds=rounds, plan=card["plan"], plans_equal=cpu["plan"] ==
+        card["plan"], selections_equal=sel_equal,
+        **{f"{k}_max_err": v for k, v in errs.items()},
+        store_counts_equal=same_store, tol=1e-6, queue_tol=1e-4)
+    require(cpu["plan"] == card["plan"], "reference.sweep: the same plan")
+    require(sel_equal, "reference.sweep: card and CPU select the same "
+                       "clients")
+    require(max(errs["param"], errs["metric"], errs["test"],
+                errs["final"]) <= 1e-6 and errs["queue"] <= 1e-4,
+            f"reference.sweep: card and CPU within 1e-6 (queues 1e-4): "
+            f"{errs}")
+    require(same_store, "reference.sweep: the same store saves and loads")
+
+
+def phase_sweep(trainer, cfg: dict = PAPER_SCALE,
+                rounds: int = SWEEP_ROUNDS) -> dict:
+    """``sweep``: the sweep layer at paper scale on the trainer's default
+    bank (the 4-rung ladder of ``main``), cuDNN deterministic: a
+    ``SweepService`` over ``Arena(engine, k_mode='auto', chunk_size=2)``,
+    submission 1 the seven controllers at K = 8 and submission 2 LROA at
+    K / 2 = 4 and 3K / 2 = 12 (seed 0, nine lanes coalesced), T = 6, the
+    channels drawn from the grid seeds and the ``scan`` phase's lr
+    schedule.  Killed after its first save and resumed: bitwise the
+    uninterrupted run.  The same grid under ``k_mode='pad'``: the same
+    selections and modelled latency sums; its seconds (unchunked, no
+    store) beside those of the grid split by K (the JAX package's prices
+    without compile).  One lane launch per bucket round.  Logs the plan, lane-rounds/s, each save's and load's
+    seconds and bytes, the resume's seconds, peak memory, and
+    ``CostModel.calibrate`` on this engine with the plan it gives beside
+    the default's."""
+    from repro_torch.core import POLICIES
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.sim import Arena, CostModel, ScenarioGrid
+
+    engine, bank, sp = trainer.engine, trainer.bank, trainer.params
+    dev = trainer.device
+    on_card = dev.type == "cuda"
+    hp = trainer.controller.hp
+    n, k = cfg["num_devices"], cfg["sample_count"]
+    lr_seq = [trainer.lr_schedule(t) for t in range(rounds)]
+    init = trainer.task.init(torch.Generator(device=dev).manual_seed(
+        cfg["seed"] + 1))
+    grids = [ScenarioGrid.create(list(POLICIES), seeds=cfg["seed"], V=hp.V,
+                                 lam=hp.lam, sample_count=cfg["sample_count"],
+                                 num_devices=n),
+             ScenarioGrid.create(["lroa", "lroa"], seeds=cfg["seed"],
+                                 V=hp.V, lam=hp.lam,
+                                 sample_count=[k // 2, k + k // 2],
+                                 num_devices=n)]
+    lanes = sum(len(g) for g in grids)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with cudnn_deterministic(), tempfile.TemporaryDirectory() as root:
+        out = _sweep_kill_resume(engine, init, sp, bank, grids, lr_seq,
+                                 root, "sweep")
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        grid = ScenarioGrid.concat(grids)
+        timed_runs = {}
+        for label, arena in (
+                ("pad", Arena(engine, k_mode="pad")),
+                ("split", Arena(engine, k_mode="auto",
+                                cost_model=CostModel(compile_cost=0.0)))):
+            _reset_launch_counts()
+            _sync(bank)
+            t0 = time.perf_counter()
+            rep = arena.run(init, sp, bank, grid, rounds, lr_seq)
+            _sync(bank)
+            timed_runs[label] = (rep, time.perf_counter() - t0,
+                                 fk.LAUNCHES["fl_aggregate_lanes"])
+    (pad, pad_seconds, pad_launches), (split, split_seconds,
+                                       split_launches) = timed_runs.values()
+    whole = out["whole"]
+    selected = np.concatenate([r.metrics["selected"] for r in whole])
+    latency = np.concatenate([r.metrics["wall_time"] for r in whole]
+                             ).sum(axis=1)
+    latency_pad = pad.metrics["wall_time"].sum(axis=1)
+    latency_rel = float(np.max(np.abs(latency - latency_pad)
+                               / np.abs(latency_pad)))
+    for row in out["store_rows"]:
+        log("sweep.store", **row)
+    cal = CostModel.calibrate(engine, sp, bank)
+    cal_plan = Arena(engine, k_mode="auto", cost_model=cal)._plan(
+        bank, grid, rounds).describe()
+    launches = {k: out["launches_whole"][k] + out["launches_killed"][k]
+                + out["launches_resumed"][k] for k in out["launches_whole"]}
+    launches["fl_aggregate_lanes"] += pad_launches + split_launches
+    summary = dict(
+        lanes=lanes, rounds=rounds, chunk=SWEEP_CHUNK, plan=out["plan"],
+        buckets=len(out["plan"]), bank_digest_s=out["bank_digest_s"],
+        seconds=out["seconds"],
+        lane_rounds_per_s=lanes * rounds / out["seconds"],
+        pad_seconds=pad_seconds,
+        pad_lane_rounds_per_s=lanes * rounds / pad_seconds,
+        split_plan=split.meta["plan"], split_seconds=split_seconds,
+        split_lane_rounds_per_s=lanes * rounds / split_seconds,
+        split_selections_equal=bool(np.array_equal(
+            split.metrics["selected"], pad.metrics["selected"])),
+        kill_seconds=out["kill_seconds"],
+        resume_seconds=out["resume_seconds"],
+        dispatches=out["dispatches"],
+        resume_dispatches=out["resume_dispatches"], saves=out["saves"],
+        loads=out["loads"], resumed_bitwise_equal=out["bitwise"],
+        pad_selections_equal=bool(np.array_equal(
+            selected, pad.metrics["selected"])),
+        pad_latency_bitwise_equal=bool(np.array_equal(latency,
+                                                      latency_pad)),
+        pad_latency_max_rel_err=latency_rel,
+        latency_total_s=latency.tolist(), peak_mem_bytes=peak,
+        calibrated=dict(unit_cost=cal.unit_cost,
+                        compile_cost=cal.compile_cost,
+                        dispatch_cost=cal.dispatch_cost,
+                        round_cost=cal.round_cost),
+        calibrated_plan=cal_plan, cudnn_deterministic=True,
+        launches=launches, launches_by_run={
+            k: out[k] for k in ("launches_whole", "launches_killed",
+                                "launches_resumed")},
+        pad_launches=pad_launches, split_launches=split_launches)
+    log("sweep", **summary)
+    require(out["bitwise"], "sweep: the resumed sweep is bitwise the "
+                            "uninterrupted one")
+    _require_sweep_launches(out, rounds, on_card, "sweep")
+    require(pad_launches == (rounds if on_card else 0),
+            f"sweep: the padded run launched {pad_launches} lane kernels")
+    require(split_launches == (rounds * len(split.meta["plan"]) if on_card
+                               else 0),
+            f"sweep: the split run launched {split_launches} lane kernels")
+    require(summary["pad_selections_equal"]
+            and summary["split_selections_equal"],
+            "sweep: auto (default and split prices) selects as the padded "
+            "plan")
+    require(latency_rel <= 1e-6, f"sweep: auto's modelled latency sums "
+                                 f"within 1e-6 of pad's ({latency_rel})")
+    require(all(bool(torch.isfinite(v).all()) for r in whole
+                for v in r.params.values()), "sweep: finite params")
+    return summary
+
+
+def phase_arena_map(trainer, scan: dict, cfg: dict = PAPER_SCALE,
+                    rounds: int = SCAN_ROUNDS) -> dict:
+    """``arena.map``: LROA, Uni-D and DivFL as one ``Arena(batch='map')``
+    grid on the main path's single bucket, over the ``scan`` phase's
+    channels, learning rates and initial params, cuDNN deterministic:
+    each lane runs its round as ``run_scan`` does, so every lane must be
+    bitwise its ``scan`` rollout (params, losses, selections, queues),
+    with one one-lane ``fl_aggregate`` launch per lane round and no lane
+    launch."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.sim import Arena, ScenarioGrid
+
+    engine, bank, sp = trainer.engine, trainer.bank, trainer.params
+    on_card = trainer.device.type == "cuda"
+    hp = trainer.controller.hp
+    policies = ["lroa", "uni_d", "divfl"]
+    grid = ScenarioGrid.create(policies, seeds=cfg["seed"], V=hp.V,
+                               lam=hp.lam, sample_count=cfg["sample_count"],
+                               num_devices=cfg["num_devices"])
+    h_all = np.broadcast_to(scan["h_seq"], (len(grid),)
+                            + scan["h_seq"].shape)
+    _reset_launch_counts()
+    with cudnn_deterministic():
+        trainer._sync()
+        t0 = time.perf_counter()
+        rep = Arena(engine, batch="map").run(
+            scan["init"], sp, bank, grid, rounds, scan["lr_seq"],
+            h_all=h_all)
+        trainer._sync()
+        seconds = time.perf_counter() - t0
+    launches = {k: fk.LAUNCHES[k] for k in ("fl_aggregate",
+                                            "fl_aggregate_lanes")}
+    lanes = []
+    for s, policy in enumerate(policies):
+        ref_params, ref_met = scan["results"][policy]
+        row = dict(
+            lane=s, policy=policy,
+            params_bitwise_equal=all(torch.equal(rep.params[k][s],
+                                                 ref_params[k])
+                                     for k in ref_params),
+            losses_bitwise_equal=bool(np.array_equal(rep.metrics["loss"][s],
+                                                     ref_met["loss"])),
+            selections_equal=bool(np.array_equal(
+                rep.metrics["selected"][s], ref_met["selected"])),
+            queues_bitwise_equal=bool(np.array_equal(
+                rep.queues[s], scan["queues"][policy].cpu().numpy())),
+            param_max_abs_err=max(float((rep.params[k][s] - ref_params[k])
+                                        .abs().max()) for k in ref_params))
+        log("arena.map.lane", **row)
+        require(row["params_bitwise_equal"] and row["losses_bitwise_equal"]
+                and row["selections_equal"] and row["queues_bitwise_equal"],
+                f"arena.map lane {policy} is bitwise its scan rollout")
+        lanes.append(row)
+    want = dict(fl_aggregate=len(grid) * rounds if on_card else 0,
+                fl_aggregate_lanes=0)
+    summary = dict(lanes=len(grid), rounds=rounds, seconds=seconds,
+                   lane_rounds_per_s=len(grid) * rounds / seconds,
+                   cudnn_deterministic=True, launches=launches)
+    log("arena.map", **summary)
+    require(launches == want, f"arena.map: launches {launches}, want {want} "
+                              f"(one one-lane launch per lane round)")
+    return summary
 
 
 def describe_bank(bank, cfg: dict) -> dict:
@@ -2169,14 +2641,14 @@ def phase_profile_serve(run: dict) -> None:
 
 def kernels_line(points: list, leaves: dict, lanes: list,
                  main_summary: dict, single_summary: dict,
-                 scan_summary: dict, arena_summary: dict,
-                 flash: list, ssd: list, gemma: dict, mamba: dict, smi: str,
-                 sass: dict) -> dict:
+                 scan_summary: dict, arena_summary: dict, map_summary: dict,
+                 sweep_summary: dict, flash: list, ssd: list, gemma: dict,
+                 mamba: dict, smi: str, sass: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
-    paths (the LROA rounds on the ladder and on the single bucket, and
-    the seven controllers' rollouts; the arena's lane-batched rounds;
-    the gemma2 and the mamba2 generation) and its numbers at that path's
-    shapes."""
+    paths (the LROA rounds on the ladder and on the single bucket, the
+    seven controllers' rollouts and the mapped arena's lane rounds; the
+    arena's and the sweep's lane-batched rounds; the gemma2 and the
+    mamba2 generation) and its numbers at that path's shapes."""
     m = next(p for p in points if (p["n"], p["k"]) == MAIN_POINT[:2]
              and p["dtype"] == "float32")
     fg = next(r for r in flash if r["label"] == "gemma2.global")
@@ -2204,12 +2676,14 @@ def kernels_line(points: list, leaves: dict, lanes: list,
               "src/repro/kernels/fl_aggregate.py:35",
               main_summary["launches"]["fl_aggregate"]
               + single_summary["launches"]["fl_aggregate"]
-              + scan_summary["launches"]["fl_aggregate"],
+              + scan_summary["launches"]["fl_aggregate"]
+              + map_summary["launches"]["fl_aggregate"],
               dict(fused, library_ms=None),
               launches_by_path={
                   "main": main_summary["launches"]["fl_aggregate"],
                   "main.single": single_summary["launches"]["fl_aggregate"],
-                  "scan": scan_summary["launches"]["fl_aggregate"]},
+                  "scan": scan_summary["launches"]["fl_aggregate"],
+                  "arena.map": map_summary["launches"]["fl_aggregate"]},
               max_abs_err_all_points=max(
                   [p["max_abs_err"] for p in points] + [fused["max_abs_err"]]
                   + [r["max_abs_err"] for r in leaves["leaves"]]),
@@ -2243,8 +2717,12 @@ def kernels_line(points: list, leaves: dict, lanes: list,
         entry("fl_aggregate_lanes",
               "src/repro_torch/kernels/csrc/fl_aggregate.cu",
               "src/repro/kernels/fl_aggregate.py:35",
-              arena_summary["launches"]["fl_aggregate_lanes"],
+              arena_summary["launches"]["fl_aggregate_lanes"]
+              + sweep_summary["launches"]["fl_aggregate_lanes"],
               dict(la, library_ms=None),
+              launches_by_path={
+                  "arena": arena_summary["launches"]["fl_aggregate_lanes"],
+                  "sweep": sweep_summary["launches"]["fl_aggregate_lanes"]},
               design="the header comment of src/repro_torch/kernels/csrc/"
                      "fl_aggregate.cu (segments on coefficient rows)",
               point="the arena's round at paper scale: 7 lanes x the CNN's "
@@ -2409,6 +2887,7 @@ def main() -> int:
     phase_reference_scan()
     phase_reference_arena()
     phase_reference_tiered()
+    phase_reference_sweep()
     main_summary = phase_main_path()
     ladder = main_summary.pop("trainer")
     data = main_summary.pop("data")
@@ -2422,9 +2901,11 @@ def main() -> int:
     with cudnn_deterministic():
         scan_summary = phase_scan(single)
     arena_summary = phase_arena(single, scan_summary, test)
+    map_summary = phase_arena_map(single, scan_summary)
     phase_arena_round(ladder, scan_summary, label="arena.tiered")
+    sweep_summary = phase_sweep(ladder)
     phase_scale(ladder, single, data)
-    for key in ("h_seq", "lr_seq", "init", "results"):
+    for key in ("h_seq", "lr_seq", "init", "results", "queues"):
         del scan_summary[key]
     del ladder, single, test, data
     gc.collect()
@@ -2442,8 +2923,9 @@ def main() -> int:
 
     print(json.dumps(kernels_line(points, leaves, lanes, main_summary,
                                   single_summary, scan_summary,
-                                  arena_summary, flash, ssd, gemma, mamba,
-                                  smi, sass)), flush=True)
+                                  arena_summary, map_summary, sweep_summary,
+                                  flash, ssd, gemma, mamba, smi, sass)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

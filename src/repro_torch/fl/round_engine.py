@@ -44,7 +44,10 @@ The scenario arena (``repro_torch.sim.Arena``) runs S such rollouts as
 one (:meth:`RoundEngine._build_lanes`): the same per-round control plane
 per lane, one gather (per hit tier), one SGD over S·K_max clients (per
 hit tier; the S·K tier ids read back once per round) and one
-lane-batched eq.-(4) launch per round (:meth:`RoundEngine._lanes_plan`).
+lane-batched eq.-(4) launch per round (:meth:`RoundEngine._lanes_plan`),
+or, under ``batch='map'``, each lane's round as ``run_scan`` runs it
+(:meth:`RoundEngine._map_plan`).  The lane body resumes from a carry at
+any global round, which the arena's chunked, checkpointed runs use.
 
 ``round_step(hierarchical=True)`` reduces eq. (4) cluster by cluster
 over a bank built with ``clusters=`` (``server.aggregate_hierarchical``,
@@ -328,6 +331,26 @@ class RoundEngine:
 
         return round_fn
 
+    def _map_plan(self, bank):
+        """The data plane of the arena's ``batch='map'``: the signature of
+        :meth:`_lanes_plan`'s ``round_fn``, but each lane's round runs on
+        its own through :meth:`_scan_plan`'s (its K-client SGD, then a
+        one-lane ``fl_aggregate`` launch on a CUDA device), so lane s
+        makes the very calls ``run_scan`` makes on its scenario."""
+        one = self._scan_plan(bank)
+
+        def round_fn(params, selected, coeffs, lr, sort_keys):
+            # each lane's model in tensors of its own, as run_scan holds
+            # it (a slice of the stack would start at another alignment)
+            outs = [one({name: v[s].clone() for name, v in params.items()},
+                        selected[s], coeffs[s], lr, sort_keys[s])
+                    for s in range(selected.shape[0])]
+            return ({name: torch.stack([o[0][name] for o in outs])
+                     for name in params},
+                    torch.stack([o[1] for o in outs]))
+
+        return round_fn
+
     def _build_scan(self, k: int, decide_fn, round_fn, select_fn):
         """The rollout body: a function running T rounds on the device.
 
@@ -399,27 +422,46 @@ class RoundEngine:
         emits ``test_<metric>`` ``[S]`` columns holding the latest
         evaluation (a step curve).
 
-        The body takes ``(params, lanes, lr_seq)``: ``params`` the
-        shared initial model (copied to ``[S, ...]``), ``lanes`` a list of
-        :class:`_Lane`.  It returns ``([S, ...] params, [S, N] queues,
-        metrics)`` with every metric ``[S, T]`` numpy (``selected`` ``[S,
-        T, k]``).
+        The body takes ``(params, lanes, lr_seq, t0=0, carry=None,
+        num_rounds=None)`` and runs the global rounds ``t0 .. t0 +
+        num_rounds - 1`` (default: to the end of ``lr_seq``): ``params``
+        the shared initial model (copied to ``[S, ...]``), ``lanes`` a
+        list of :class:`_Lane`, ``lr_seq`` and every tensor of a lane the
+        full-length ``[T, ...]`` ones, indexed by the global round (the
+        draws of :func:`_control` are keyed by it, and ``eval_every``
+        fires on it).  ``carry`` — ``([S, ...] params, [S, N] queues,
+        last_ev)`` as a previous call returned it — continues a rollout
+        where that call stopped: the chunked arena's segments, and its
+        resumes from a checkpoint.  Without a carry the rollout starts
+        from ``params`` and the lanes' initial queues, and the initial
+        evaluation runs (at ``t0 == 0``).  It returns ``([S, ...] params,
+        [S, N] queues, metrics, last_ev)`` — the carry beside the metrics,
+        each metric an ``[S, num_rounds]`` device tensor (``selected``
+        ``[S, num_rounds, k]``) that the caller reads back.
         """
 
-        def lanes_fn(params, lanes, lr_seq):
+        def lanes_fn(params, lanes, lr_seq, t0: int = 0, carry=None,
+                     num_rounds: Optional[int] = None):
             s_count = len(lanes)
-            params = {name: v.unsqueeze(0).expand(
-                (s_count,) + tuple(v.shape)).clone()
-                for name, v in params.items()}
-            queues = [ln.queues0 for ln in lanes]
+            if num_rounds is None:
+                num_rounds = lr_seq.shape[0] - t0
+            if carry is None:
+                params = {name: v.unsqueeze(0).expand(
+                    (s_count,) + tuple(v.shape)).clone()
+                    for name, v in params.items()}
+                queues = [ln.queues0 for ln in lanes]
+                last_ev = None
+                if eval_every and t0 == 0:
+                    last_ev = {name: v.expand(s_count) for name, v in
+                               eval_bank.metrics_one(
+                                   {n: v[0] for n, v in params.items()}
+                               ).items()}
+            else:
+                params, queues, last_ev = carry
+                queues = list(queues.unbind(0))
             outs = [[] for _ in lanes]
             evals = []
-            last_ev = None
-            if eval_every:
-                last_ev = {name: v.expand(s_count) for name, v in
-                           eval_bank.metrics_one(
-                               {n: v[0] for n, v in params.items()}).items()}
-            for t in range(lr_seq.shape[0]):
+            for t in range(t0, t0 + num_rounds):
                 control = [_control(ln, t, queues[i])
                            for i, ln in enumerate(lanes)]
                 with obs_trace.span("engine.lanes_round", t=t,
@@ -437,13 +479,16 @@ class RoundEngine:
                     if (t + 1) % eval_every == 0:
                         last_ev = eval_bank.metrics_stacked(params)
                     evals.append(last_ev)
-            per_lane = [_stack_metrics(o) for o in outs]
-            metrics = {name: np.stack([m[name] for m in per_lane])
-                       for name in per_lane[0]}
+            scalars = torch.stack([torch.stack([o[0] for o in lane])
+                                   for lane in outs])
+            metrics = {name: scalars[:, :, i]
+                       for i, name in enumerate(SCAN_SCALARS)}
+            metrics["selected"] = torch.stack(
+                [torch.stack([o[1] for o in lane]) for lane in outs])
             for name in (evals[0] if evals else {}):
                 metrics["test_" + name] = torch.stack(
-                    [ev[name] for ev in evals], dim=1).cpu().numpy()
-            return params, torch.stack(queues), metrics
+                    [ev[name] for ev in evals], dim=1)
+            return params, torch.stack(queues), metrics, last_ev
 
         return lanes_fn
 

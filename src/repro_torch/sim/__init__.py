@@ -2,8 +2,10 @@
 (``ScenarioGrid``) as one lane-batched rollout (``Arena``) with the
 control plane per lane and the data plane batched, evaluated on the
 device (``EvalBank``), reported as a ``RolloutReport`` with the Sec. VII
-trade-off reducers; and copies of the JAX package's dispatch planner and
-cost model."""
+trade-off reducers; shape-adaptive dispatch (``k_mode='auto'``, copies of
+the JAX package's dispatch planner and cost model), chunked checkpointed
+runs and the ``SweepService`` over them (queued, coalesced submissions,
+kill and resume through ``NpzChunkStore``)."""
 
 from repro_torch.sim.arena import (CHANNEL_STREAM, Arena, ScenarioGrid,
                                    derive_hyperparams, scenario_keys)
@@ -12,3 +14,5 @@ from repro_torch.sim.dispatch import (DispatchBucket, DispatchPlan,
                                       lane_footprints, plan_dispatch)
 from repro_torch.sim.eval import EvalBank
 from repro_torch.sim.report import RolloutReport, concat_chunk_metrics
+from repro_torch.sim.service import (CHUNK_STORE_SCHEMA_VERSION,
+                                     NpzChunkStore, SweepService)

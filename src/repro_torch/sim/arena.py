@@ -31,6 +31,17 @@ ladder ``TieredClientBank``, a ``BankPool``, fp32 or int8:
   ``[S, ...]`` params in one batched call (``final_metrics``), and
   ``eval_every=E`` inside the rollout every E rounds (``test_*``
   columns).
+* **Shape-adaptive dispatch** (``k_mode='auto'``): the copied planner
+  buckets the lanes by K where the padded slots a shared bucket would
+  train cost more than another bucket's rounds.
+* **Chunked, checkpointed runs.**  ``chunk_size=C`` runs T rounds as
+  ceil(T / C) segments of the same lane body, each resuming from the
+  previous one's carry at the global round, bitwise the one-shot run; a
+  ``chunk_store`` (``sim.service.NpzChunkStore``, behind the
+  ``SweepService``) saves the carry at chunk boundaries, so a killed run
+  resumes where it stopped, bitwise.
+* **``batch='map'``**: each lane's data plane on its own, as ``run_scan``
+  runs it (one-lane ``fl_aggregate`` launches).
 
 The reproducibility contract: lane s of :meth:`Arena.run` reproduces ::
 
@@ -46,13 +57,11 @@ generator (:func:`scenario_keys`); selections are exact, and the control
 plane is the same code on the same inputs, so queues and every modelled
 metric are bitwise.  The model (params, losses) is bitwise where the
 batched SGD computes each client as the per-rollout SGD does (the CPU
-tests pin where it does) and within float32 resolution otherwise.
+tests pin where it does) and within float32 resolution otherwise; under
+``batch='map'`` it is bitwise wherever the device repeats itself.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item (A7): ``batch='map'``, ``mesh=``, ``chunk_size`` /
-``chunk_store`` (the streaming pipeline, ``sim/service.py`` and
-``checkpoint/``), ``k_mode='auto'`` (the planner's probe and bucketed
-runs), ``warmup`` with its watchdog.
+ROADMAP item: ``mesh=`` (A8), ``warmup`` with its watchdog (A7).
 """
 
 from __future__ import annotations
@@ -60,6 +69,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import itertools
+import time
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -77,18 +88,27 @@ from repro_torch.fl.client_bank import TieredClientBank
 from repro_torch.fl.round_engine import _Lane, bank_layout_key
 from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.sim.dispatch import DispatchPlan
-from repro_torch.sim.report import RolloutReport
+from repro_torch.sim.cost_model import CostModel
+from repro_torch.sim.dispatch import DispatchPlan, plan_dispatch
+from repro_torch.sim.report import RolloutReport, concat_chunk_metrics
 
 Params = Dict[str, torch.Tensor]
-
-#: what waits, named in every NotImplementedError of this module
-_LATER = "is not ported yet (ROADMAP A7, the scenario layer)"
 
 #: the stream of a seed that keys its channels and dropout masks:
 #: ``draws.fold(seed, CHANNEL_STREAM)``, apart from the rollout key that
 #: ``torch.Generator().manual_seed(seed)`` gives ``run_scan``
 CHANNEL_STREAM = 0x43484E4C
+
+#: ``k_mode='auto'``'s default prices, a constant so a plan does not
+#: depend on the machine: ``CostModel.calibrate`` on the paper-scale
+#: testbed's 4-rung ladder on an H100 80GB HBM3 at 700 W (``chip_smoke.py``
+#: sweep phase) gave 1.8e-6 to 2.5e-6 s per row-unit, 0.89 to 1.04 s per
+#: bucket round and a first run no slower than a warm one (its 1e-3 s
+#: floor; PyTorch compiles nothing ahead, the JAX package's price is 5 s).
+#: A bucket's round then costs more than the padded slots a merge adds,
+#: so mixed-K grids of that size run as one bucket.
+DEFAULT_COST_MODEL = CostModel(unit_cost=2e-6, compile_cost=0.0,
+                               round_cost=0.95)
 
 
 def _as_f32(value, s: int) -> np.ndarray:
@@ -381,30 +401,97 @@ def derive_hyperparams(sp: sm.SystemParams, grid: ScenarioGrid, mu, nu,
     return dataclasses.replace(grid, lam=lam, V=v)
 
 
+def _content_digest(value) -> str:
+    """sha1 hex of a tensor, an array or a dict of them: names, dtypes,
+    shapes and bytes, so equal content gives the same digest in any
+    process and on any device."""
+    hasher = hashlib.sha1()
+    items = (sorted(value.items()) if isinstance(value, dict)
+             else [("", value)])
+    for name, v in items:
+        if isinstance(v, torch.Tensor):
+            v = v.detach()
+            if v.dtype == torch.bfloat16:
+                v = v.view(torch.int16)
+            v = v.cpu().numpy()
+        arr = np.ascontiguousarray(v)
+        hasher.update(repr((name, str(arr.dtype), arr.shape)).encode())
+        hasher.update(arr.reshape(-1).view(np.uint8))
+    return hasher.hexdigest()
+
+
+def _system_params_digest(sp: sm.SystemParams) -> str:
+    """:func:`_content_digest` of every field of ``sp``."""
+    return _content_digest({
+        f.name: (v if isinstance(v := getattr(sp, f.name), torch.Tensor)
+                 else np.asarray(v))
+        for f in dataclasses.fields(sp)})
+
+
+def _to_host(tree):
+    """A nested dict of tensors as numpy copies (never views of the
+    tensors, which a later chunk may overwrite)."""
+    if isinstance(tree, dict):
+        return {name: _to_host(v) for name, v in tree.items()}
+    return tree.detach().to("cpu", copy=True).numpy()
+
+
 class Arena:
     """Runs a :class:`ScenarioGrid` as one lane-batched rollout over one
     engine (a ``RoundEngine``; its ``device`` is the arena's).
 
-    ``batch='vmap'`` (the only mode ported) lays the lanes out as one set
-    of S-wide operations on the data plane (the JAX package's name;
-    here the control plane runs per lane, see the module docstring).
+    ``batch`` picks the data plane: ``'vmap'`` (default) trains every
+    lane's K slots in one SGD call and reduces every lane in one
+    lane-batched ``fl_aggregate`` launch; ``'map'`` runs each lane's
+    round on its own, as ``run_scan`` does (its K-client SGD, then a
+    one-lane launch), so lane s is bitwise ``run_scan`` on its scenario
+    even where the batched SGD convolves through other kernels.  The
+    control plane is per lane in both (the JAX package's names).
+
     ``k_mode`` picks how a mixed-K grid runs: ``'pad'`` (default) — one
     rollout padded to ``K_max``; ``'group'`` — one rollout per distinct
-    K, lanes scattered back to grid order.  ``mesh``, ``batch='map'``,
-    ``k_mode='auto'`` and ``chunk_size`` raise ``NotImplementedError``,
-    and so do ``cost_model`` and ``max_executables`` at any value but
-    their defaults: they are ``'auto'``'s.
+    K, lanes scattered back to grid order; ``'auto'`` — the dispatch
+    planner (``sim.dispatch.plan_dispatch`` under ``cost_model``, at
+    most ``max_executables`` buckets) buckets the lanes by K, weighing
+    the padded slots a merge would train against the bucket rounds it
+    saves, and the buckets' results are stitched back to grid order.  It plans
+    by K alone: the port's ``_train`` routes every round by tier, so
+    every bucket pays each slot's own tier whatever tiers its lanes
+    touch (the JAX package's per-bucket tier subsets, found by a
+    control-plane probe, prune compiled tier bodies the port does not
+    have).  The default ``cost_model`` is :data:`DEFAULT_COST_MODEL`, a
+    constant, so a plan does not depend on the machine;
+    ``CostModel.calibrate`` prices this engine instead.
+
+    ``chunk_size`` (or ``run``'s) splits every bucket's T rounds into
+    ``ceil(T / chunk_size)`` segments of the same lane body, each resuming
+    from the previous one's carry (``[S, ...]`` params, ``[S, N]`` queues,
+    the last in-rollout evaluation): bitwise the one-shot rollout.  With
+    a ``chunk_store`` (``sim.service.NpzChunkStore``) the carry and the
+    columns so far are saved at chunk boundaries, and a run of the same
+    inputs resumes from the last one.  The JAX package keeps up to
+    ``in_flight`` chunks dispatched ahead of the host's reduction; the
+    port's control plane reads back every round (the solver's
+    while-loops), so there is no queue of device work to overlap, and
+    each chunk's columns are read back when it ends.
+
+    ``mesh=`` raises ``NotImplementedError`` (ROADMAP A8), and so does
+    :meth:`warmup` (ROADMAP A7).
 
     ``metrics`` is the arena's :class:`~repro_torch.obs.metrics.
-    MetricsRegistry`: ``arena.runs``, ``arena.dispatches`` and the
-    device-input caches' ``arena.input_cache.hits`` / ``.misses`` (lane
-    constants, channels and dropout masks keyed by grid content,
-    learning rates by value, at most 16 entries each).
+    MetricsRegistry`: ``arena.runs``, ``arena.dispatches``, the
+    ``arena.chunk.dispatch_s`` / ``reduce_s`` and ``arena.bank_digest_s``
+    (the chunk tag's hash of the bank) histograms, and the device-input
+    caches' ``arena.input_cache.hits`` / ``.misses`` (lane constants,
+    channels and dropout masks keyed by grid content, learning rates by
+    value, at most 16 entries each); the sweep service and its chunk
+    store write theirs into it too.
     """
 
     def __init__(self, engine, mesh=None, mesh_axis: str = "data",
                  batch: str = "vmap", k_mode: str = "pad",
-                 cost_model=None, max_executables: int = 4,
+                 cost_model: Optional[CostModel] = None,
+                 max_executables: int = 4,
                  chunk_size: Optional[int] = None):
         if batch not in ("vmap", "map"):
             raise ValueError(f"unknown batch mode {batch!r} "
@@ -412,26 +499,24 @@ class Arena:
         if k_mode not in ("pad", "group", "auto"):
             raise ValueError(f"unknown k_mode {k_mode!r} "
                              "(expected 'pad', 'group' or 'auto')")
-        if cost_model is not None or max_executables != 4:
-            raise NotImplementedError(
-                f"Arena(cost_model=, max_executables=) (the planner of "
-                f"k_mode='auto') {_LATER}")
+        if max_executables < 1:
+            raise ValueError(f"max_executables must be >= 1, "
+                             f"got {max_executables}")
         if mesh is not None:
-            raise NotImplementedError(f"Arena(mesh=) {_LATER}")
-        if batch == "map":
-            raise NotImplementedError(f"Arena(batch='map') {_LATER}")
-        if k_mode == "auto":
             raise NotImplementedError(
-                f"Arena(k_mode='auto') (the dispatch planner's probe and "
-                f"bucketed runs) {_LATER}")
-        if chunk_size is not None:
-            raise NotImplementedError(
-                f"Arena(chunk_size=) (the streaming pipeline) {_LATER}")
+                "Arena(mesh=) (the lane axis over several cards) is not "
+                "ported yet (ROADMAP A8, sharding)")
         self.engine = engine
         self.device = engine.device
         self.batch = batch
         self.k_mode = k_mode
+        self.cost_model = (cost_model if cost_model is not None
+                           else DEFAULT_COST_MODEL)
+        self.max_executables = int(max_executables)
+        self.chunk_size = chunk_size
         self.metrics = MetricsRegistry()
+        # bank -> ((admits, evicts), content digest), for the chunk tag
+        self._bank_digests = weakref.WeakKeyDictionary()
         self._input_cache_cap = 16
         self._lane_cache: Dict[bytes, dict] = {}
         self._lr_cache: Dict[bytes, torch.Tensor] = {}
@@ -452,7 +537,8 @@ class Arena:
     @staticmethod
     def _grid_digest(grid: ScenarioGrid, extra: tuple = ()) -> bytes:
         """Content hash of every grid column (+ ``extra``): the key of the
-        device-input caches."""
+        device-input caches and of the chunk tag, so a pure function of
+        values (tags outlive the process)."""
         hasher = hashlib.sha1()
         for f in dataclasses.fields(grid):
             hasher.update(np.ascontiguousarray(
@@ -539,20 +625,14 @@ class Arena:
             self._lr_cache, lr_seq.tobytes(),
             lambda: torch.as_tensor(lr_seq, device=self.device))
 
-    # -- the lane-batched rollout ----------------------------------------------
+    # -- the lane-batched rollout ---------------------------------------------
 
-    def _run_group(self, global_params: Params, sp: sm.SystemParams, bank,
-                   grid: ScenarioGrid, h_all: torch.Tensor,
-                   lr_seq: np.ndarray, k_max: int, eval_bank=None,
-                   eval_every: Optional[int] = None,
-                   drop_all: Optional[torch.Tensor] = None,
-                   replay: Tuple[Any, Any] = (None, None)):
-        """One rollout of every lane of ``grid`` at ``k_max`` slots.
-        Returns ``([S, ...] params, [S, N] queues, metrics)``."""
-        engine = self.engine
-        round_fn = engine._lanes_plan(bank)
-        body = engine._build_lanes(k_max, round_fn, eval_bank,
-                                   int(eval_every or 0))
+    def _lanes(self, grid: ScenarioGrid, sp: sm.SystemParams, bank,
+               h_all: torch.Tensor, drop_all: Optional[torch.Tensor],
+               k_max: int, replay: Tuple[Any, Any]) -> List[_Lane]:
+        """One :class:`~repro_torch.fl.round_engine._Lane` per scenario,
+        at ``k_max`` slots, each with its controller's decide and select
+        rules and its full-length channels, mask and replayed draws."""
         lane_in = self._lane_inputs(grid, sp)
         rep_sel, rep_keys = replay
         lanes = []
@@ -574,13 +654,223 @@ class Arena:
                 None if drop_all is None else drop_all[s],
                 (None if rep_sel is None else rep_sel[s],
                  None if rep_keys is None else rep_keys[s]),
-                decide, select, engine.cfg.local_epochs,
+                decide, select, self.engine.cfg.local_epochs,
                 bank.bucket_examples,
                 queues0=torch.zeros(sp.num_devices, dtype=torch.float32,
                                     device=self.device), index=s))
-        with obs.span("arena.dispatch", k_max=int(k_max), lanes=len(grid),
-                      rounds=int(h_all.shape[1])):
-            return body(global_params, lanes, self._lr_device(lr_seq))
+        return lanes
+
+    @staticmethod
+    def _carry_tree(carry: tuple) -> dict:
+        """``(params, queues, last_ev)`` chunk carry as the checkpoint's
+        named tree: ``params``, ``queues`` and, with in-rollout
+        evaluation, ``last_ev``.  It holds no rng: the port's draws are
+        counter-based, keyed by the rollout key and the global round."""
+        params, queues, last_ev = carry
+        tree = {"params": params, "queues": queues}
+        if last_ev is not None:
+            tree["last_ev"] = last_ev
+        return tree
+
+    def _carry_from_tree(self, tree: dict) -> tuple:
+        def dev(v):
+            return torch.as_tensor(v, device=self.device)
+        last_ev = tree.get("last_ev")
+        return ({name: dev(v) for name, v in tree["params"].items()},
+                dev(tree["queues"]),
+                None if last_ev is None else
+                {name: dev(v) for name, v in last_ev.items()})
+
+    def _bank_digest(self, bank) -> str:
+        """Content digest of ``bank``: every rung's ``device_args()`` and
+        ``quant_args()`` and a ladder's client-to-rung map, so a bank of
+        the same layout but other data, or a ``BankPool`` after churn,
+        never meets another's chunk checkpoint.  Computed once per bank
+        (a pool's once per count of its admits and evicts)."""
+        version = (getattr(bank, "admits", 0), getattr(bank, "evicts", 0))
+        hit = self._bank_digests.get(bank)
+        if hit is not None and hit[0] == version:
+            return hit[1]
+        rungs = bank.tiers if isinstance(bank, TieredClientBank) else [bank]
+        parts = {"tier_of": np.asarray(getattr(bank, "tier_of", ()))}
+        for t, rung in enumerate(rungs):
+            for i, v in enumerate(rung.device_args() + rung.quant_args()):
+                if v is not None:
+                    parts[f"{t}/{i}"] = v
+        t0 = time.perf_counter()
+        with obs.span("arena.bank_digest", nbytes=int(bank.nbytes)):
+            digest = _content_digest(parts)
+        self.metrics.histogram("arena.bank_digest_s").observe(
+            time.perf_counter() - t0)
+        self._bank_digests[bank] = (version, digest)
+        return digest
+
+    def _chunk_tag(self, grid: ScenarioGrid, k_max: int, tier_subset,
+                   eval_every, num_rounds: int, chunk: int,
+                   lr_seq: np.ndarray, digests: tuple) -> str:
+        """Filename-safe content tag of one bucket's chunked execution: a
+        pure function of everything that shapes its trajectory, so a
+        restarted process resuming the same submission recomputes it,
+        and other inputs never meet its checkpoint.  The JAX package's
+        tag hashes the grid, K_max, the tier subset, ``eval_every``, T,
+        the chunk, the batch mode and the energy budget, and a caller's
+        ``h_all``; this one adds the learning rates and, in ``digests``
+        (:meth:`_run_impl`), every field of the SystemParams, the bank's
+        content, the engine's client config and eq.-(4) path, a caller's
+        ``drop_all`` and replayed draws, the initial params and the
+        in-rollout evaluation's test set."""
+        hasher = hashlib.sha1()
+        hasher.update(self._grid_digest(grid, (
+            "chunk", int(k_max), tier_subset, int(eval_every or 0),
+            int(num_rounds), int(chunk), self.batch, digests,
+            np.asarray(lr_seq, np.float32).tobytes())))
+        return "chunk_" + hasher.hexdigest()[:20]
+
+    def _run_group(self, global_params: Params, sp: sm.SystemParams, bank,
+                   grid: ScenarioGrid, h_all: torch.Tensor,
+                   lr_seq: np.ndarray, k_max: int, eval_bank=None,
+                   eval_every: Optional[int] = None,
+                   drop_all: Optional[torch.Tensor] = None,
+                   replay: Tuple[Any, Any] = (None, None),
+                   tier_subset=None, chunk_size: Optional[int] = None,
+                   chunk_store=None, digests: tuple = ()):
+        """One bucket: every lane of ``grid`` at ``k_max`` slots, in one
+        call of the lane body or, with ``chunk_size`` / ``chunk_store``,
+        in segments that resume from each other's carry.  Returns ``([S,
+        ...] params, [S, N] queues, metrics as numpy, dispatches)``.
+
+        The chunked pipeline: ceil(T / chunk) dispatches, the ragged
+        tail included.  ``chunk_store`` (``.load(tag)``, ``.save(tag,
+        t_next, carry, metrics)``, ``.finish(tag)``, ``.every``) resumes
+        from its checkpoint at the round it holds, and is handed the
+        columns so far and a host copy of the carry at every
+        ``every``-th boundary but the last, before the next chunk runs;
+        ``finish`` at the end."""
+        engine = self.engine
+        round_fn = (engine._map_plan(bank) if self.batch == "map"
+                    else engine._lanes_plan(bank))
+        body = engine._build_lanes(k_max, round_fn, eval_bank,
+                                   int(eval_every or 0))
+        lanes = self._lanes(grid, sp, bank, h_all, drop_all, k_max, replay)
+        num_rounds = int(h_all.shape[1])
+        lr_dev = self._lr_device(lr_seq)
+        chunked = chunk_size is not None or chunk_store is not None
+        chunk = (num_rounds if chunk_size is None
+                 else max(1, int(chunk_size)))
+        tag, t_start, carry, reduced = None, 0, None, []
+        if chunk_store is not None:
+            tag = self._chunk_tag(grid, k_max, tier_subset, eval_every,
+                                  num_rounds, chunk, lr_seq, digests)
+            hit = chunk_store.load(tag)
+            if hit is not None:
+                t_start, tree, prefix = hit
+                carry = self._carry_from_tree(tree)
+                reduced.append(dict(prefix))
+        segments = [(t0, min(chunk, num_rounds - t0))
+                    for t0 in range(t_start, num_rounds, chunk)]
+        every = max(1, int(getattr(chunk_store, "every", 1)))
+        s = len(grid)
+        for i, (t0, ln) in enumerate(segments):
+            t_disp = time.perf_counter()
+            with obs.span("arena.dispatch", chunk=i, t0=t0, rounds=ln,
+                          k_max=int(k_max), lanes=s):
+                params, queues, outs, last_ev = body(
+                    global_params, lanes, lr_dev, t0, carry, ln)
+            t_red = time.perf_counter()
+            carry = (params, queues, last_ev)
+            with obs.span("arena.reduce", chunk=i, rounds=ln,
+                          k_max=int(k_max), lanes=s):
+                reduced.append({name: v.cpu().numpy()
+                                for name, v in outs.items()})
+            if chunked:
+                self.metrics.histogram("arena.chunk.dispatch_s").observe(
+                    t_red - t_disp)
+                self.metrics.histogram("arena.chunk.reduce_s").observe(
+                    time.perf_counter() - t_red)
+            if (chunk_store is not None and i < len(segments) - 1
+                    and (i + 1) % every == 0):
+                # metrics first, carry second (the store's commit order)
+                chunk_store.save(tag, t0 + ln,
+                                 _to_host(self._carry_tree(carry)),
+                                 concat_chunk_metrics(reduced))
+        metrics = concat_chunk_metrics(reduced)
+        if chunk_store is not None:
+            chunk_store.finish(tag)
+        params, queues, _ = carry
+        return params, queues, metrics, len(segments)
+
+    # -- shape-adaptive dispatch planning ------------------------------------
+
+    def _plan(self, bank, grid: ScenarioGrid, num_rounds: int, *,
+              runs: float = 1.0) -> DispatchPlan:
+        """The ``k_mode='auto'`` plan for this grid at the reuse horizon
+        ``runs``: by K alone, every bucket on every tier of the bank."""
+        return plan_dispatch(
+            grid.sample_count, rounds=num_rounds,
+            tier_work=self._tier_work(bank), cost_model=self.cost_model,
+            max_executables=self.max_executables, runs=runs)
+
+    def _run_plan(self, global_params: Params, sp: sm.SystemParams, bank,
+                  grid: ScenarioGrid, h_all: torch.Tensor,
+                  lr_seq: np.ndarray, plan: DispatchPlan, *, eval_bank,
+                  eval_every, drop_all, replay, chunk_size, chunk_store,
+                  digests):
+        """Run every bucket of ``plan`` (:meth:`_run_group`) and stitch
+        the lanes back to grid order: params with one ``index_select``
+        per leaf over the inverse permutation, queues and metrics on the
+        host, ``selected`` padded with -1 to ``K_max``.  Returns
+        ``(params, queues, metrics, bucket_meta)``."""
+        dev = self.device
+        k_max = int(grid.sample_count.max())
+        tiers_all = (list(range(bank.num_tiers))
+                     if getattr(bank, "num_tiers", 1) > 1 else None)
+        rep_sel, rep_keys = replay
+        whole = plan.num_buckets == 1
+        parts, bucket_meta = [], []
+        for b in plan.buckets:
+            idx = np.asarray(b.lanes, np.int64)
+            idx_t = torch.as_tensor(idx, device=dev)
+
+            def pick(x, slots: bool = False):
+                if x is None:
+                    return None
+                x = x if whole else x.index_select(0, idx_t)
+                return x[:, :, :b.k_pad] if slots else x
+
+            p_g, q_g, m_g, nd = self._run_group(
+                global_params, sp, bank, grid if whole else grid.take(idx),
+                pick(h_all), lr_seq, b.k_pad, eval_bank=eval_bank,
+                eval_every=eval_every, drop_all=pick(drop_all),
+                replay=(pick(rep_sel, True), pick(rep_keys, True)),
+                tier_subset=b.tiers, chunk_size=chunk_size,
+                chunk_store=chunk_store, digests=digests)
+            bucket_meta.append(dict(
+                lanes=[int(i) for i in idx], k_pad=int(b.k_pad),
+                tiers=tiers_all if b.tiers is None else list(b.tiers),
+                dispatches=int(nd)))
+            parts.append((p_g, q_g, m_g))
+        if whole:
+            params, queues, metrics = parts[0]
+            return params, queues.cpu().numpy(), metrics, bucket_meta
+        inv = plan.inverse_permutation()
+        inv_t = torch.as_tensor(inv, device=dev)
+        params = {name: torch.cat([p[name] for p, _, _ in parts])
+                  .index_select(0, inv_t) for name in parts[0][0]}
+        queues = np.concatenate([q.cpu().numpy() for _, q, _ in parts])[inv]
+        metrics = {}
+        for name in parts[0][2]:
+            cols = []
+            for _, _, m in parts:
+                v = m[name]
+                if name == "selected" and v.shape[-1] < k_max:
+                    v = np.concatenate([v, np.full(
+                        v.shape[:-1] + (k_max - v.shape[-1],), -1,
+                        v.dtype)], axis=-1)
+                cols.append(v)
+            metrics[name] = np.concatenate(cols)[inv]
+        return params, queues, metrics, bucket_meta
+
+    # -- entry point ----------------------------------------------------------
 
     def run(self, global_params: Params, sp: sm.SystemParams, bank,
             grid: ScenarioGrid, num_rounds: int, lr_seq,
@@ -602,34 +892,37 @@ class Arena:
         :class:`~repro_torch.sim.eval.EvalBank` evaluating the final
         ``[S, ...]`` params in one batched call (``final_metrics``);
         ``eval_every``: also evaluate inside the rollout every that many
-        rounds (``test_*`` columns).  ``replay_selected`` (``[S, T,
+        rounds (``test_*`` columns).  ``chunk_size`` (default the
+        arena's) and ``chunk_store``: the chunked, checkpointed pipeline
+        (see the class docstring); bitwise the one-shot run, and so is a
+        run resumed from a checkpoint.  ``replay_selected`` (``[S, T,
         K_max]``) and ``replay_sort_keys`` (``[S, T, K_max, E, B]``)
         replace the draws, for the parity tests only.
 
         Lane s reproduces ``run_scan`` under the contract of the module
-        docstring.  Returns a :class:`RolloutReport`.
+        docstring.  Returns a :class:`RolloutReport` whose ``meta`` holds
+        the plan, each bucket's lanes, ``k_pad``, tiers and
+        ``dispatches``, and the run's ``chunk_size``.
         """
-        if chunk_size is not None or chunk_store is not None:
-            raise NotImplementedError(
-                f"Arena.run(chunk_size=, chunk_store=) (the streaming "
-                f"pipeline, the sweep service and its checkpoints) {_LATER}")
         with obs.span("arena.run", k_mode=self.k_mode, lanes=len(grid),
                       rounds=int(num_rounds)):
             report = self._run_impl(
                 global_params, sp, bank, grid, num_rounds, lr_seq,
                 h_all=h_all, drop_all=drop_all, eval_bank=eval_bank,
-                eval_every=eval_every, replay_selected=replay_selected,
+                eval_every=eval_every, chunk_size=chunk_size,
+                chunk_store=chunk_store, replay_selected=replay_selected,
                 replay_sort_keys=replay_sort_keys)
-        self.metrics.counter("arena.runs").inc()
-        self.metrics.counter("arena.dispatches").inc(
-            int(report.meta["dispatches"]))
+        m = self.metrics
+        m.counter("arena.runs").inc()
+        m.counter("arena.dispatches").inc(int(report.meta["dispatches"]))
         return report
 
     def _run_impl(self, global_params: Params, sp: sm.SystemParams, bank,
                   grid: ScenarioGrid, num_rounds: int, lr_seq, *,
                   h_all=None, drop_all=None, eval_bank=None,
-                  eval_every=None, replay_selected=None,
-                  replay_sort_keys=None) -> RolloutReport:
+                  eval_every=None, chunk_size=None, chunk_store=None,
+                  replay_selected=None, replay_sort_keys=None
+                  ) -> RolloutReport:
         """(The uninstrumented body of :meth:`run`.)"""
         s, n, dev = len(grid), sp.num_devices, self.device
         ScenarioGrid._check_sample_counts(grid.sample_count, n)
@@ -642,7 +935,8 @@ class Arena:
         if lr_seq.shape != (num_rounds,):
             raise ValueError(f"lr_seq must have shape ({num_rounds},), "
                              f"got {lr_seq.shape}")
-        if h_all is None:
+        h_derived = h_all is None
+        if h_derived:
             h_all = self.sample_channels(grid, num_rounds, n)
         h_all = torch.as_tensor(np.array(h_all, np.float32)
                                 if not isinstance(h_all, torch.Tensor)
@@ -650,6 +944,7 @@ class Arena:
         if tuple(h_all.shape) != (s, num_rounds, n):
             raise ValueError(f"h_all must have shape {(s, num_rounds, n)}, "
                              f"got {tuple(h_all.shape)}")
+        drop_given = drop_all is not None
         if drop_all is None and np.any(np.asarray(grid.dropout) > 0.0):
             drop_all = self.sample_dropout(grid, num_rounds, n)
         if drop_all is not None:
@@ -675,62 +970,47 @@ class Arena:
             if got is not None and tuple(got.shape) != want:
                 raise ValueError(f"{what} must be {list(want)}, got "
                                  f"{list(got.shape)}")
-        tiers = (list(range(bank.num_tiers))
-                 if getattr(bank, "num_tiers", 1) > 1 else None)
+        if chunk_size is None:
+            chunk_size = self.chunk_size
+        digests = ()
+        if chunk_store is not None:
+            # the content of what a caller passed in (the grid's own
+            # channels and masks are functions of the grid, in the tag)
+            digests = (
+                ("sp", _system_params_digest(sp)),
+                ("bank", self._bank_digest(bank)),
+                ("engine", repr(self.engine.cfg), self.engine.impl),
+                ("h", "auto" if h_derived else _content_digest(h_all)),
+                ("drop", _content_digest(drop_all) if drop_given
+                 else "auto"),
+                ("params", _content_digest(global_params)),
+                ("replay", [None if r is None else _content_digest(r)
+                            for r in (rep_sel, rep_keys)]),
+                ("test_set", None if not eval_every else _content_digest(
+                    {"x": eval_bank.x, "y": eval_bank.y})))
         meta = dict(k_mode=self.k_mode, k_groups=[int(k) for k in ks],
                     k_max=k_max, batch=self.batch,
+                    chunk_size=(None if chunk_size is None
+                                else int(chunk_size)),
                     bank_storage=bank.storage, bank_nbytes=int(bank.nbytes),
                     bank_bytes_per_client=bank.bytes_per_client,
                     bank_layout=bank_layout_key(bank),
                     tier_work=self._tier_work(bank))
-        common = dict(eval_bank=eval_bank, eval_every=eval_every)
-        if self.k_mode == "pad" or ks.size == 1:
-            with obs.span("arena.plan", k_mode="pad", lanes=s, k_max=k_max):
+        with obs.span("arena.plan", k_mode=self.k_mode, lanes=s,
+                      k_max=k_max):
+            if self.k_mode == "auto":
+                plan = self._plan(bank, grid, num_rounds)
+            elif self.k_mode == "pad" or ks.size == 1:
                 plan = DispatchPlan.padded(grid.sample_count)
-            params, queues, metrics = self._run_group(
-                global_params, sp, bank, grid, h_all, lr_seq, k_max,
-                drop_all=drop_all, replay=(rep_sel, rep_keys), **common)
-            queues = queues.cpu().numpy()
-            buckets = [dict(lanes=list(range(s)), k_pad=k_max, tiers=tiers,
-                            dispatches=1)]
-        else:
-            with obs.span("arena.plan", k_mode="group", lanes=s,
-                          k_max=k_max):
+            else:
                 plan = DispatchPlan.grouped(grid.sample_count)
-            params, queues, metrics, buckets = None, np.zeros(
-                (s, n), np.float32), {}, []
-            for k in ks:
-                idx = np.flatnonzero(grid.sample_count == k)
-                idx_t = torch.as_tensor(idx, device=dev)
-                p_g, q_g, m_g = self._run_group(
-                    global_params, sp, bank, grid.take(idx),
-                    h_all[idx_t], lr_seq, int(k),
-                    drop_all=None if drop_all is None else drop_all[idx_t],
-                    replay=(None if rep_sel is None
-                            else rep_sel[idx_t][:, :, :k],
-                            None if rep_keys is None
-                            else rep_keys[idx_t][:, :, :k]), **common)
-                buckets.append(dict(lanes=[int(i) for i in idx],
-                                    k_pad=int(k), tiers=tiers,
-                                    dispatches=1))
-                queues[idx] = q_g.cpu().numpy()
-                if params is None:
-                    params = {name: torch.empty((s,) + tuple(v.shape[1:]),
-                                                dtype=v.dtype, device=dev)
-                              for name, v in p_g.items()}
-                for name, v in p_g.items():
-                    params[name].index_copy_(0, idx_t, v)
-                for name, v in m_g.items():
-                    if name == "selected" and v.shape[-1] < k_max:
-                        v = np.concatenate([v, np.full(
-                            v.shape[:-1] + (k_max - v.shape[-1],), -1,
-                            v.dtype)], axis=-1)
-                    if name not in metrics:
-                        metrics[name] = np.zeros((s,) + v.shape[1:],
-                                                 v.dtype)
-                    metrics[name][idx] = v
-        meta.update(dispatches=len(buckets), plan=plan.describe(),
-                    buckets=buckets)
+        params, queues, metrics, buckets = self._run_plan(
+            global_params, sp, bank, grid, h_all, lr_seq, plan,
+            eval_bank=eval_bank, eval_every=eval_every, drop_all=drop_all,
+            replay=(rep_sel, rep_keys), chunk_size=chunk_size,
+            chunk_store=chunk_store, digests=digests)
+        meta.update(dispatches=sum(b["dispatches"] for b in buckets),
+                    plan=plan.describe(), buckets=buckets)
         return RolloutReport(grid=grid, num_rounds=num_rounds,
                              params=params, queues=queues, metrics=metrics,
                              meta=meta,
@@ -759,5 +1039,6 @@ class Arena:
     def warmup(self, *args, **kwargs):
         """Eager PyTorch compiles nothing ahead; the JAX package's AOT
         warmup and its retrace watchdog wait."""
-        raise NotImplementedError(f"Arena.warmup (AOT warmup and the "
-                                  f"watchdog) {_LATER}")
+        raise NotImplementedError(
+            "Arena.warmup (AOT warmup and the watchdog) is not ported yet "
+            "(ROADMAP A7, the scenario layer)")

@@ -16,9 +16,10 @@ call, at least one.  Two consumers:
   returning device tensors, for the lane body's in-rollout evaluation
   every ``eval_every`` rounds (``RoundEngine._build_lanes``).
 
-Evaluation runs under ``torch.no_grad``.  ``aot_warm`` and
-``carry_struct`` of the JAX package wait with the arena's warmup
-(ROADMAP A7).
+Evaluation runs under ``torch.no_grad``.  :meth:`carry_struct` gives
+the shapes and dtypes of the in-rollout evaluation's carry (the sweep
+service rebuilds a checkpointed carry from it); ``aot_warm`` of the JAX
+package waits with the arena's warmup (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -94,3 +95,17 @@ class EvalBank:
     def evaluate_one(self, params: Params) -> Dict[str, Any]:
         """Single-model evaluation (host convenience / reference)."""
         return {name: float(v) for name, v in self.metrics_one(params).items()}
+
+    def carry_struct(self, params_example: Params, s: int
+                     ) -> Dict[str, torch.Tensor]:
+        """Shapes and dtypes of the in-rollout last-eval carry for an
+        ``[s, ...]`` lane stack, ``{metric: [s]}``, as tensors on the
+        ``meta`` device (the counterpart of the JAX package's
+        ``ShapeDtypeStruct``).  Derived from the real evaluation, run on
+        one test example of ``params_example`` (one unstacked model), so
+        it cannot drift from what the lane body carries."""
+        with torch.no_grad():
+            out = self.eval_fn(params_example, (self.x[:1], self.y[:1]))
+        return {name: torch.empty((s,) + tuple(v.shape), dtype=v.dtype,
+                                  device="meta")
+                for name, v in out.items()}

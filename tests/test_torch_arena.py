@@ -11,7 +11,9 @@ port's own contracts: pad against group bitwise on the CPU, every lane
 against the port's ``run_scan`` under the arena's contract, the
 ``eval_every`` columns and final evaluation against the JAX
 ``EvalBank``, the grid constructors and their validation against the
-JAX package's, and the modes that are not ported yet."""
+JAX package's, and the options that are not ported yet (``mesh=``,
+``warmup``); the chunked, planned and mapped modes are held in
+``tests/test_torch_streaming.py``."""
 
 import dataclasses
 
@@ -433,22 +435,14 @@ def test_grid_validation_matches_reference(case):
     assert messages[0] == messages[1]
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(batch="map"), dict(k_mode="auto"), dict(mesh=object()),
-    dict(chunk_size=2), dict(cost_model=object()),
-    dict(max_executables=2)],
-    ids=["map", "auto", "mesh", "chunk_size", "cost_model",
-         "max_executables"])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object())], ids=["mesh"])
 def test_unported_modes_raise(bed, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         tsim.Arena(bed["teng"], **kwargs)
 
 
 def test_unported_run_options_raise(bed):
     arena = tsim.Arena(bed["teng"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        arena.run(bed["tp0"], bed["tp"], bed["tbank"], bed["tgrid"], T,
-                  bed["lr"], chunk_size=1)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         arena.warmup(bed["tp0"], bed["tp"], bed["tbank"], bed["tgrid"], T)
     with pytest.raises(ValueError):

@@ -408,6 +408,15 @@ def test_pool_and_hierarchical_round_on_the_card_match_the_cpu(cuda):
     _chip_smoke().phase_reference_pool()
 
 
+@pytest.mark.cuda
+def test_sweep_on_the_card_matches_the_cpu(cuda):
+    """The sweep service on the tiered testbed (``reference.sweep``):
+    killed and resumed bitwise on each device, another lr schedule
+    finding no checkpoint, card against CPU within 1e-6 (queues 1e-4),
+    one lane launch per bucket round."""
+    _chip_smoke().phase_reference_sweep()
+
+
 # (B, H, Hkv, Sq, Sk, D): tests/test_kernels.py, then a D = 128 and a
 # D = 256 point with several query and kv tiles and ragged ends (Sq <= Sk,
 # so every query row sees at least one key under every mask below)
