@@ -45,14 +45,24 @@ error is caught):
    or soft-cap; each element within (atol, rtol), the relative L2 error
    of the output and of every query row within their limits; ``floor.sfu``, beside the bound, the
    special-function-unit floor of one exp2 and, with the soft-cap, one
-   tanh per visible pair at the main-path points),
+   tanh per visible pair at the main-path points; one point at each
+   other family's shape class, :data:`FAMILY_FLASH`: recurrentgemma's
+   local layers (D 256, one KV head, window 2048), Whisper's encoder
+   (non-causal, S 1500, D 64) and its cross-attention (192 and 1
+   queries against 1500 keys), granite-moe (a group of 3), qwen2-vl (a
+   group of 7) and grok-1 (soft-cap 30), each beside SDPA at the same
+   shape and mask),
    ``kernel.ssd_chunk`` (its two launches, scores and chunk, timed
    together; no single PyTorch call);
 4. reference — a small LROA trainer run on the card against the same
-   run on the CPU; reference.lm — the smoke gemma2-27b (flash, binding
-   window) and mamba2-130m served greedily on the card and on the CPU
-   with the same parameters: equal tokens, logits within 1e-4 (the CPU
-   path is held against the JAX package by the tests); reference.scan —
+   run on the CPU; reference.lm — the smoke LMs of
+   :data:`LM_REFERENCE` (gemma2-27b on the flash path with a binding
+   window, mamba2-130m, granite-moe, grok-1, recurrentgemma, Whisper,
+   qwen2-vl, and gemma2 with int8 global caches) served greedily on the
+   card and on the CPU with the same parameters and inputs: equal
+   tokens, logits within 1e-4 (the int8 case's decode within 1e-3), the
+   card's launches per layer kind as :func:`expected_launches` counts
+   them (the CPU path is held against the JAX package by the tests); reference.scan —
    ``RoundEngine.run_scan`` under each of the seven controllers
    (``repro_torch.core.POLICIES``), then LROA with 20% dropout and with
    padded K, on the card against the same rollouts on the CPU (T = 3):
@@ -126,7 +136,21 @@ error is caught):
    tokens, 32 greedy tokens, exactly 24 launches of each SSD kernel
    (``ssd_scores`` and ``ssd_chunk``, 48 in all) in prefill and none in
    decode;
-8. the ``kernels`` JSON line, then the last line
+8. the other families at full width under ``dryrun_config`` (bf16, the
+   flash path), random weights from a seed, each freed before the next
+   (:data:`FAMILY_SERVE`): serve.granite_moe (all 32 layers, 40 experts
+   top-8 in 16 token groups, 2 x 4096 tokens, 16 new), serve.qwen2_vl
+   (28 layers, 2 x 4096 tokens whose first 256 are seeded vision
+   patches, M-RoPE ids, 16 new), serve.recurrentgemma (26 layers, 2 x
+   4352 tokens: the 2048 window binds and the local rings wrap, 16 new),
+   serve.whisper (4 encoder and 4 decoder layers, 8 x 1500 seeded audio
+   frames, 192-token decoder prompts, 32 new) and serve.grok (4 of
+   grok-1's 64 layers, logged as serve.grok.cut: all 64 do not fit the
+   card; 2 x 2048 tokens, 8 new): finite logits, the token shape, and
+   the flash launches of :func:`expected_launches` (one per attention
+   layer in prefill: 32, 28, 8, 12 and 4; in decode none, but Whisper's
+   4 cross-attention launches a step);
+9. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Float32 matmuls and convolutions run in full f32 (TF32 off), so the card
@@ -2229,6 +2253,35 @@ SSD_SWEEP = ((1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
              (1, 48, 1, 32, 16, 16))
 GEMMA_SERVE = dict(batch=2, prompt_len=4352, new_tokens=16, seed=1)
 MAMBA_SERVE = dict(batch=4, prompt_len=2048, new_tokens=32, seed=1)
+# the flash kernel at the shape class of each family that the serve
+# phases below run, as its prefill (and Whisper's decode) gives it, bf16:
+# (label, (B, H, Hkv, Sq, Sk, D), causal, window, soft-cap)
+FAMILY_FLASH = (
+    ("recurrentgemma.local", (2, 10, 1, 4352, 4352, 256), True, 2048, 0.0),
+    ("whisper.encoder", (8, 6, 6, 1500, 1500, 64), False, 0, 0.0),
+    ("whisper.cross", (8, 6, 6, 192, 1500, 64), False, 0, 0.0),
+    ("whisper.cross_decode", (8, 6, 6, 1, 1500, 64), False, 0, 0.0),
+    ("granite_moe", (2, 24, 8, 4096, 4096, 64), True, 0, 0.0),
+    ("qwen2_vl", (2, 28, 4, 4096, 4096, 128), True, 0, 0.0),
+    ("grok", (2, 48, 8, 2048, 2048, 128), True, 0, 30.0),
+)
+FAMILY_LABELS = tuple(p[0] for p in FAMILY_FLASH)
+# the new families' serving runs at full width: (phase, arch, depth cut
+# or None, batch and prompts); Whisper's prompt is its decoder's, its
+# 1500 audio frames and qwen2-vl's 256 leading patches come from a seed
+FAMILY_SERVE = (
+    ("granite_moe", "granite-moe-3b-a800m", None,
+     dict(batch=2, prompt_len=4096, new_tokens=16, seed=1)),
+    ("qwen2_vl", "qwen2-vl-7b", None,
+     dict(batch=2, prompt_len=4096, new_tokens=16, seed=1)),
+    ("recurrentgemma", "recurrentgemma-2b", None,
+     dict(batch=2, prompt_len=4352, new_tokens=16, seed=1)),
+    ("whisper", "whisper-tiny", None,
+     dict(batch=8, prompt_len=192, new_tokens=32, seed=1)),
+    # 4 of grok-1's 64 layers: all 64 (631 GB in bf16) do not fit 80 GB
+    ("grok", "grok-1-314b", 4,
+     dict(batch=2, prompt_len=2048, new_tokens=8, seed=1)),
+)
 # what each redesigned kernel does: the header comment of its source
 DESIGNS = {name: f"the header comment of src/repro_torch/kernels/csrc/"
                  f"{name}.cu" for name in ("flash_attention", "ssd_chunk")}
@@ -2251,8 +2304,10 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
                 sfu_ops_per_s: float) -> list:
     """The flash kernel against ``ref.mha_reference`` at gemma2-27b's
     prefill (global and local layers, and the plain causal point that
-    ``scaled_dot_product_attention`` is timed at) and at the sweep of
-    tests/test_kernels.py in f32 and bf16."""
+    ``scaled_dot_product_attention`` is timed at), at the shape class of
+    each family the serve phases run (:data:`FAMILY_FLASH`, each beside
+    SDPA at the same shape, mask and window; SDPA has no soft-cap) and at
+    the sweep of tests/test_kernels.py in f32 and bf16."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2268,6 +2323,10 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
                                          ("gemma2.global.bshd", 0, GEMMA_CAP),
                                          ("gemma2.local", 4096, GEMMA_CAP),
                                          ("gemma2.causal_plain", 0, 0.0))]
+    points += [dict(label=label, shape=shape, dtype=torch.bfloat16,
+                    causal=causal, window=window, softcap=cap, scale=None,
+                    iters=10, family=True)
+               for label, shape, causal, window, cap in FAMILY_FLASH]
     for shape in FLASH_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
             for causal, window, cap in FLASH_MASKS:
@@ -2320,7 +2379,18 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
             nbytes, flops, hbm,
             bf16_peak if dtype == torch.bfloat16 else f32_peak)
         library_ms = None
-        if pt["label"] == "gemma2.causal_plain":
+        if pt.get("family"):
+            mask = None
+            if pt["window"] > 0:
+                qp = torch.arange(sq, device="cuda")[:, None]
+                kp = torch.arange(sk, device="cuda")[None, :]
+                mask = (kp <= qp) & (kp > qp - pt["window"])
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask,
+                is_causal=pt["causal"] and mask is None,
+                enable_gqa=True), iters=pt["iters"], flush=flush)
+            del mask
+        elif pt["label"] == "gemma2.causal_plain":
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, scale=pt["scale"],
                 enable_gqa=True), iters=pt["iters"], flush=flush)
@@ -2351,7 +2421,7 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
             gflop=flops * 1e-9, mbytes=nbytes * 1e-6)
         row["tflop_per_s"] = flops / row["ms"] * 1e-9
         log("kernel.flash_attention", **row)
-        if pt["label"] != "sweep":
+        if pt["label"] != "sweep" and not pt.get("family"):
             # a floor derived from the SM count and clock, not a reading:
             # one exp2 and, with the soft-cap, one tanh per visible pair
             log("floor.sfu", label=pt["label"], sfu_ops=sfu_ops,
@@ -2431,13 +2501,30 @@ def phase_ssd(flush, hbm: float, f32_peak: float, bf16_peak: float) -> list:
     return rows
 
 
-# the smoke configs of tests/test_torch_lm.py: gemma2 on the flash path
-# with GQA and a window shorter than the prompt (it binds in prefill and
-# the local ring wraps in decode), and mamba2
-LM_REFERENCE = (("gemma2-27b", dict(attn_impl="flash", flash_block_q=16,
-                                    flash_block_kv=16, num_kv_heads=2,
+# the smoke configs of tests/test_torch_lm.py and of the families' tests:
+# gemma2 on the flash path with GQA and a window shorter than the prompt
+# (it binds in prefill and the local ring wraps in decode), mamba2, the
+# MoE pair, recurrentgemma (its 16-slot ring wraps), Whisper, qwen2-vl,
+# and gemma2 with int8 global caches (quantized_kv); all on the flash
+# path, so the card launches the kernel where a layer attends
+LM_FLASH = dict(attn_impl="flash", flash_block_q=16, flash_block_kv=16)
+LM_REFERENCE = (("gemma2-27b", dict(LM_FLASH, num_kv_heads=2,
                                     window_size=16)),
-                ("mamba2-130m", {}))
+                ("mamba2-130m", {}),
+                ("granite-moe-3b-a800m", dict(LM_FLASH, moe_groups=2)),
+                ("grok-1-314b", dict(LM_FLASH, moe_groups=2)),
+                ("recurrentgemma-2b", dict(LM_FLASH, window_size=16)),
+                ("whisper-tiny", LM_FLASH),
+                ("qwen2-vl-7b", LM_FLASH),
+                ("gemma2-27b", dict(LM_FLASH, num_kv_heads=2, window_size=16,
+                                    quantized_kv=True)))
+# int8 KV caches: the card's K/V floats differ from the CPU's in the last
+# bit (other matmul orders), so a value on a code's rounding edge can take
+# the neighbouring code on one device; one code step (the head's amax /
+# 127) in one cached value moves the decode logits by up to about 3.5e-4
+# (tests/test_torch_kv_int8.py), so decode logits are held within 1e-3
+# there and everything else within 1e-4
+LM_TOL, LM_INT8_DECODE_TOL = 1e-4, 1e-3
 
 
 def _launch_counts() -> dict:
@@ -2455,11 +2542,61 @@ def _reset_launch_counts() -> None:
         mod.reset_launch_counts()
 
 
-def phase_reference_lm(devices=("cpu", "cuda")) -> None:
-    """The smoke LMs served greedily on the card and on the CPU with the
-    same parameters (drawn on the CPU, copied to the card): equal tokens,
-    logits within 1e-4 in f32.  The card's prefill launches one kernel
-    per attention (flash) or SSD layer, the CPU's none.  Also run by
+def expected_launches(cfg, prompt_len: int) -> dict:
+    """{kernel: (launches in prefill, launches per decode step)} on the
+    card, from the model's layers: each attention layer that takes the
+    flash path launches the flash kernel once per prefill (Whisper's
+    encoder layers, decoder self-attention and cross-attention layers
+    too) and each cross-attention layer once per decode step; each SSD
+    layer launches its two kernels once per prefill; nothing else
+    launches."""
+    from repro_torch.models.attention import _use_flash
+
+    counts = {k: (0, 0) for k in _launch_counts()}
+    if cfg.is_encoder_decoder:
+        t, n = cfg.encoder_seq_len, cfg.num_layers
+        counts["flash_attention"] = (
+            cfg.encoder_layers * _use_flash(cfg, t, t)
+            + n * _use_flash(cfg, prompt_len, prompt_len)
+            + n * _use_flash(cfg, prompt_len, t),
+            n * _use_flash(cfg, 1, t))
+        return counts
+    blocks = cfg.all_blocks
+    attn = sum(k in ("global", "local") for k in blocks)
+    counts["flash_attention"] = (
+        attn * _use_flash(cfg, prompt_len, prompt_len), 0)
+    ssd = sum(k == "ssd" for k in blocks)
+    counts["ssd_scores"] = counts["ssd_chunk"] = (ssd, 0)
+    return counts
+
+
+def family_inputs(cfg, batch: int, seed: int, device) -> dict:
+    """The stubbed front ends' outputs, from a seeded generator on
+    ``device`` in the activations' dtype: Whisper's audio frames
+    (``frame_embeds`` [B, 1500, d]) or qwen2-vl's patch embeddings
+    (``vision_embeds`` [B, 256, d]); {} for the other families."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.is_encoder_decoder:
+        shape, name = (batch, cfg.encoder_seq_len, cfg.d_model), \
+            "frame_embeds"
+    elif cfg.family == "vlm":
+        shape, name = (batch, cfg.vision_patches, cfg.d_model), \
+            "vision_embeds"
+    else:
+        return {}
+    return {name: torch.randn(shape, generator=gen, device=device).to(dtype)}
+
+
+def phase_reference_lm(devices=("cpu", "cuda"),
+                       cases=LM_REFERENCE) -> None:
+    """The smoke LMs of :data:`LM_REFERENCE` served greedily on the card
+    and on the CPU with the same parameters and inputs (drawn on the CPU,
+    copied to the card): equal tokens, logits within 1e-4 in f32 (int8
+    caches: decode logits within :data:`LM_INT8_DECODE_TOL`).  The card
+    launches what :func:`expected_launches` says in prefill and in each
+    decode step, the CPU nothing.  Also run by
     ``tests/test_torch_cuda.py``."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import synthetic_lm_tokens
@@ -2467,50 +2604,63 @@ def phase_reference_lm(devices=("cpu", "cuda")) -> None:
     from repro_torch.launch.steps import build_model
     from repro_torch.models.transformer import tree_map
 
-    for arch, over in LM_REFERENCE:
+    new_tokens, prompt_len = 16, 24
+    for arch, over in cases:
         cfg = dataclasses.replace(get_smoke_config(arch), **over)
         params = build_model(cfg, device="cpu").init(
             torch.Generator().manual_seed(0))
         prompts = torch.as_tensor(synthetic_lm_tokens(
-            3, 24, cfg.vocab_size, seed=1))
+            3, prompt_len, cfg.vocab_size, seed=1))
+        extra = family_inputs(cfg, 3, 2, "cpu")
         runs = []
         for device in devices:
             model = build_model(cfg, device=device)
             p = tree_map(lambda t, device=device: t.to(device), params)
+            marks = {}
             _reset_launch_counts()
-            toks, logits = greedy_generate(model, p, prompts.to(device), 16)
+            toks, logits = greedy_generate(
+                model, p, prompts.to(device), new_tokens,
+                mark=lambda name: marks.update({name: _launch_counts()}),
+                **{k: v.to(device) for k, v in extra.items()})
+            pre, end = marks["prefill"], marks["decode"]
             runs.append((toks.cpu(), [lg.cpu() for lg in logits],
-                         _launch_counts()))
+                         {k: (pre[k], end[k] - pre[k]) for k in pre}))
         (tc, lc, _), (tg, lg, _) = runs
-        err = max(float((a - b).abs().max()) for a, b in zip(lc, lg))
-        kernels = lm_kernels(cfg)
-        launches = {d: {k: n[k] for k in kernels}
-                    for d, (_, _, n) in zip(devices, runs)}
-        log("reference.lm", arch=arch, tokens_equal=bool(torch.equal(tc, tg)),
-            logits_max_abs_err=err, tol=1e-4, launches=launches)
+        err_prefill = float((lc[0] - lg[0]).abs().max())
+        err_decode = max(float((a - b).abs().max())
+                         for a, b in zip(lc[1:], lg[1:]))
+        decode_tol = LM_INT8_DECODE_TOL if cfg.quantized_kv else LM_TOL
+        want = expected_launches(cfg, prompt_len)
+        launches = {d: {k: n for k, n in counts.items() if any(n)}
+                    for d, (_, _, counts) in zip(devices, runs)}
+        log("reference.lm", arch=arch, quantized_kv=cfg.quantized_kv,
+            tokens_equal=bool(torch.equal(tc, tg)),
+            logits_max_abs_err=max(err_prefill, err_decode),
+            prefill_logits_max_abs_err=err_prefill,
+            decode_logits_max_abs_err=err_decode, tol=LM_TOL,
+            decode_tol=decode_tol, launches=launches,
+            expected_card_launches={k: n for k, n in want.items() if any(n)})
         require(torch.equal(tc, tg), f"{arch}: card and CPU tokens equal")
-        require(err <= 1e-4, f"{arch}: card and CPU logits within 1e-4")
-        for device, counts in launches.items():
-            want = cfg.num_layers if device == "cuda" else 0
-            require(all(n == want for n in counts.values()),
-                    f"{arch}: {want} launches of each of {kernels} on "
-                    f"{device}, got {counts}")
-
-
-def lm_kernels(cfg) -> tuple:
-    """The kernels one prefill layer of ``cfg`` launches once each."""
-    if cfg.family == "ssm":
-        return ("ssd_scores", "ssd_chunk")
-    return ("flash_attention",)
+        require(err_prefill <= LM_TOL,
+                f"{arch}: card and CPU prefill logits within {LM_TOL}")
+        require(err_decode <= decode_tol,
+                f"{arch}: card and CPU decode logits within {decode_tol}")
+        for device, (_, _, counts) in zip(devices, runs):
+            on_card = torch.device(device).type == "cuda"
+            for kernel, (pre, dec) in counts.items():
+                wp, wd = want[kernel] if on_card else (0, 0)
+                require((pre, dec) == (wp, wd * (new_tokens - 1)),
+                        f"{arch}: {kernel} launches on {device}: prefill "
+                        f"{pre}, decode {dec}; expected {wp} and "
+                        f"{wd} x {new_tokens - 1}")
 
 
 def serve(arch: str, cfg, spec: dict, device="cuda") -> dict:
     """One greedy generation through the port's serving entry points,
     with the kernel counts set to 0 just before it and read after
-    prefill and after decode.  On the card every prefill layer of the
-    model launches each of its kernels (:func:`lm_kernels`) once and
-    decode launches nothing; on the CPU (a rehearsal at a small size)
-    nothing launches."""
+    prefill and after decode.  On the card the launches in prefill and
+    in each decode step are those of :func:`expected_launches`; on the
+    CPU (a rehearsal at a small size) nothing launches."""
     from repro_torch.data import synthetic_lm_tokens
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.launch.steps import build_model
@@ -2526,6 +2676,7 @@ def serve(arch: str, cfg, spec: dict, device="cuda") -> dict:
     prompts = torch.as_tensor(synthetic_lm_tokens(
         spec["batch"], spec["prompt_len"], cfg.vocab_size,
         seed=spec["seed"]), device=device)
+    extra = family_inputs(cfg, spec["batch"], spec["seed"] + 1, device)
     t_tokens = time.perf_counter() - t0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -2537,6 +2688,8 @@ def serve(arch: str, cfg, spec: dict, device="cuda") -> dict:
     log(f"serve.{arch}.setup", params=param_count(params),
         params_bytes=param_bytes(params), init_s=t_init,
         prompt_tokens_s=t_tokens, layers=cfg.num_layers,
+        encoder_layers=cfg.encoder_layers or None,
+        inputs={k: list(v.shape) for k, v in extra.items()},
         dtype=cfg.dtype, attn_impl=cfg.attn_impl)
 
     marks = {}
@@ -2549,12 +2702,13 @@ def serve(arch: str, cfg, spec: dict, device="cuda") -> dict:
     _reset_launch_counts()
     t0 = time.perf_counter()
     toks, logits = greedy_generate(model, params, prompts,
-                                   spec["new_tokens"], mark=mark)
+                                   spec["new_tokens"], mark=mark, **extra)
     (t_pre, n_pre), (t_dec, n_dec) = marks["prefill"], marks["decode"]
     prefill_s, decode_s = t_pre - t0, t_dec - t_pre
     launches_decode = {k: n_dec[k] - n_pre[k] for k in n_dec}
     finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
     b, new = spec["batch"], spec["new_tokens"]
+    want = expected_launches(cfg, spec["prompt_len"])
     summary = dict(
         batch=b, prompt_len=spec["prompt_len"], new_tokens=new,
         prefill_s=prefill_s, decode_s=decode_s,
@@ -2565,19 +2719,44 @@ def serve(arch: str, cfg, spec: dict, device="cuda") -> dict:
         peak_mem_bytes=torch.cuda.max_memory_allocated() if on_card
         else None,
         launches_prefill=n_pre, launches_decode=launches_decode,
+        expected_launches={k: list(n) for k, n in want.items() if any(n)},
         logits_finite=finite, tokens=toks[:, :8].tolist())
     log(f"serve.{arch}", **summary)
     require(finite, f"{arch}: finite logits")
     require(tuple(toks.shape) == (b, new), f"{arch}: {new} tokens each")
-    want = cfg.num_layers if on_card else 0
-    for kernel in lm_kernels(cfg):
-        require(n_pre[kernel] == want,
-                f"{arch}: {want} {kernel} launches in prefill, got "
+    for kernel, (wp, wd) in want.items():
+        wp, wd = (wp, wd * (new - 1)) if on_card else (0, 0)
+        require(n_pre[kernel] == wp,
+                f"{arch}: {wp} {kernel} launches in prefill, got "
                 f"{n_pre[kernel]}")
-    require(all(n == 0 for n in launches_decode.values()),
-            f"{arch}: no kernel launches in decode, got {launches_decode}")
+        require(launches_decode[kernel] == wd,
+                f"{arch}: {wd} {kernel} launches in decode, got "
+                f"{launches_decode[kernel]}")
     summary.update(model=model, params=params, prompts=prompts)
     return summary
+
+
+def phase_serve_family(phase: str, arch: str, depth, spec: dict,
+                       device="cuda") -> dict:
+    """One of :data:`FAMILY_SERVE`: ``arch`` at full width under
+    ``dryrun_config`` (bf16, the flash path; the MoE family in 16 token
+    groups), random weights from a seed, ``depth`` layers where given
+    (the cut is logged), through :func:`serve`; the model and its
+    parameters are freed before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import dryrun_config
+
+    cfg = dryrun_config(get_config(arch))
+    if depth is not None:
+        log(f"serve.{phase}.cut", num_layers=cfg.num_layers, kept=depth)
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    run = serve(phase, cfg, spec, device)
+    for key in ("model", "params", "prompts"):
+        del run[key]
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return run
 
 
 def phase_serve_gemma2() -> dict:
@@ -2643,12 +2822,13 @@ def kernels_line(points: list, leaves: dict, lanes: list,
                  main_summary: dict, single_summary: dict,
                  scan_summary: dict, arena_summary: dict, map_summary: dict,
                  sweep_summary: dict, flash: list, ssd: list, gemma: dict,
-                 mamba: dict, smi: str, sass: dict) -> dict:
+                 mamba: dict, families: dict, smi: str, sass: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
     paths (the LROA rounds on the ladder and on the single bucket, the
     seven controllers' rollouts and the mapped arena's lane rounds; the
-    arena's and the sweep's lane-batched rounds; the gemma2 and the
-    mamba2 generation) and its numbers at that path's shapes."""
+    arena's and the sweep's lane-batched rounds; the gemma2, mamba2 and
+    the other families' generations) and its numbers at that path's
+    shapes."""
     m = next(p for p in points if (p["n"], p["k"]) == MAIN_POINT[:2]
              and p["dtype"] == "float32")
     fg = next(r for r in flash if r["label"] == "gemma2.global")
@@ -2744,8 +2924,14 @@ def kernels_line(points: list, leaves: dict, lanes: list,
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:93",
-              total(gemma, "flash_attention"),
+              total(gemma, "flash_attention")
+              + sum(total(run, "flash_attention")
+                    for run in families.values()),
               dict(fg, library_ms=fp["library_ms"]),
+              launches_by_path={
+                  "serve.gemma2": total(gemma, "flash_attention"),
+                  **{f"serve.{phase}": total(run, "flash_attention")
+                     for phase, run in families.items()}},
               design=DESIGNS["flash_attention"],
               sass=sass.get("flash_attention"),
               max_abs_err_all_points=max(r["max_abs_err"] for r in flash),
@@ -2760,7 +2946,12 @@ def kernels_line(points: list, leaves: dict, lanes: list,
                                      "bound_ms", "bound_by")},
                   "causal_plain": {
                   k: fp[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by")}}),
+                                     "bound_ms", "bound_by")},
+                  **{r["label"]: {k: r[k] for k in (
+                      "shape", "causal", "window", "softcap", "max_abs_err",
+                      "ms", "plain_ms", "library_ms", "bound_ms",
+                      "bound_by", "kv_tile")}
+                     for r in flash if r["label"] in FAMILY_LABELS}}),
         entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
               "src/repro/kernels/ssd_scan.py:65",
               total(mamba, "ssd_scores") + total(mamba, "ssd_chunk"), sm,
@@ -2920,11 +3111,16 @@ def main() -> int:
     mamba = phase_serve_mamba2()
     for key in ("model", "params", "prompts"):
         del mamba[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = {phase: phase_serve_family(phase, arch, depth, spec)
+                for phase, arch, depth, spec in FAMILY_SERVE}
 
     print(json.dumps(kernels_line(points, leaves, lanes, main_summary,
                                   single_summary, scan_summary,
                                   arena_summary, map_summary, sweep_summary,
-                                  flash, ssd, gemma, mamba, smi, sass)),
+                                  flash, ssd, gemma, mamba, families, smi,
+                                  sass)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,8 +8,9 @@ from the JAX package's numpy-only modules is copied here.
 
 Entry points (``FederatedTrainer``, ``RoundEngine`` and its
 ``run_scan`` rollout, ``ClientBank``, ``SystemParams``, the scenario
-arena ``sim.Arena`` with its ``EvalBank`` and the ``sim.SweepService``;
-the controllers
+arena ``sim.Arena`` with its ``EvalBank`` and the ``sim.SweepService``,
+the LMs of ``launch.steps.build_model`` and ``core.arch_bridge``'s
+``system_params_for_arch``; the controllers
 ``LROAController`` and ``core.baselines``' run on the params' device)
 default to ``device="cuda"``; pass ``device="cpu"`` to run the plain
 PyTorch path, as the tests do.

@@ -2,10 +2,9 @@
 ``repro.configs`` (data only; the port imports nothing of the JAX
 package).  Each entry cites its source model card or paper.
 
-The port's LM slice runs the ``dense`` family with ``global``/``local``
-attention blocks and the ``ssm`` family (``ssd`` blocks); the other
-families are registered here as data and rejected by
-``repro_torch.launch.steps.build_model``.
+``repro_torch.launch.steps.build_model`` builds every family registered
+here: ``dense``, ``ssm``, ``moe``, ``hybrid`` (RG-LRU), ``vlm`` (M-RoPE)
+and ``audio`` (the encoder-decoder).
 """
 
 from __future__ import annotations

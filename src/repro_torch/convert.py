@@ -75,37 +75,52 @@ def _leaf(value, device, dtype) -> torch.Tensor:
 
 def lm_params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
                        device="cuda", dtype=None) -> Dict[str, Any]:
-    """A JAX ``TransformerLM`` parameter tree (nested dicts of numpy
-    leaves) -> the port's tree, which has the same keys and layouts:
-    ``embed`` [V, d], ``blocks/b{j}`` with every leaf stacked over
-    ``num_groups``, ``final_norm``, optional ``lm_head`` [d, V] and
-    ``suffix_blocks/s{j}``; dense weights stay ``[in, out]``.  Leaves
-    keep their dtype (bf16 stays bf16) unless ``dtype`` is given.  The
-    tree's top level and the stacking are checked against ``cfg``."""
-    want = {"embed", "final_norm", "blocks"}
-    if not cfg.tie_embeddings:
-        want.add("lm_head")
-    if cfg.block_pattern_suffix:
-        want.add("suffix_blocks")
+    """A JAX LM parameter tree (nested dicts of numpy leaves) -> the
+    port's tree, which has the same keys and layouts; dense weights stay
+    ``[in, out]``, MoE experts ``[E, d, ff]`` / ``[E, ff, d]``.
+
+    * ``TransformerLM`` (every family but the encoder-decoder):
+      ``embed`` [V, d], ``blocks/b{j}`` with every leaf stacked over
+      ``num_groups``, ``final_norm``, optional ``lm_head`` [d, V] and
+      ``suffix_blocks/s{j}``;
+    * ``EncoderDecoderLM``: ``embed``, ``dec_pos``, ``enc_layers`` and
+      ``dec_layers`` (stacked over ``encoder_layers`` and
+      ``num_layers``), ``enc_final_norm`` and ``final_norm``.
+
+    Leaves keep their dtype (bf16 stays bf16) unless ``dtype`` is given.
+    The tree's top level and the stacking are checked against ``cfg``."""
+    if cfg.is_encoder_decoder:
+        want = {"embed", "dec_pos", "enc_layers", "dec_layers",
+                "enc_final_norm", "final_norm"}
+        stacks = {"enc_layers": cfg.encoder_layers,
+                  "dec_layers": cfg.num_layers}
+    else:
+        want = {"embed", "final_norm", "blocks"}
+        if not cfg.tie_embeddings:
+            want.add("lm_head")
+        if cfg.block_pattern_suffix:
+            want.add("suffix_blocks")
+        stacks = {"blocks": cfg.num_groups}
     if set(np_params) != want:
         raise ValueError(f"{cfg.name}: expected top-level keys "
                          f"{sorted(want)}, got {sorted(np_params)}")
-    blocks = np_params["blocks"]
-    if set(blocks) != {f"b{j}" for j in range(len(cfg.block_pattern))}:
-        raise ValueError(f"{cfg.name}: blocks {sorted(blocks)} do not match "
-                         f"the pattern {cfg.block_pattern}")
+    if not cfg.is_encoder_decoder:
+        blocks = np_params["blocks"]
+        if set(blocks) != {f"b{j}" for j in range(len(cfg.block_pattern))}:
+            raise ValueError(f"{cfg.name}: blocks {sorted(blocks)} do not "
+                             f"match the pattern {cfg.block_pattern}")
 
-    def convert(tree, stacked: bool):
+    def convert(tree, stacked: int):
         if isinstance(tree, Mapping):
             return {k: convert(v, stacked) for k, v in tree.items()}
         t = _leaf(tree, device, dtype)
-        if stacked and t.shape[0] != cfg.num_groups:
-            raise ValueError(f"{cfg.name}: a block leaf of shape "
+        if stacked and t.shape[0] != stacked:
+            raise ValueError(f"{cfg.name}: a layer leaf of shape "
                              f"{tuple(t.shape)} is not stacked over "
-                             f"{cfg.num_groups} groups")
+                             f"{stacked} layers")
         return t
 
-    out = {k: convert(v, k == "blocks") for k, v in np_params.items()}
+    out = {k: convert(v, stacks.get(k, 0)) for k, v in np_params.items()}
     if tuple(out["embed"].shape) != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"{cfg.name}: embed {tuple(out['embed'].shape)}")
     return out

@@ -2,6 +2,9 @@
 allocation (Lyapunov drift-plus-penalty + Algorithm 2), the baselines of
 the paper's comparison, and the controller zoo, in PyTorch."""
 
+from repro_torch.core.arch_bridge import (EdgeProfile, cycles_per_sample,
+                                          system_params_for_arch,
+                                          update_bits)
 from repro_torch.core.baselines import (DivFLController,
                                         UniformDynamicController,
                                         UniformStaticController,

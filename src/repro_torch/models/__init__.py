@@ -1,5 +1,5 @@
 """repro_torch.models — the FL image-classification tasks (CNN, MLP) and
 the LM serving path (``config``, ``layers``, ``flash``, ``attention``,
-``ssm``, ``transformer``)."""
+``ssm``, ``moe``, ``rglru``, ``vlm``, ``transformer``, ``encdec``)."""
 
 from repro_torch.models.cnn import CNNTask, MLPTask

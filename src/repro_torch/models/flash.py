@@ -14,11 +14,14 @@
 * :func:`flash_decode` — one query token against a long KV cache, the
   blockwise online softmax of the JAX version in plain PyTorch (it is a
   jnp scan outside any Pallas kernel there, so it has no kernel here).
+  An int8 cache passes its per-(token, head) scales and each block is
+  dequantized before its scores, as the JAX version does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -75,11 +78,14 @@ def _pv(p: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, *, scale: float, cache_index: int,
                  window: int = 0, softcap: float = 0.0,
-                 block_kv: int = 512) -> torch.Tensor:
+                 block_kv: int = 512,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-token decode against a cache, scanning KV blocks.
 
     q: [B, 1, nq, D]; caches [B, S, nkv, D]; positions after
-    ``cache_index`` (and outside the window) carry zero mass.
+    ``cache_index`` (and outside the window) carry zero mass.  int8
+    caches: pass the f32 scales ``[B, S, nkv]`` of each (token, head).
     """
     b, _, nq, d = q.shape
     sk = k_cache.shape[1]
@@ -90,6 +96,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     for start in range(0, sk, block_kv):
         kb = k_cache[:, start:start + block_kv]
         vb = v_cache[:, start:start + block_kv]
+        if k_scale is not None:
+            kb = kb.to(torch.float32) * \
+                k_scale[:, start:start + block_kv, :, None]
+            vb = vb.to(torch.float32) * \
+                v_scale[:, start:start + block_kv, :, None]
         kpos = kpos_all[start:start + block_kv]
         logits = _scores(q, kb, scale)                    # [B, nq, 1, bkv]
         if softcap > 0:

@@ -3,13 +3,18 @@ norms, rotary embeddings, gated MLPs, soft-capping and the token NLL.
 
 Plain functions on tensors over explicit parameter dicts, in the JAX
 package's layouts (dense weights ``[in, out]``, activations
-``[B, S, ...]``).  Initialisers draw from an explicit ``torch.Generator``
-in float32 and cast to the parameter dtype; they do not reproduce the
-JAX package's threefry draws (the parity tests convert the reference's
-parameters with ``repro_torch.convert.lm_params_from_jax``).
+``[B, S, ...]``).  M-RoPE (qwen2-vl) enters through its tables
+(:func:`mrope_tables`) and :func:`apply_rotary`, as the JAX package's
+attention applies it; Whisper's encoder adds
+:func:`sinusoidal_positions`.  Initialisers draw from an explicit
+``torch.Generator`` in float32 and cast to the parameter dtype; they do
+not reproduce the JAX package's threefry draws (the parity tests convert
+the reference's parameters with
+``repro_torch.convert.lm_params_from_jax``).
 
-Left out (no caller in the port yet): M-RoPE, sinusoidal positions and
-the mesh's sharding constraints.
+Left out (no caller in the port): ``apply_rope`` / ``apply_mrope``
+(the models rotate through the tables) and the mesh's sharding
+constraints.
 """
 
 from __future__ import annotations
@@ -113,6 +118,30 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     return torch.cos(angles), torch.sin(angles)
 
 
+def mrope_tables(positions_thw: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL's M-RoPE (cos, sin) ``[B, S, D/2]`` from ``[3, B, S]``
+    (temporal, height, width) position ids: rotary pair i takes the id
+    stream of the section it falls in (``sections`` split the D/2 pairs
+    t, h, w)."""
+    d_half = head_dim // 2
+    if sum(sections) != d_half:
+        raise ValueError(f"mrope sections {sections} do not sum to "
+                         f"head_dim / 2 = {d_half}")
+    dev = positions_thw.device
+    freqs = rope_frequencies(head_dim, theta, dev)
+    pair = torch.arange(d_half, device=dev)
+    section_id = torch.zeros((d_half,), dtype=torch.int64, device=dev)
+    acc = 0
+    for s in sections[:-1]:
+        acc += s
+        section_id += (pair >= acc).to(torch.int64)
+    pos = positions_thw[section_id]                        # [D/2, B, S]
+    angles = torch.movedim(pos, 0, -1).to(torch.float32) * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor) -> torch.Tensor:
     """x: ``[B, S, H, D]``; cos/sin: ``[B, S, D/2]``; in f32, returned in
@@ -122,6 +151,17 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, dim: int,
+                         device="cuda") -> torch.Tensor:
+    """Whisper's fixed sinusoidal position embeddings ``[S, D]`` (f32):
+    sin then cos of ``pos * exp(-ln(1e4) i / max(D/2 - 1, 1))``."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(-math.log(10_000.0) * idx / max(dim // 2 - 1, 1))
+    angles = pos * inv
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 # --------------------------------------------------------------------------

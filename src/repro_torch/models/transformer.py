@@ -1,8 +1,9 @@
 """Decoder-only LM assembly, ported from ``repro.models.transformer`` for
-the block kinds this slice runs: ``global`` and ``local`` attention
-(gemma2's alternation) and ``ssd`` (Mamba-2).  ``recurrent`` blocks and
-the MoE / encoder-decoder / VLM families raise (ROADMAP.md §A, item
-L1).
+every block kind: ``global`` and ``local`` attention (with a dense MLP or,
+in the ``moe`` family, a mixture of experts), ``recurrent`` (RG-LRU,
+recurrentgemma) and ``ssd`` (Mamba-2), with M-RoPE positions and vision
+embeddings for the ``vlm`` family.  Whisper's encoder-decoder is
+``repro_torch.models.encdec``.
 
 Parameters keep the JAX package's tree, so the parity tests convert it
 leaf for leaf (``repro_torch.convert.lm_params_from_jax``):
@@ -18,11 +19,14 @@ groups; here the layers run as a Python loop, each reading its
 the caches in place and returns them.
 
 One code path serves train, prefill (which also returns the filled
-caches) and decode.  Prefill computes each attention layer's K/V and
-each SSD layer's scan once (the JAX package computes them a second time
-for the cache; the numbers are the same), so on the card a prefill
-launches the flash kernel exactly once per attention layer and the
-SSD-chunk kernel once per SSD layer, and decode launches neither.
+caches) and decode.  Prefill computes each attention layer's K/V, each
+SSD layer's scan and each recurrent layer's scan once (the JAX package
+computes them a second time for the cache; the numbers are the same), so
+on the card a prefill launches the flash kernel exactly once per
+attention layer and the SSD-chunk kernel once per SSD layer, and decode
+launches neither.  The MoE layers' aux losses are summed over the layers
+and returned by :meth:`TransformerLM.apply`; :meth:`TransformerLM.loss`
+adds ``router_aux_loss_coef`` times the sum, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -34,12 +38,12 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.attention import UNPORTED
 from repro_torch.models.config import ModelConfig
 
 PyTree = Any
-KINDS = ("global", "local", "ssd")
 
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a config's dtype name ("float32", "bfloat16")."""
@@ -53,6 +57,12 @@ def tree_map(fn, tree: PyTree) -> PyTree:
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(tree_map(fn, v) for v in tree))
     return fn(tree)
+
+
+def layer_slice(tree: PyTree, g: Optional[int]) -> PyTree:
+    """Layer ``g``'s views of a tree stacked over layers (the tree itself
+    for ``g=None``, an unstacked suffix block)."""
+    return tree if g is None else tree_map(lambda t: t[g], tree)
 
 
 def tree_leaves(tree: PyTree):
@@ -78,27 +88,37 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
     if kind in ("global", "local"):
         p["attn"] = attn.init_attention(gen, cfg, dtype)
         p["mlp_norm"] = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                              dtype)
+        if cfg.family == "moe":
+            p["moe"] = moe_lib.init_moe(gen, cfg, dtype)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                                  dtype)
         if cfg.post_attn_norm:
             p["post_attn_norm"] = L.init_norm(cfg.d_model, cfg.norm, dtype,
                                               dev)
         if cfg.post_ffn_norm:
             p["post_ffn_norm"] = L.init_norm(cfg.d_model, cfg.norm, dtype,
                                              dev)
+    elif kind == "recurrent":
+        p["rglru"] = rglru_lib.init_rglru(gen, cfg, dtype)
+        p["mlp_norm"] = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                              dtype)
     elif kind == "ssd":
         p["ssd"] = ssm_lib.init_ssd(gen, cfg, dtype)
     else:
-        raise NotImplementedError(f"block kind {kind!r} is {UNPORTED}")
+        raise ValueError(f"unknown block kind {kind!r}")
     return p
 
 
 def _prefill_kv_cache(kv: Dict[str, torch.Tensor], cfg: ModelConfig,
                       kind: str) -> Dict[str, torch.Tensor]:
     """This layer's serving cache from its prefill K/V: local layers keep
-    the last ``window`` positions in a ring buffer (slot = pos % ring)."""
+    the last ``window`` positions in a ring buffer (slot = pos % ring);
+    global layers of a ``quantized_kv`` model int8 codes and scales."""
     if kind == "global" and cfg.quantized_kv:
-        raise NotImplementedError(f"the int8 KV cache is {UNPORTED}")
+        (kq, ks), (vq, vs) = (attn.quantize_kv(kv[n]) for n in ("k", "v"))
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     if kind != "local" or not cfg.local_ring_cache:
         return kv
     s = kv["k"].shape[1]
@@ -115,9 +135,13 @@ def _prefill_kv_cache(kv: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def _apply_block(p: Dict[str, PyTree], x: torch.Tensor, cfg: ModelConfig,
                  kind: str, *, rope, cache, cache_index: Optional[int],
-                 mode: str) -> Tuple[torch.Tensor, Optional[PyTree]]:
+                 mode: str
+                 ) -> Tuple[torch.Tensor, Optional[PyTree],
+                            Optional[torch.Tensor]]:
     """One layer.  Returns (x, this layer's cache: the filled cache in
-    prefill, the updated cache in decode, None in train)."""
+    prefill, the updated cache in decode, None in train; the MoE aux loss
+    or None)."""
+    aux = None
     h = L.apply_norm(x, p["pre_norm"], cfg.norm, cfg.norm_eps)
 
     if kind in ("global", "local"):
@@ -134,19 +158,34 @@ def _apply_block(p: Dict[str, PyTree], x: torch.Tensor, cfg: ModelConfig,
                                cfg.norm_eps)
         x = x + out
         h2 = L.apply_norm(x, p["mlp_norm"], cfg.norm, cfg.norm_eps)
-        out2 = L.apply_mlp(p["mlp"], h2, cfg.activation, cfg.gated_mlp)
+        if cfg.family == "moe":
+            # decode is drop-free (dense); train and prefill dispatch as
+            # the config says
+            dispatch = "dense" if mode == "decode" else cfg.moe_dispatch
+            out2, aux = moe_lib.apply_moe(p["moe"], h2, cfg, dispatch)
+        else:
+            out2 = L.apply_mlp(p["mlp"], h2, cfg.activation, cfg.gated_mlp)
         if cfg.post_ffn_norm:
             out2 = L.apply_norm(out2, p["post_ffn_norm"], cfg.norm,
                                 cfg.norm_eps)
-        return x + out2, new_cache
+        return x + out2, new_cache, aux
+
+    if kind == "recurrent":
+        out, new_cache = rglru_lib.apply_rglru(
+            p["rglru"], h, cfg, cache if mode == "decode" else None,
+            return_cache=mode == "prefill")
+        x = x + out
+        h2 = L.apply_norm(x, p["mlp_norm"], cfg.norm, cfg.norm_eps)
+        return x + L.apply_mlp(p["mlp"], h2, cfg.activation,
+                               cfg.gated_mlp), new_cache, aux
 
     if kind == "ssd":
         out, new_cache = ssm_lib.apply_ssd(
             p["ssd"], h, cfg, cache if mode == "decode" else None,
             return_cache=mode == "prefill")
-        return x + out, new_cache
+        return x + out, new_cache, aux
 
-    raise NotImplementedError(f"block kind {kind!r} is {UNPORTED}")
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def init_block_cache(batch: int, seq_len: int, cfg: ModelConfig, kind: str,
@@ -159,9 +198,11 @@ def init_block_cache(batch: int, seq_len: int, cfg: ModelConfig, kind: str,
     if kind == "global":
         return attn.init_kv_cache(batch, seq_len, cfg, dtype,
                                   quantized=cfg.quantized_kv, device=device)
+    if kind == "recurrent":
+        return rglru_lib.init_rglru_cache(batch, cfg, dtype, device=device)
     if kind == "ssd":
         return ssm_lib.init_ssm_cache(batch, cfg, dtype, device=device)
-    raise NotImplementedError(f"block kind {kind!r} is {UNPORTED}")
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 # --------------------------------------------------------------------------
@@ -175,12 +216,6 @@ class TransformerLM:
     place their tensors."""
     cfg: ModelConfig
     device: Any = "cuda"
-
-    def __post_init__(self):
-        bad = sorted(set(self.cfg.all_blocks) - set(KINDS))
-        if bad:
-            raise NotImplementedError(
-                f"{self.cfg.name}: block kinds {bad} are {UNPORTED}")
 
     def layers(self) -> Iterator[Tuple[str, Optional[int], str]]:
         """(cache/param key, group index or None for a suffix block,
@@ -247,21 +282,22 @@ class TransformerLM:
 
     # -- forward ---------------------------------------------------------------
 
-    @staticmethod
-    def _layer(tree: PyTree, g: Optional[int]) -> PyTree:
-        return tree if g is None else tree_map(lambda t: t[g], tree)
-
     def _run_blocks(self, params, x, *, rope, cache, cache_index,
                     mode: str):
+        """(x after the last block, the MoE aux losses summed over the
+        layers (f32 scalar), the caches)."""
         cfg = self.cfg
         caches_out: Dict[str, PyTree] = {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for key, g, kind in self.layers():
             group = params["blocks"] if g is not None \
                 else params["suffix_blocks"]
-            c_in = self._layer(cache[key], g) if mode == "decode" else None
-            x, nc = _apply_block(self._layer(group[key], g), x, cfg, kind,
-                                 rope=rope, cache=c_in,
-                                 cache_index=cache_index, mode=mode)
+            c_in = layer_slice(cache[key], g) if mode == "decode" else None
+            x, nc, a = _apply_block(layer_slice(group[key], g), x, cfg, kind,
+                                    rope=rope, cache=c_in,
+                                    cache_index=cache_index, mode=mode)
+            if a is not None:
+                aux = aux + a
             if mode == "train":
                 continue
             if g is None:
@@ -275,15 +311,24 @@ class TransformerLM:
             tree_map_pair(lambda dst, src: None if dst[g].data_ptr() ==
                           src.data_ptr() else dst[g].copy_(src),
                           caches_out[key], nc)
-        return x, caches_out
+        return x, aux, caches_out
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, vision_embeds=None):
+        """Token embeddings (scaled by sqrt(d) where the config says);
+        ``vision_embeds`` [B, P, d], scaled alike, overwrite the first P
+        positions."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         x = params["embed"][tokens].to(dtype)
+        root_d = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=dtype,
+                                         device=x.device))
         if cfg.embedding_scale:
-            x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=dtype,
-                                            device=x.device))
+            x = x * root_d
+        if vision_embeds is not None:
+            ve = vision_embeds.to(dtype)
+            if cfg.embedding_scale:
+                ve = ve * root_d
+            x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
         return x
 
     def logits(self, params, x):
@@ -306,46 +351,55 @@ class TransformerLM:
 
     def hidden(self, params: PyTree, tokens: torch.Tensor, *,
                positions: Optional[torch.Tensor] = None,
-               mode: str = "train") -> Tuple[torch.Tensor, Optional[PyTree]]:
+               positions_thw: Optional[torch.Tensor] = None,
+               vision_embeds: Optional[torch.Tensor] = None,
+               mode: str = "train"
+               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[PyTree]]:
         """The residual stream after the last block (before the final
-        norm) and, in prefill, the filled caches."""
+        norm), the summed MoE aux loss and, in prefill, the filled caches.
+        ``positions_thw`` [3, B, S]: M-RoPE ids (the ``vlm`` family);
+        ``vision_embeds`` [B, P, d]: patch embeddings for the first P
+        positions."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"mode must be 'train' or 'prefill', got "
                              f"{mode!r}")
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
-        rope = attn.make_rope_tables(self.cfg, positions)
-        x = self._embed(params, tokens)
-        x, caches = self._run_blocks(params, x, rope=rope, cache=None,
-                                     cache_index=None, mode=mode)
-        return x, (caches if mode == "prefill" else None)
+        rope = attn.make_rope_tables(self.cfg, positions, positions_thw)
+        x = self._embed(params, tokens, vision_embeds)
+        x, aux, caches = self._run_blocks(params, x, rope=rope, cache=None,
+                                          cache_index=None, mode=mode)
+        return x, aux, (caches if mode == "prefill" else None)
 
     def apply(self, params: PyTree, tokens: torch.Tensor, *,
               positions: Optional[torch.Tensor] = None,
+              positions_thw: Optional[torch.Tensor] = None,
+              vision_embeds: Optional[torch.Tensor] = None,
               mode: str = "train"
               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[PyTree]]:
         """Full-sequence forward.  Returns (logits, aux_loss, cache|None)."""
-        x, caches = self.hidden(params, tokens, positions=positions,
-                                mode=mode)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux, caches = self.hidden(
+            params, tokens, positions=positions, positions_thw=positions_thw,
+            vision_embeds=vision_embeds, mode=mode)
         return self.logits(params, x), aux, caches
 
     def decode_step(self, params: PyTree, cache: PyTree,
-                    tokens: torch.Tensor, cache_index: int
+                    tokens: torch.Tensor, cache_index: int, *,
+                    positions_thw: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, PyTree]:
         """One-token decode.  tokens: [B, 1]; ``cache`` is updated in place
-        and returned."""
+        and returned; ``positions_thw`` [3, B, 1] for M-RoPE."""
         b, s = tokens.shape
         assert s == 1
         cache_index = int(cache_index)
         positions = torch.full((b, 1), cache_index, dtype=torch.int64,
                                device=tokens.device)
-        rope = attn.make_rope_tables(self.cfg, positions)
+        rope = attn.make_rope_tables(self.cfg, positions, positions_thw)
         x = self._embed(params, tokens)
-        x, new_cache = self._run_blocks(params, x, rope=rope, cache=cache,
-                                        cache_index=cache_index,
-                                        mode="decode")
+        x, _, new_cache = self._run_blocks(params, x, rope=rope, cache=cache,
+                                           cache_index=cache_index,
+                                           mode="decode")
         return self.logits(params, x), new_cache
 
     # -- losses -------------------------------------------------------------

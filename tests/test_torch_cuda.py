@@ -588,13 +588,55 @@ def test_lm_kernels_reject_bad_inputs(cuda):
         sk.ssd_chunk_cuda(x, dt, a_log, bm[:, :16], bm, chunk=8)
 
 
-@pytest.mark.cuda
-def test_lm_on_the_card_matches_the_cpu(cuda):
-    """The smoke gemma2-27b (flash, binding window) and mamba2-130m served
-    greedily on the card and on the CPU: the check ``chip_smoke.py``
-    runs."""
+def _smoke_module():
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    smoke.phase_reference_lm()
+    return smoke
+
+
+# the smoke LMs of chip_smoke.LM_REFERENCE, by position: gemma2 (flash,
+# binding window), mamba2, granite-moe, grok-1, recurrentgemma, Whisper,
+# qwen2-vl and gemma2 with int8 global caches
+LM_CASES = ["gemma2", "mamba2", "granite_moe", "grok", "recurrentgemma",
+            "whisper", "qwen2_vl", "gemma2_int8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(LM_CASES)), ids=LM_CASES)
+def test_lm_on_the_card_matches_the_cpu(cuda, case):
+    """Each smoke LM served greedily on the card and on the CPU, with the
+    launches each layer kind makes: the check ``chip_smoke.py`` runs."""
+    smoke = _smoke_module()
+    assert len(smoke.LM_REFERENCE) == len(LM_CASES)
+    smoke.phase_reference_lm(cases=smoke.LM_REFERENCE[case:case + 1])
+
+
+# the flash kernel at each new family's shape class, small: (B, H, Hkv,
+# Sq, Sk, D), causal, window, soft-cap
+FAMILY_FLASH = [((1, 10, 1, 300, 300, 256), True, 128, 0.0),
+                ((2, 6, 6, 150, 150, 64), False, 0, 0.0),
+                ((2, 6, 6, 24, 150, 64), False, 0, 0.0),
+                ((2, 6, 6, 1, 150, 64), False, 0, 0.0),
+                ((1, 6, 2, 200, 200, 64), True, 0, 0.0),
+                ((1, 7, 1, 200, 200, 128), True, 0, 0.0),
+                ((1, 4, 2, 200, 200, 128), True, 0, 30.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,softcap", FAMILY_FLASH)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_at_the_families_shapes_matches_plain(cuda, shape, causal,
+                                                    window, softcap, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, h, hkv, sq, sk, d = shape
+    q = _randn((b, h, sq, d), 1, dtype, cuda)
+    k = _randn((b, hkv, sk, d), 2, dtype, cuda)
+    v = _randn((b, hkv, sk, d), 3, dtype, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = fa.flash_attention_cuda(q, k, v, **kw)
+    want = ref.mha_reference(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])

@@ -36,6 +36,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tL  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models.transformer import tree_leaves  # noqa: E402
+from repro_torch.models.vlm import mrope_positions  # noqa: E402
 
 # the smoke configs with the flash path exercised: GQA (4 q heads over 2
 # kv heads), 16-wide blocks, and a window shorter than the prompt so the
@@ -99,11 +100,26 @@ def test_synthetic_lm_tokens_bitwise():
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
-def test_build_model_rejects_unported_families():
-    for arch in ("granite-moe-3b-a800m", "grok-1-314b", "recurrentgemma-2b",
-                 "whisper-tiny", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsteps.build_model(tconfigs.get_smoke_config(arch), device="cpu")
+def test_build_model_builds_every_family():
+    """Every registered arch's smoke config builds, initialises the JAX
+    package's parameter tree (keys and shapes) and runs a forward."""
+    from repro_torch.models.encdec import EncoderDecoderLM
+    for arch in sorted(tconfigs.ARCHS):
+        cfg = tconfigs.get_smoke_config(arch)
+        model = tsteps.build_model(cfg, device="cpu")
+        assert isinstance(model, EncoderDecoderLM) == cfg.is_encoder_decoder
+        params = model.init(torch.Generator().manual_seed(0))
+        jp = jax.eval_shape(jbuild(jconfigs.get_smoke_config(arch)).init,
+                            jax.random.PRNGKey(0))
+        assert _shapes(params) == _shapes(jp), arch
+        toks = torch.zeros((1, 24), dtype=torch.long)
+        kw = family_inputs(cfg, 1, "cpu")
+        if cfg.family == "vlm":
+            kw["positions_thw"] = mrope_positions(1, 24, cfg.vision_patches,
+                                                  device="cpu")
+        logits, aux, _ = model.apply(params, toks, **kw)
+        assert logits.shape == (1, 24, cfg.vocab_size), arch
+        assert torch.isfinite(logits).all() and torch.isfinite(aux), arch
 
 
 def test_dryrun_config_is_bf16_flash_without_a_mesh():
@@ -259,6 +275,73 @@ def test_transformer_apply_matches_jax(arch, over):
     batch = {"tokens": toks, "labels": labels}
     _close(tm.loss(tp, {k: torch.as_tensor(v) for k, v in batch.items()}),
            jm.loss(jp, {k: jnp.asarray(v) for k, v in batch.items()}), 1e-4)
+
+
+def family_inputs(cfg, batch: int, device, seed: int = 2) -> dict:
+    """The modality inputs of ``cfg``'s family, from a numpy seed: audio
+    frames ``frame_embeds`` [B, T_enc, d] and VLM patches
+    ``vision_embeds`` [B, P, d] (f32), or nothing."""
+    rng = np.random.default_rng(seed)
+    if cfg.is_encoder_decoder:
+        return {"frame_embeds": torch.as_tensor(rng.standard_normal(
+            (batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32),
+            device=device)}
+    if cfg.family == "vlm":
+        return {"vision_embeds": torch.as_tensor(rng.standard_normal(
+            (batch, cfg.vision_patches, cfg.d_model)).astype(np.float32),
+            device=device)}
+    return {}
+
+
+def jax_serve(jcfg, jm, jp, prompts, new_tokens, extra=None):
+    """The JAX package's serving loop for any family: its
+    ``make_prefill_step`` (frames or patches in the batch), the caches
+    padded against ``init_cache`` as examples/serve_decode.py pads them,
+    then ``make_serve_step`` (Whisper's encoder states in the batch)."""
+    from repro.launch.steps import make_prefill_step, make_serve_step
+    extra = {k: jnp.asarray(v.numpy()) for k, v in (extra or {}).items()}
+    prefill, serve = make_prefill_step(jcfg), make_serve_step(jcfg)
+    b, prompt_len = prompts.shape
+    logits, cache = prefill(jp, {"tokens": prompts, **extra})
+    ref_cache = jm.init_cache(b, prompt_len + new_tokens)
+    cache = jax.tree_util.tree_map(
+        lambda cp, cf: jnp.pad(cp, [(0, cf.shape[i] - cp.shape[i])
+                                    for i in range(cp.ndim)]),
+        cache, ref_cache)
+    step_extra = {}
+    if jcfg.is_encoder_decoder:
+        step_extra["enc_states"] = jm.encode(jp, extra["frame_embeds"])
+    serve = jax.jit(serve)
+    tok = jnp.argmax(logits, axis=-1)[:, None]
+    toks, all_logits = [tok], [logits]
+    for i in range(new_tokens - 1):
+        logits, cache = serve(jp, cache, {
+            "tokens": tok, "cache_index": jnp.asarray(prompt_len + i,
+                                                      jnp.int32),
+            **step_extra})
+        tok = jnp.argmax(logits, axis=-1)[:, None]
+        toks.append(tok)
+        all_logits.append(logits)
+    return np.asarray(jnp.concatenate(toks, axis=1)), all_logits
+
+
+def check_greedy_against_jax(arch, over, new_tokens=12, batch=2,
+                             prompt_len=24, decode_tol=1e-4):
+    """Greedy generation through the port's ``greedy_generate`` against
+    the JAX serving loop: equal tokens, the prefill's logits within 1e-4
+    and every decode step's within ``decode_tol``."""
+    jm, jp, tm, tp = _pair(arch, over)
+    prompts = synthetic_lm_tokens(batch, prompt_len, tm.cfg.vocab_size,
+                                  seed=1)
+    extra = family_inputs(tm.cfg, batch, "cpu")
+    jtoks, jlogits = jax_serve(jm.cfg, jm, jp, jnp.asarray(prompts),
+                               new_tokens, extra)
+    ttoks, tlogits = greedy_generate(tm, tp, torch.as_tensor(prompts),
+                                     new_tokens, **extra)
+    assert np.array_equal(ttoks.numpy(), jtoks)
+    _close(tlogits[0], jlogits[0], 1e-4)
+    for t, j in zip(tlogits[1:], jlogits[1:]):
+        _close(t, j, decode_tol)
 
 
 def _jax_greedy(jm, jp, prompts, new_tokens):

@@ -80,6 +80,46 @@ def test_mha_reference_matches_pallas_kernel(shape, mask, dtype):
     _close(ops.flash_attention(tq, tk, tv, **kw), want, TOL[dtype])
 
 
+# the shape classes the remaining LM families bring to the flash kernel,
+# at small sizes: (label, (B, H, Hkv, Sq, Sk, D), causal, window, softcap)
+FAMILY_POINTS = [
+    # recurrentgemma's local layers: D = 256, MQA (a group of 10), window
+    ("mqa_d256_window", (1, 10, 1, 96, 96, 256), True, 32, 0.0),
+    # Whisper's encoder: D = 64, non-causal, Sk not a block multiple
+    ("noncausal_d64", (2, 6, 6, 75, 75, 64), False, 0, 0.0),
+    # Whisper's cross-attention in prefill and in a decode step
+    ("cross_sq_lt_sk", (2, 6, 6, 24, 75, 64), False, 0, 0.0),
+    ("cross_sq1", (2, 6, 6, 1, 75, 64), False, 0, 0.0),
+    # granite-moe's group of 3, qwen2-vl's of 7, grok's soft-cap of 30
+    ("gqa3", (1, 6, 2, 48, 48, 64), True, 0, 0.0),
+    ("gqa7", (1, 7, 1, 40, 40, 128), True, 0, 0.0),
+    ("softcap30", (1, 4, 2, 48, 48, 128), True, 0, 30.0),
+]
+
+
+@pytest.mark.parametrize("label,shape,causal,window,softcap", FAMILY_POINTS,
+                         ids=[p[0] for p in FAMILY_POINTS])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_at_the_families_shapes_matches_pallas_kernel(
+        label, shape, causal, window, softcap, dtype):
+    """The port's CPU flash path (``ops.flash_attention``, the kernel's
+    plain version) against the Pallas kernel in interpret mode at each
+    new family's shape class, and through ``models.flash`` in the model's
+    [B, S, H, D] layout."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(shape, dtype, 11 + sum(shape))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = flash_attention_tpu(jq, jk, jv, block_q=16, block_kv=16,
+                               interpret=True, **kw)
+    got = ops.flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == TDT[dtype] and got.shape == tq.shape
+    _close(got, want, TOL[dtype])
+    fcfg = tflash.FlashConfig(causal=causal, window=window, softcap=softcap,
+                              scale=shape[-1] ** -0.5)
+    bshd = tflash.flash_attention(*(t.transpose(1, 2) for t in (tq, tk, tv)),
+                                  fcfg)
+    _close(bshd.transpose(1, 2), want, TOL[dtype])
+
+
 def _ssd_inputs(dims, dtype, seed):
     b, s, nh, hd, n, _ = dims
     rng = np.random.default_rng(seed)
