@@ -40,6 +40,11 @@ error is caught):
    fma-order version and the one-lane launches, within TOL of the plain
    version, timed beside the seven one-lane launches and the
    ``torch.baddbmm`` flat yardstick),
+   ``kernel.aggregate_resnet`` (the CIFAR-like testbed's eq.-(4) step at
+   the paper-scale ResNet's 17 leaves, K = 8, f32: one launch, within
+   TOL of the plain per-leaf version, bitwise its fma order, timed
+   beside its bound; then ``ops.fl_aggregate_pytree`` on the same
+   leaves, 17 launches, each leaf bitwise the one-launch call's),
    ``kernel.flash_attention`` (yardstick
    ``scaled_dot_product_attention`` at the causal point without window
    or soft-cap; each element within (atol, rtol), the relative L2 error
@@ -89,7 +94,13 @@ error is caught):
    dropout) coalesced, T = 6, killed after its first checkpoint and
    resumed bitwise on each device, another lr schedule finding no
    checkpoint, card against CPU within 1e-6 (queues 1e-4), one lane
-   launch per bucket round;
+   launch per bucket round; reference.sequential — the sequential
+   reference path (``use_engine=False``) under LROA and DivFL (each
+   update sketch observed before the next client trains) on the card
+   against the CPU (T = 3; selections equal, params, losses, queues and
+   DivFL's update bank within 1e-4), the fused trainer against the
+   sequential one on the card at equal client sizes (losses 1e-5, params
+   2e-5) and ``round_step_stacked`` bitwise ``round_step``;
 5. main path — the paper-scale CNN testbed (N = 120 Dirichlet-0.5
    clients, K = 8, E = 2, batch 16) on the trainer's default bank, the
    4-rung tier ladder: ``warmup()``, then 3 LROA rounds through
@@ -125,6 +136,21 @@ error is caught):
    120-slot ``BankPool`` after 8 evictions and re-admissions (within
    1e-6 of the single bucket's round, storage unmoved) and a clustered
    bucket flat and hierarchical (losses bitwise, params within 1e-5);
+   the paper's Sec.-VII experiments at paper scale on the default bank:
+   paper.cifar (50,000 synthetic 32x32x3 images, Dirichlet 0.5 over 120
+   clients, ``ResNetTask()``, lr 0.05) and paper.femnist (28x28x1, 62
+   classes, ``writer_partition`` over 120 writers, ``CNNTask()``, lr
+   0.1), each LROA, Uni-D, Uni-S and DivFL through ``warmup()`` and
+   ``run(6)`` with ``eval_every=2``: one ``fl_aggregate`` launch per
+   round, rounds/s, accuracy curves, modelled latency, the time to 95%
+   of the worst final accuracy and each baseline's saving against LROA,
+   peak memory, one profiled LROA round (paper.femnist only);
+   paper.sequential (DivFL on the
+   CIFAR-like testbed under ``use_engine=False``, 2 rounds, beside the
+   fused DivFL rounds); paper.heterogeneity (the control-only ablation
+   of ``bench_sweeps.heterogeneity_sweep``: N = 120, K = 2, spreads 1, 2
+   and 4, LROA against Uni-S over 50 rounds of the reference's 150,
+   ``heterogeneous_params`` on the card bitwise the CPU's);
 6. serve.gemma2 — gemma2-27b at full width and depth (46 layers, bf16
    parameters and activations, ``attn_impl='flash'``), random weights
    from a seed: ``greedy_generate`` of 16 tokens after 2 prompts of 4352
@@ -247,6 +273,24 @@ TIERED = dict(SMALL, num_devices=12, sample_count=4, examples=600,
 PAPER_SCALE = dict(num_devices=120, sample_count=8, local_epochs=2,
                    batch_size=16, examples=50_000, image_shape=(32, 32, 3),
                    num_classes=10, width=32, lr=0.1, rounds=2000, seed=0)
+# the paper's Sec.-VII testbeds at paper scale, R rounds of its 2000
+# (PERF.md section 4): CIFAR-10-like (Dirichlet 0.5, ResNetTask at its
+# defaults, the paper's CIFAR lr 0.05) and FEMNIST-like (writer
+# partition, CNNTask at its defaults: 28x28x1, 62 classes, lr 0.1)
+PAPER_CIFAR = dict(PAPER_SCALE, task="resnet", dataset="cifar10", lr=0.05,
+                   rounds=6, eval_every=2)
+PAPER_FEMNIST = dict(PAPER_SCALE, image_shape=(28, 28, 1), num_classes=62,
+                     task="cnn", dataset="femnist", partition="writer",
+                     lr=0.1, rounds=6, eval_every=2)
+# the paper's comparison (benchmarks/bench_convergence.py)
+PAPER_CONTROLLERS = ("lroa", "uni_d", "uni_s", "divfl")
+# rounds of DivFL's sequential reference path at paper scale
+SEQUENTIAL_ROUNDS = 2
+# benchmarks/bench_sweeps.heterogeneity_sweep at N = 120, K = 2: its
+# spreads, and rounds of its control-only rollouts, cut from the
+# reference's 150 to keep the script's time (PERF.md section 4)
+HET_SPREADS = (1.0, 2.0, 4.0)
+HET_ROUNDS = 50
 
 
 @contextlib.contextmanager
@@ -415,12 +459,7 @@ def _leaf_bytes(thetas, deltas) -> int:
 def cnn_leaves(gen, k: int) -> tuple:
     """The paper-scale CNN's parameters (its six leaves) and K stacked
     deltas, on the card, from ``gen``."""
-    from repro_torch.models import CNNTask
-
-    task = CNNTask(image_shape=PAPER_SCALE["image_shape"],
-                   num_classes=PAPER_SCALE["num_classes"],
-                   width=PAPER_SCALE["width"])
-    params = task.init(gen)
+    params = make_task(PAPER_SCALE).init(gen)
     return params, {n: torch.randn((k,) + tuple(p.shape), device="cuda",
                                    generator=gen) * 1e-2
                     for n, p in params.items()}
@@ -606,6 +645,93 @@ def phase_aggregate_leaves(flush, hbm: float, f32_peak: float) -> dict:
     return dict(fused=fused, leaves=rows)
 
 
+def phase_aggregate_resnet(flush, hbm: float, f32_peak: float) -> dict:
+    """The eq.-(4) step of the CIFAR-like testbed's round
+    (``aggregate_fused`` at the paper-scale ResNet's 17 leaves, 694,378
+    params, K = 8, f32): one launch, within TOL of the plain per-leaf
+    version, bitwise its order of arithmetic
+    (``ref.aggregate_leaves_fma_reference``), timed beside its bound as
+    ``kernel.aggregate_fused`` is; then the per-leaf form
+    ``ops.fl_aggregate_pytree`` on the same leaves: 17 launches, each leaf
+    bitwise the one-launch call's."""
+    from repro_torch.fl import server
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    k = MAIN_POINT[1]
+    params = make_task(PAPER_CIFAR).init(gen)
+    stacked = {n: torch.randn((k,) + tuple(p.shape), device="cuda",
+                              generator=gen) * 1e-2
+               for n, p in params.items()}
+    coeffs = torch.softmax(torch.randn(k, device="cuda", generator=gen), 0)
+    names = sorted(params)
+    thetas = [params[n] for n in names]
+    deltas = [stacked[n] for n in names]
+
+    def leaf_path():
+        return server.aggregate_fused(params, stacked, coeffs)
+
+    def pytree_path():
+        return ops.fl_aggregate_pytree(params, stacked, coeffs)
+
+    before = fk.LAUNCHES["fl_aggregate"]
+    new = leaf_path()
+    launches = fk.LAUNCHES["fl_aggregate"] - before
+    before = fk.LAUNCHES["fl_aggregate"]
+    per_leaf = pytree_path()
+    pytree_launches = fk.LAUNCHES["fl_aggregate"] - before
+    plain = ref.aggregate_leaves_reference(thetas, deltas, coeffs)
+    exact = ref.aggregate_leaves_fma_reference(thetas, deltas, coeffs)
+    torch.cuda.synchronize()
+    tol = TOL[torch.float32]
+    close = all(torch.allclose(new[n], w, atol=tol, rtol=tol)
+                for n, w in zip(names, plain))
+    err = max(float((new[n] - w).abs().max()) for n, w in zip(names, plain))
+    bitwise_fma = all(torch.equal(new[n], w) for n, w in zip(names, exact))
+    pytree_bitwise = all(torch.equal(per_leaf[n], new[n]) for n in names)
+    del plain, exact, per_leaf
+    sizes = {n: params[n].numel() for n in names}
+    total = sum(sizes.values())
+    nbytes = _leaf_bytes(thetas, deltas) + 4 * k
+    bound_ms, bound_by = _bound(nbytes, 2 * k * total, hbm, f32_peak)
+    row = dict(
+        leaves=len(names), n=total, k=k, dtype="float32", sizes=sizes,
+        vec={n: fk.vector_width(sizes[n], k, [(params[n].data_ptr(), 4),
+                                              (stacked[n].data_ptr(), 4)])
+             for n in names},
+        launches=launches, tol=tol, max_abs_err=err,
+        bitwise_equal_to_fma_order=bitwise_fma,
+        pytree_launches=pytree_launches,
+        pytree_bitwise_equal_to_one_launch=pytree_bitwise, flush="clean",
+        ms=time_ms(leaf_path, flush=flush, clean=True),
+        plain_ms=time_ms(lambda: ref.aggregate_leaves_reference(
+            thetas, deltas, coeffs), flush=flush, clean=True),
+        pytree_ms=time_ms(pytree_path, flush=flush, clean=True),
+        ms_zero_flush=time_ms(leaf_path, flush=flush),
+        wall_us=wall_us(leaf_path), pytree_wall_us=wall_us(pytree_path),
+        bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes * 1e-6)
+    row["bound_share"] = bound_ms / row["ms"]
+    log("kernel.aggregate_resnet", **row)
+    require(len(names) == 17 and total == 694_378,
+            f"the paper-scale ResNet has 17 leaves and 694,378 params, got "
+            f"{len(names)} and {total}")
+    require(launches == 1, f"aggregate_fused at the ResNet's leaves: one "
+                           f"fl_aggregate launch, got {launches}")
+    require(close, f"aggregate_fused at the ResNet's leaves disagrees with "
+                   f"the plain per-leaf version (err {err}, tol {tol})")
+    require(bitwise_fma, "aggregate_fused at the ResNet's leaves is bitwise "
+                         "its order of arithmetic")
+    require(pytree_launches == len(names),
+            f"fl_aggregate_pytree: one launch per leaf ({len(names)}), got "
+            f"{pytree_launches}")
+    require(pytree_bitwise, "fl_aggregate_pytree is bitwise the one-launch "
+                            "call, leaf by leaf")
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_aggregate_lanes(flush, hbm: float, f32_peak: float) -> list:
     """The lane kernel (``fl_aggregate_lanes_cuda``, the scenario arena's
     eq.-(4) step of every lane in one launch per table) at the CNN's six
@@ -695,45 +821,65 @@ def phase_aggregate_lanes(flush, hbm: float, f32_peak: float) -> list:
     return rows
 
 
+# the controllers of the paper's comparison, by name, in repro_torch.core
+CONTROLLER_CLASSES = {"lroa": "LROAController",
+                      "uni_d": "UniformDynamicController",
+                      "uni_s": "UniformStaticController",
+                      "divfl": "DivFLController"}
+
+
+def make_task(cfg: dict):
+    """``cfg``'s task: the ResNet (``task='resnet'``) or the CNN."""
+    from repro_torch.models import CNNTask, ResNetTask
+
+    cls = ResNetTask if cfg.get("task", "cnn") == "resnet" else CNNTask
+    return cls(image_shape=cfg["image_shape"],
+               num_classes=cfg["num_classes"], width=cfg["width"])
+
+
 def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None,
-                  bank_mode: str = "auto", bank_storage: str = "fp32"):
-    """An LROA ``FederatedTrainer`` on ``cfg``'s testbed, on the bank
-    ``bank_mode`` builds (the trainer's default 'auto': the tier ladder
-    when the partition spans several tiers)."""
-    from repro_torch.core import (LROAController, estimate_hyperparams,
-                                  paper_default_params)
+                  bank_mode: str = "auto", bank_storage: str = "fp32",
+                  controller: str = "lroa", use_engine: bool = True,
+                  client_keys_fn=None):
+    """A ``FederatedTrainer`` on ``cfg``'s testbed under ``controller``
+    (a key of :data:`CONTROLLER_CLASSES`), on the bank ``bank_mode`` builds
+    (the trainer's default 'auto': the tier ladder when the partition
+    spans several tiers); ``use_engine=False`` takes the sequential
+    reference path."""
+    import repro_torch.core as core
     from repro_torch.fl import (ChannelConfig, ChannelProcess, ClientConfig,
                                 FederatedTrainer)
-    from repro_torch.models import CNNTask
     from repro_torch.optim import paper_step_decay
 
-    params = paper_default_params(
+    params = core.paper_default_params(
         num_devices=cfg["num_devices"], sample_count=cfg["sample_count"],
         local_epochs=cfg["local_epochs"], data_sizes=data["sizes"],
-        device=device)
-    task = CNNTask(image_shape=cfg["image_shape"],
-                   num_classes=cfg["num_classes"], width=cfg["width"])
-    hp = estimate_hyperparams(params, 0.1, loss_scale=1.5, mu=1.0, nu=1e5)
+        dataset=cfg.get("dataset", "cifar10"), device=device)
+    hp = core.estimate_hyperparams(params, 0.1, loss_scale=1.5, mu=1.0,
+                                   nu=1e5)
+    cls = getattr(core, CONTROLLER_CLASSES[controller])
     return FederatedTrainer(
-        task, params, LROAController(params, hp),
+        make_task(cfg), params, cls(params, hp),
         ChannelProcess(cfg["num_devices"], ChannelConfig(seed=cfg["seed"])),
         data["clients"],
         ClientConfig(local_epochs=cfg["local_epochs"],
                      batch_size=cfg["batch_size"]),
         paper_step_decay(cfg["lr"], cfg["rounds"]), test_data=data["test"],
-        eval_every=max(cfg["rounds"] // 6, 1), seed=cfg["seed"],
-        bank_mode=bank_mode, bank_storage=bank_storage, device=device,
-        sort_keys_fn=sort_keys_fn)
+        eval_every=cfg.get("eval_every", max(cfg["rounds"] // 6, 1)),
+        seed=cfg["seed"], bank_mode=bank_mode, bank_storage=bank_storage,
+        device=device, sort_keys_fn=sort_keys_fn, use_engine=use_engine,
+        client_keys_fn=client_keys_fn)
 
 
 def make_data(cfg: dict) -> dict:
     """The benchmark testbed (``benchmarks/common.build_testbed``), from
-    the port's numpy copies of the data layer; with ``cfg['sizes']``, the
-    training split cut into clients of those sizes instead of the
-    Dirichlet partition."""
+    the port's numpy copies of the data layer; ``cfg['partition'] ==
+    'writer'`` takes the FEMNIST-like writer partition instead of the
+    Dirichlet one, and with ``cfg['sizes']``, the training split is cut
+    into clients of those sizes."""
     from repro_torch.data import (dirichlet_partition, make_client_datasets,
                                   synthetic_image_classification,
-                                  train_test_split)
+                                  train_test_split, writer_partition)
     x, y = synthetic_image_classification(
         cfg["examples"], cfg["image_shape"], cfg["num_classes"], noise=0.3,
         seed=cfg["seed"])
@@ -742,6 +888,9 @@ def make_data(cfg: dict) -> dict:
         offs = np.cumsum((0,) + tuple(cfg["sizes"]))
         parts = [np.arange(offs[i], offs[i + 1])
                  for i in range(len(cfg["sizes"]))]
+    elif cfg.get("partition") == "writer":
+        parts = writer_partition(ytr, cfg["num_devices"],
+                                 seed=cfg["seed"] + 2)
     else:
         parts = dirichlet_partition(ytr, cfg["num_devices"], 0.5,
                                     seed=cfg["seed"] + 2)
@@ -809,6 +958,135 @@ def phase_reference(devices=("cpu", "cuda"), cfg: dict = SMALL,
     require(sel_equal, "card and CPU select the same clients")
     require(param_err <= 1e-4 and loss_err <= 1e-4 and queue_rel <= 1e-4,
             "card and CPU runs agree within 1e-4")
+
+
+def _seq_run(trainer, device: str, rounds: int) -> tuple:
+    """``rounds`` rounds of ``trainer`` from the CPU generator's init
+    (seed 7): its records, params and queues on the CPU, DivFL's update
+    bank (or None) and the ``fl_aggregate`` launches of each round."""
+    from repro_torch.kernels import fl_aggregate as fk
+
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    trainer.global_params = {
+        name: p.to(device) for name, p in trainer.task.init(gen).items()}
+    recs, launches = [], []
+    for t in range(rounds):
+        before = fk.LAUNCHES["fl_aggregate"]
+        recs.append(trainer.run_round(t))
+        launches.append(fk.LAUNCHES["fl_aggregate"] - before)
+    bank = getattr(trainer.controller, "_update_bank", None)
+    return (recs, {n: p.cpu() for n, p in trainer.global_params.items()},
+            trainer.controller.queues.cpu(),
+            None if bank is None else bank.copy(), launches)
+
+
+def phase_reference_sequential(devices=("cpu", "cuda"), cfg: dict = SMALL,
+                               label: str = "reference.sequential") -> None:
+    """The sequential reference path (``use_engine=False``) on the card
+    against the CPU on the small testbed, under LROA and DivFL (DivFL
+    observing each client's update sketch before the next trains), T = 3,
+    the same init and per-client epoch keys: equal selections, params,
+    losses, queues and DivFL's update bank within 1e-4, no
+    ``fl_aggregate`` launch (the list API aggregates in plain PyTorch on
+    every device).  Then, on the last device, the fused trainer against
+    the sequential one at equal client sizes (no padding; the keys of
+    one numpy stream, read ``[K, E, B]`` by the fused path and ``[E, B]``
+    per client by the sequential one), as ``tests/test_round_engine.py``
+    holds the JAX package's two paths: equal selections, losses within
+    1e-5, params within 2e-5; and ``round_step_stacked`` on the bank's
+    host rows bitwise ``round_step``.  Also run by
+    ``tests/test_torch_cuda.py``."""
+    e = cfg["local_epochs"]
+    data = make_data(cfg)
+    runs = {}
+    for device in devices:
+        for name in ("lroa", "divfl"):
+            key_rng = np.random.default_rng(123)
+            trainer = build_trainer(
+                device, cfg, data, bank_mode="single", controller=name,
+                use_engine=False,
+                client_keys_fn=lambda rows, r=key_rng: r.random(
+                    (e, rows)).astype(np.float32))
+            runs[device, name] = _seq_run(trainer, device, cfg["rounds"])
+    for name in ("lroa", "divfl"):
+        (rc, pc, qc, bc, lc), (rg, pg, qg, bg, lg) = (
+            runs[devices[0], name], runs[devices[-1], name])
+        sel_equal = all(a.selected == b.selected for a, b in zip(rc, rg))
+        param_err = max(float((pc[n] - pg[n]).abs().max()) for n in pc)
+        loss_err = max(abs(a.mean_loss - b.mean_loss)
+                       for a, b in zip(rc, rg))
+        queue_err = float((qc - qg).abs().max())
+        bank_err = (None if bc is None else
+                    float(np.max(np.abs(bc - bg))))
+        log(label, controller=name, rounds=cfg["rounds"],
+            selections=[r.selected for r in rg],
+            selections_equal=sel_equal, param_max_abs_err=param_err,
+            loss_max_abs_err=loss_err, queue_max_abs_err=queue_err,
+            update_bank_max_abs_err=bank_err, tol=1e-4,
+            fl_aggregate_launches=lc + lg)
+        require(sel_equal, f"{label} {name}: card and CPU select the same "
+                           f"clients")
+        require(max(param_err, loss_err, queue_err) <= 1e-4,
+                f"{label} {name}: card and CPU runs agree within 1e-4")
+        require(sum(lc + lg) == 0, f"{label} {name}: the sequential path "
+                                   f"launches no fl_aggregate")
+        if name == "divfl":
+            require(bg is not None and bool(np.any(bg)) and
+                    bank_err <= 1e-4,
+                    f"{label}: DivFL's update bank filled, card and CPU "
+                    f"within 1e-4")
+
+    device = devices[-1]
+    equal = dict(cfg, sizes=(32,) * cfg["num_devices"])
+    data_eq = make_data(equal)
+    paths = {}
+    for use_engine in (True, False):
+        key_rng = np.random.default_rng(5)
+        trainer = build_trainer(
+            device, equal, data_eq, bank_mode="single",
+            use_engine=use_engine,
+            sort_keys_fn=lambda k, r=key_rng: r.random(
+                (k, e, 32)).astype(np.float32),
+            client_keys_fn=lambda rows, r=key_rng: r.random(
+                (e, rows)).astype(np.float32))
+        require(trainer.bank.uniform and trainer.bank.bucket_examples == 32,
+                f"{label}: equal sizes fill one 32-row bucket")
+        paths[use_engine] = _seq_run(trainer, device, cfg["rounds"])
+    (rf, pf, _, _, lf), (rs, ps, _, _, ls) = paths[True], paths[False]
+    sel_equal = all(a.selected == b.selected for a, b in zip(rf, rs))
+    loss_err = max(abs(a.mean_loss - b.mean_loss) for a, b in zip(rf, rs))
+    param_err = max(float((pf[n] - ps[n]).abs().max()) for n in pf)
+    want = 1 if device == "cuda" else 0
+    log(f"{label}.fused", device=device, rounds=cfg["rounds"],
+        selections_equal=sel_equal, loss_max_abs_err=loss_err,
+        param_max_abs_err=param_err, loss_tol=1e-5, param_tol=2e-5,
+        fused_fl_aggregate_launches=lf, sequential_fl_aggregate_launches=ls)
+    require(sel_equal, f"{label}.fused: the two paths select alike")
+    require(loss_err <= 1e-5 and param_err <= 2e-5,
+            f"{label}.fused: losses within 1e-5 and params within 2e-5")
+    require(lf == [want] * cfg["rounds"] and sum(ls) == 0,
+            f"{label}.fused: {want} fl_aggregate launch per fused round, "
+            f"none on the sequential path")
+
+    trainer = build_trainer(device, cfg, data, bank_mode="single")
+    engine, bank = trainer.engine, trainer.bank
+    sel = np.asarray([0, 2, 2], np.int64)[:cfg["sample_count"]]
+    coeffs = np.linspace(0.5, 0.2, sel.size).astype(np.float32)
+    keys = torch.as_tensor(np.random.default_rng(9).random(
+        (sel.size, e, bank.bucket_examples)).astype(np.float32),
+        device=device)
+    xs, ys, ns, ne = bank.gather_host(sel)
+    got, gl = engine.round_step_stacked(trainer.global_params, xs, ys,
+                                        coeffs, 0.1, keys, ns, ne)
+    wanted, wl = engine.round_step(trainer.global_params, bank, sel, coeffs,
+                                   0.1, keys)
+    bitwise = torch.equal(gl, wl) and all(torch.equal(got[n], wanted[n])
+                                          for n in wanted)
+    log(f"{label}.stacked", device=device, selected=sel.tolist(),
+        masked=ns is not None, bitwise_equal=bitwise)
+    require(bitwise, f"{label}.stacked: round_step_stacked is bitwise "
+                     f"round_step")
 
 
 def _rel_err(a, b) -> float:
@@ -2232,6 +2510,259 @@ def phase_scale(trainer, single, data: dict, cfg: dict = PAPER_SCALE
 
 
 # ---------------------------------------------------------------------------
+# the paper's Sec.-VII experiments: the two testbeds, the sequential
+# reference path, the heterogeneity ablation
+# ---------------------------------------------------------------------------
+
+def time_to_accuracy(curve, target: float) -> float:
+    """The modelled time at which an accuracy curve first reaches
+    ``target`` (``benchmarks/bench_convergence.time_to_accuracy``)."""
+    for _, cum, acc in curve:
+        if acc is not None and acc >= target:
+            return cum
+    return float("inf")
+
+
+def phase_paper(label: str, cfg: dict, device: str = "cuda",
+                controllers=PAPER_CONTROLLERS, profile: bool = False
+                ) -> dict:
+    """One of the paper's Sec.-VII testbeds at paper scale on the
+    trainer's default bank (the tier ladder): each controller's
+    ``FederatedTrainer`` runs ``warmup()``, then ``run(R)`` with the
+    launch counts set to 0 just before and read just after.  Each round
+    must make exactly one ``fl_aggregate`` launch (none on the CPU), the
+    losses stay finite and the params change.  Logged per controller:
+    rounds/s, the round times, ``accuracy_curve()``, the modelled total
+    latency, peak memory; across them, as ``bench_convergence.py``
+    computes them: the time to 95% of the worst final accuracy and each
+    baseline's saving against LROA (time to target and total latency).
+    With ``profile``, one more LROA round runs under ``torch.profiler``
+    (the device's busy share; its post-processing takes minutes at the
+    ResNet's 188k launches a round, so ``paper.cifar`` runs without)."""
+    from repro_torch.kernels import fl_aggregate as fk
+
+    on_card = device == "cuda"
+    want = 1 if on_card else 0
+    rounds = cfg["rounds"]
+    t0 = time.perf_counter()
+    data = make_data(cfg)
+    log(f"{label}.setup", data_s=time.perf_counter() - t0,
+        task=cfg.get("task", "cnn"), dataset=cfg["dataset"],
+        partition=cfg.get("partition", "dirichlet"),
+        image_shape=cfg["image_shape"], num_classes=cfg["num_classes"],
+        num_clients=cfg["num_devices"], sample_count=cfg["sample_count"],
+        rounds=rounds, lr=cfg["lr"], sizes_min=float(data["sizes"].min()),
+        sizes_median=float(np.median(data["sizes"])),
+        sizes_max=float(data["sizes"].max()))
+    curves, totals, rows, launches = {}, {}, {}, 0
+    for name in controllers:
+        trainer = build_trainer(device, cfg, data, controller=name)
+        t0 = time.perf_counter()
+        trainer.warmup()
+        warm_s = time.perf_counter() - t0
+        init = {n: p.clone() for n, p in trainer.global_params.items()}
+        per_round = []
+        run_round = trainer.run_round
+
+        def counted(t, run_round=run_round, trainer=trainer,
+                    per_round=per_round):
+            count0 = fk.LAUNCHES["fl_aggregate"]
+            t1 = time.perf_counter()
+            rec = run_round(t)
+            trainer._sync()
+            per_round.append((time.perf_counter() - t1,
+                              fk.LAUNCHES["fl_aggregate"] - count0))
+            return rec
+
+        trainer.run_round = counted
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        trainer._sync()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        result = trainer.run(rounds)
+        trainer._sync()
+        seconds = time.perf_counter() - t0
+        n_launch = fk.LAUNCHES["fl_aggregate"]
+        launches += n_launch
+        changed = max(float((result.params[n] - init[n]).abs().max())
+                      for n in init)
+        losses = [r.mean_loss for r in result.records]
+        row = dict(
+            controller=name, rounds=rounds, warmup_s=warm_s,
+            seconds=seconds, rounds_per_s=rounds / seconds,
+            round_s=[r for r, _ in per_round],
+            fl_aggregate_launches=[n for _, n in per_round],
+            accuracy_curve=result.accuracy_curve(),
+            total_time_model_s=result.total_time, losses=losses,
+            selected=[r.selected for r in result.records],
+            tiers_hit=[_tiers_hit(trainer.bank, r.selected)
+                       for r in result.records],
+            peak_mem_bytes=(torch.cuda.max_memory_allocated() if on_card
+                            else None),
+            bank=type(trainer.bank).__name__, bank_bytes=trainer.bank.nbytes,
+            param_max_change=changed)
+        log(f"{label}.controller", **row)
+        require(all(np.isfinite(losses)), f"{label} {name}: finite losses")
+        require(changed > 0.0 and all(bool(torch.isfinite(p).all())
+                                      for p in result.params.values()),
+                f"{label} {name}: the params changed and are finite")
+        require([n for _, n in per_round] == [want] * rounds and
+                n_launch == want * rounds,
+                f"{label} {name}: {want} fl_aggregate launch per round")
+        curves[name] = row["accuracy_curve"]
+        totals[name] = result.total_time
+        rows[name] = row
+        if profile and name == controllers[0] and on_card:
+            rec, prof = _profiled(lambda: trainer.run_round(rounds))
+            log(f"{label}.profile", controller=name,
+                round_s=prof.pop("wall_s"),
+                tiers_hit=_tiers_hit(trainer.bank, rec.selected), **prof)
+        del trainer, result
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    finals = {n: (c[-1][2] if c else 0.0) for n, c in curves.items()}
+    target = 0.95 * min(finals.values())
+    to_target = {n: time_to_accuracy(c, target) for n, c in curves.items()}
+    lroa = controllers[0]
+    summary = dict(
+        rounds=rounds, final_accuracy=finals, target_accuracy=target,
+        time_to_target_model_s=to_target, total_time_model_s=totals,
+        time_to_target_saving_pct={
+            b: (100.0 * (1.0 - to_target[lroa] / to_target[b])
+                if np.isfinite(to_target[b]) and np.isfinite(to_target[lroa])
+                else None) for b in controllers[1:]},
+        total_latency_saving_pct={
+            b: 100.0 * (1.0 - totals[lroa] / totals[b])
+            for b in controllers[1:]},
+        rounds_per_s={n: r["rounds_per_s"] for n, r in rows.items()},
+        peak_mem_bytes=max((r["peak_mem_bytes"] or 0)
+                           for r in rows.values()) or None,
+        launches={"fl_aggregate": launches})
+    log(label, **summary)
+    summary.update(data=data, rows=rows)
+    return summary
+
+
+def phase_paper_sequential(cfg: dict, paper: dict, device: str = "cuda",
+                           rounds: int = SEQUENTIAL_ROUNDS) -> dict:
+    """DivFL on the CIFAR-like testbed under ``use_engine=False`` (the
+    reference semantics): K ``local_update`` calls a round on the
+    clients' true examples, each update's sketch observed before the next
+    client trains, the aggregate in plain PyTorch (no ``fl_aggregate``
+    launch).  Its round times beside the fused DivFL rounds of
+    ``paper.cifar``; no warmup (eager PyTorch compiles nothing ahead)."""
+    from repro_torch.kernels import fl_aggregate as fk
+
+    trainer = build_trainer(device, cfg, paper["data"], controller="divfl",
+                            use_engine=False)
+    init = {n: p.clone() for n, p in trainer.global_params.items()}
+    k = cfg["sample_count"]
+    per_round = []
+    _reset_launch_counts()
+    for t in range(rounds):
+        t0 = time.perf_counter()
+        rec = trainer.run_round(t)
+        trainer._sync()
+        per_round.append(time.perf_counter() - t0)
+        observed = np.flatnonzero(np.any(trainer.controller._update_bank,
+                                         axis=1))
+        log("paper.sequential.round", t=t,
+            seconds=per_round[-1], selected=rec.selected,
+            loss=rec.mean_loss, clients_observed=observed.tolist(),
+            wall_time_model_s=rec.wall_time)
+        require(len(rec.selected) == k and np.isfinite(rec.mean_loss),
+                f"paper.sequential round {t}: K clients, finite loss")
+        require(set(rec.selected) <= set(observed.tolist()),
+                f"paper.sequential round {t}: every selected client's "
+                f"update observed")
+    changed = max(float((trainer.global_params[n] - init[n]).abs().max())
+                  for n in init)
+    fused = paper["rows"]["divfl"]["round_s"]
+    summary = dict(rounds=rounds, round_s=per_round,
+                   fused_divfl_round_s=fused,
+                   sequential_over_fused=(statistics.median(per_round)
+                                          / statistics.median(fused)),
+                   launches=_launch_counts(), param_max_change=changed)
+    log("paper.sequential", **summary)
+    require(summary["launches"]["fl_aggregate"] == 0,
+            "paper.sequential: the list API aggregates without the kernel")
+    require(changed > 0.0, "paper.sequential: the params changed")
+    del trainer
+    gc.collect()
+    return summary
+
+
+def phase_heterogeneity(device: str = "cuda", rounds: int = HET_ROUNDS,
+                        spreads=HET_SPREADS, seed: int = 0) -> dict:
+    """The control-only heterogeneity ablation of
+    ``benchmarks/bench_sweeps.heterogeneity_sweep`` on the card: N = 120,
+    K = 2, CPU-speed and cycles spreads 1, 2 and 4
+    (``heterogeneous_params``, seed 7), LROA against Uni-S over the same
+    channels and sampling streams, the realised latency (eq. 10) summed
+    over ``rounds`` rounds.  The ``heterogeneous_params`` fields on the
+    card must be bitwise the CPU's."""
+    import repro_torch.core as core
+    from repro_torch.core.controller import realized_round_time
+    from repro_torch.fl import (ChannelConfig, ChannelProcess,
+                                HeterogeneityConfig, heterogeneous_params,
+                                sample_clients)
+    from repro_torch.core.system_model import ARRAY_FIELDS
+
+    n, k = 120, 2
+    sizes = np.random.default_rng(seed).integers(200, 600, n).astype(
+        np.float32)
+    rows = []
+    t_all = time.perf_counter()
+    for spread in spreads:
+        het = HeterogeneityConfig(cpu_speed_spread=spread,
+                                  cycles_spread=spread, seed=7)
+        params, on_cpu = (heterogeneous_params(core.paper_default_params(
+            num_devices=n, data_sizes=sizes, sample_count=k, device=dev),
+            het) for dev in (device, "cpu"))
+        bitwise = all(torch.equal(getattr(params, f).cpu(),
+                                  getattr(on_cpu, f)) for f in ARRAY_FIELDS)
+        hp = core.estimate_hyperparams(params, 0.1, loss_scale=1.5, mu=1.0,
+                                       nu=1e5)
+        totals, seconds = {}, {}
+        for name in ("lroa", "uni_s"):
+            ctrl = getattr(core, CONTROLLER_CLASSES[name])(params, hp)
+            chan = ChannelProcess(n, ChannelConfig(seed=seed))
+            rng = np.random.default_rng(seed + 1)
+            total = 0.0
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                h = torch.as_tensor(chan.sample(), device=params.device)
+                dec = ctrl.decide(h)
+                sel = sample_clients(rng, dec.q.cpu().numpy(), k)
+                total += realized_round_time(params, h, dec, sel)
+                ctrl.step_queues(h, dec)
+            seconds[name] = time.perf_counter() - t0
+            totals[name] = total
+        row = dict(spread=spread, rounds=rounds, lroa_s=totals["lroa"],
+                   uni_s_s=totals["uni_s"],
+                   latency_saving_pct=100.0 * (1 - totals["lroa"]
+                                               / totals["uni_s"]),
+                   params_bitwise_cpu=bitwise,
+                   f_max_range=[float(params.f_max.min()),
+                                float(params.f_max.max())],
+                   seconds=seconds)
+        log("paper.heterogeneity.spread", **row)
+        require(bitwise, f"heterogeneous_params at spread {spread}: the "
+                         f"card's fields are bitwise the CPU's")
+        require(all(np.isfinite(v) and v > 0 for v in totals.values()),
+                f"spread {spread}: finite positive latency totals")
+        rows.append(row)
+    summary = dict(rounds=rounds, reference_rounds=150,
+                   seconds=time.perf_counter() - t_all,
+                   saving_pct={r["spread"]: r["latency_saving_pct"]
+                               for r in rows})
+    log("paper.heterogeneity", **summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # the LM slice: flash attention, SSD chunk, serving
 # ---------------------------------------------------------------------------
 
@@ -2818,17 +3349,18 @@ def phase_profile_serve(run: dict) -> None:
     log("profile.serve", prefill=pre, decode_step=dec)
 
 
-def kernels_line(points: list, leaves: dict, lanes: list,
+def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
                  main_summary: dict, single_summary: dict,
                  scan_summary: dict, arena_summary: dict, map_summary: dict,
-                 sweep_summary: dict, flash: list, ssd: list, gemma: dict,
-                 mamba: dict, families: dict, smi: str, sass: dict) -> dict:
+                 sweep_summary: dict, paper: dict, flash: list, ssd: list,
+                 gemma: dict, mamba: dict, families: dict, smi: str,
+                 sass: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
     paths (the LROA rounds on the ladder and on the single bucket, the
-    seven controllers' rollouts and the mapped arena's lane rounds; the
-    arena's and the sweep's lane-batched rounds; the gemma2, mamba2 and
-    the other families' generations) and its numbers at that path's
-    shapes."""
+    seven controllers' rollouts, the mapped arena's lane rounds and the
+    paper testbeds' trainer rounds; the arena's and the sweep's
+    lane-batched rounds; the gemma2, mamba2 and the other families'
+    generations) and its numbers at that path's shapes."""
     m = next(p for p in points if (p["n"], p["k"]) == MAIN_POINT[:2]
              and p["dtype"] == "float32")
     fg = next(r for r in flash if r["label"] == "gemma2.global")
@@ -2857,16 +3389,21 @@ def kernels_line(points: list, leaves: dict, lanes: list,
               main_summary["launches"]["fl_aggregate"]
               + single_summary["launches"]["fl_aggregate"]
               + scan_summary["launches"]["fl_aggregate"]
-              + map_summary["launches"]["fl_aggregate"],
+              + map_summary["launches"]["fl_aggregate"]
+              + sum(run["launches"]["fl_aggregate"]
+                    for run in paper.values()),
               dict(fused, library_ms=None),
               launches_by_path={
                   "main": main_summary["launches"]["fl_aggregate"],
                   "main.single": single_summary["launches"]["fl_aggregate"],
                   "scan": scan_summary["launches"]["fl_aggregate"],
-                  "arena.map": map_summary["launches"]["fl_aggregate"]},
+                  "arena.map": map_summary["launches"]["fl_aggregate"],
+                  **{path: run["launches"]["fl_aggregate"]
+                     for path, run in paper.items()}},
               max_abs_err_all_points=max(
                   [p["max_abs_err"] for p in points] + [fused["max_abs_err"]]
-                  + [r["max_abs_err"] for r in leaves["leaves"]]),
+                  + [r["max_abs_err"] for r in leaves["leaves"]]
+                  + [resnet["max_abs_err"]]),
               design="the header comment of src/repro_torch/kernels/csrc/"
                      "fl_aggregate.cu",
               point="the round's eq.-(4) step: aggregate_fused at the "
@@ -2883,7 +3420,25 @@ def kernels_line(points: list, leaves: dict, lanes: list,
                   "bitwise_equal_to_ravel_path", "graph_bitwise_equal",
                   "ravel_path_ms", "ravel_path_ms_zero_flush",
                   "graph_replay_ms", "wall_us", "ravel_path_wall_us")},
-              variants={"flat_545002": {
+              variants={"resnet_17_leaves": {
+                  "point": "paper.cifar's eq.-(4) step: aggregate_fused at "
+                           "the paper-scale ResNet's 17 leaves, N=694,378, "
+                           "K=8, f32, one launch; library_ms: none",
+                  "launches": paper["paper.cifar"]["launches"][
+                      "fl_aggregate"],
+                  "library_ms": None,
+                  **{key: resnet[key] for key in (
+                      "max_abs_err", "bitwise_equal_to_fma_order", "ms",
+                      "ms_zero_flush", "plain_ms", "bound_ms", "bound_by",
+                      "wall_us", "vec")}},
+                  "pytree_per_leaf_resnet": {
+                  "launches_per_call": resnet["pytree_launches"],
+                  "bitwise_equal_to_one_launch": resnet[
+                      "pytree_bitwise_equal_to_one_launch"],
+                  "ms": resnet["pytree_ms"],
+                  "wall_us": resnet["pytree_wall_us"],
+                  "bound_ms": resnet["bound_ms"]},
+                  "flat_545002": {
                   "launches": 0,
                   **{key: m[key] for key in (
                       "max_abs_err", "bitwise_equal_to_fma_order", "ms",
@@ -3070,6 +3625,7 @@ def main() -> int:
     points = phase_kernels(flush, hbm, f32_peak)
     leaves = phase_aggregate_leaves(flush, hbm, f32_peak)
     lanes = phase_aggregate_lanes(flush, hbm, f32_peak)
+    resnet_agg = phase_aggregate_resnet(flush, hbm, f32_peak)
     flash = phase_flash(flush, hbm, f32_peak, bf16_peak, sfu_ops_per_s)
     ssd = phase_ssd(flush, hbm, f32_peak, bf16_peak)
     del flush
@@ -3079,6 +3635,7 @@ def main() -> int:
     phase_reference_arena()
     phase_reference_tiered()
     phase_reference_sweep()
+    phase_reference_sequential()
     main_summary = phase_main_path()
     ladder = main_summary.pop("trainer")
     data = main_summary.pop("data")
@@ -3102,6 +3659,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    cifar = phase_paper("paper.cifar", PAPER_CIFAR)
+    phase_paper_sequential(PAPER_CIFAR, cifar)
+    del cifar["data"]
+    femnist = phase_paper("paper.femnist", PAPER_FEMNIST, profile=True)
+    del femnist["data"]
+    phase_heterogeneity()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     gemma = phase_serve_gemma2()
     phase_profile_serve(gemma)
     for key in ("model", "params", "prompts"):
@@ -3116,9 +3682,11 @@ def main() -> int:
     families = {phase: phase_serve_family(phase, arch, depth, spec)
                 for phase, arch, depth, spec in FAMILY_SERVE}
 
-    print(json.dumps(kernels_line(points, leaves, lanes, main_summary,
-                                  single_summary, scan_summary,
+    print(json.dumps(kernels_line(points, leaves, lanes, resnet_agg,
+                                  main_summary, single_summary, scan_summary,
                                   arena_summary, map_summary, sweep_summary,
+                                  {"paper.cifar": cifar,
+                                   "paper.femnist": femnist},
                                   flash, ssd, gemma, mamba, families, smi,
                                   sass)),
           flush=True)

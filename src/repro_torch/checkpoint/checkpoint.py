@@ -2,7 +2,9 @@
 arrays (npz + json manifest): the port of ``repro.checkpoint``.
 
 A tree is a nested dict (lists and tuples index by position) whose leaves
-are ``torch.Tensor`` or numpy arrays.  It is flattened into npz entries
+are ``torch.Tensor`` or numpy arrays; a ``None`` is an empty subtree, as
+``jax.tree_util`` treats it: it writes no entry and restores as ``None``
+where the ``like`` tree has one.  It is flattened into npz entries
 keyed by the ``/``-joined path of dict keys and positions — the JAX
 package's key format, so a flat dict written by either package is read by
 the other's :func:`restore_arrays`.  The key list and caller metadata (the
@@ -34,7 +36,10 @@ _SEP = "/"
 
 def _items(tree: Tree, prefix: str = ""):
     """``(path, leaf)`` pairs of a nested dict / list / tuple tree, dict
-    keys in sorted order (the JAX package's flattening order)."""
+    keys in sorted order (the JAX package's flattening order); ``None``
+    yields nothing."""
+    if tree is None:
+        return
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from _items(tree[key], f"{prefix}{key}{_SEP}")
@@ -63,6 +68,8 @@ def _flatten(tree: Tree) -> Dict[str, np.ndarray]:
 
 
 def _rebuild(like: Tree, leaf_fn, prefix: str = ""):
+    if like is None:
+        return None
     if isinstance(like, dict):
         return {key: _rebuild(like[key], leaf_fn, f"{prefix}{key}{_SEP}")
                 for key in like}

@@ -14,8 +14,32 @@ import numpy as np
 import torch
 
 from repro_torch.core import system_model as sm
-from repro_torch.models.cnn import CNNTask
+from repro_torch.models.cnn import CNNTask, ResNetTask
 from repro_torch.models.config import ModelConfig
+
+
+_HWIO_TO_OIHW = ((-4, -3, -2, -1), (-2, -1, -3, -4))
+
+
+def _conv_leaf(task, name: str) -> bool:
+    """Whether leaf ``name`` of ``task`` is a convolution weight (HWIO in
+    the JAX package, OIHW in the port)."""
+    if isinstance(task, CNNTask):
+        return name in ("c1", "c2")
+    return isinstance(task, ResNetTask) and len(task.shapes[name]) == 4
+
+
+def _d1_rows(a: np.ndarray, task, to_port: bool) -> np.ndarray:
+    """The CNN's ``d1`` rows between the JAX (h, w, c) flatten order and
+    the port's (c, h, w) order."""
+    h, w, _ = task.image_shape
+    lead, (rows, cols) = a.shape[:-2], a.shape[-2:]
+    c = rows // ((h // 4) * (w // 4))
+    if to_port:
+        a = a.reshape(lead + (h // 4, w // 4, c, cols))
+        return np.moveaxis(a, -2, -4).reshape(lead + (rows, cols))
+    a = a.reshape(lead + (c, h // 4, w // 4, cols))
+    return np.moveaxis(a, -4, -2).reshape(lead + (rows, cols))
 
 
 def params_from_jax(np_params: Mapping[str, np.ndarray], task,
@@ -23,28 +47,40 @@ def params_from_jax(np_params: Mapping[str, np.ndarray], task,
     """A JAX params dict (numpy leaves, JAX layouts) -> the port's dict.
 
     Leaves may carry extra leading axes (stacked ``[K, ...]`` client
-    deltas convert the same way).  For a :class:`CNNTask`:
+    deltas convert the same way).  For a :class:`CNNTask` or
+    :class:`ResNetTask`:
 
     * conv weights HWIO -> OIHW;
-    * ``d1``'s rows from the JAX (h, w, c) flatten order to the port's
-      NCHW (c, h, w) order.
+    * the CNN's ``d1`` rows from the JAX (h, w, c) flatten order to the
+      port's NCHW (c, h, w) order.
 
-    Dense weights keep their ``[in, out]`` layout; MLP leaves are copied
-    as they are.
+    Dense weights (the ResNet's ``head`` included) keep their ``[in,
+    out]`` layout; MLP leaves are copied as they are.
     """
     out = {}
     for name, value in np_params.items():
         a = np.asarray(value, np.float32)
-        if isinstance(task, CNNTask):
-            if name in ("c1", "c2"):
-                a = np.moveaxis(a, (-4, -3, -2, -1), (-2, -1, -3, -4))
-            elif name == "d1":
-                h, w, _ = task.image_shape
-                lead, (rows, cols) = a.shape[:-2], a.shape[-2:]
-                c = rows // ((h // 4) * (w // 4))
-                a = a.reshape(lead + (h // 4, w // 4, c, cols))
-                a = np.moveaxis(a, -2, -4).reshape(lead + (rows, cols))
+        if _conv_leaf(task, name):
+            a = np.moveaxis(a, *_HWIO_TO_OIHW)
+        elif isinstance(task, CNNTask) and name == "d1":
+            a = _d1_rows(a, task, to_port=True)
         out[name] = torch.as_tensor(np.array(a, order="C"), device=device)
+    return out
+
+
+def params_to_jax_layout(params: Mapping[str, torch.Tensor], task
+                         ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_jax`: the port's params (or
+    stacked deltas) -> numpy leaves in the JAX package's layouts (OIHW ->
+    HWIO, the CNN's ``d1`` rows back to (h, w, c)), exactly."""
+    out = {}
+    for name, value in params.items():
+        a = value.detach().to(torch.float32).cpu().numpy()
+        if _conv_leaf(task, name):
+            a = np.moveaxis(a, *reversed(_HWIO_TO_OIHW))
+        elif isinstance(task, CNNTask) and name == "d1":
+            a = _d1_rows(a, task, to_port=False)
+        out[name] = np.ascontiguousarray(a)
     return out
 
 

@@ -82,6 +82,10 @@ class SystemParams:
         d = self.data_sizes.to(torch.float32)
         return d / torch.sum(d)
 
+    @property
+    def per_device_bandwidth(self) -> float:
+        """B_n = B / K under FDMA with even allocation (Sec. III-C)."""
+        return self.bandwidth_hz / float(self.sample_count)
 
 
 def paper_default_params(num_devices: int = 120,

@@ -1,8 +1,9 @@
 """repro_torch.data — numpy copies of the JAX package's data layer:
-synthetic datasets, the Dirichlet partition, the bank's bucketing,
-its int8 codes and its k-means cluster routing."""
+synthetic datasets, the Dirichlet and writer partitions, the bank's
+bucketing, its int8 codes and its k-means cluster routing."""
 
-from repro_torch.data.partition import dirichlet_partition
+from repro_torch.data.partition import (dirichlet_partition,
+                                        partition_stats, writer_partition)
 from repro_torch.data.pipeline import (assign_clusters, assign_tiers,
                                        bucket_examples, bucket_num_batches,
                                        client_bucket_examples,

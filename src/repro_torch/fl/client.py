@@ -1,6 +1,8 @@
 """Client-side local training: E epochs of mini-batch SGD (Algorithm 1,
-l.9) for K clients at once — the port of ``repro.fl.client``'s batched
-path (``batched_local_sgd`` over ``_local_sgd_body``).
+l.9) for K clients at once — the port of ``repro.fl.client``: the
+batched path (``batched_local_sgd`` over ``_local_sgd_body``), the
+one-client path (:func:`local_update`, the sequential reference and
+DivFL's) and DivFL's update sketch (:func:`flatten_update`).
 
 The K clients' parameters and momentum are ``[K, ...]`` stacks, and each
 SGD step is ONE ``torch.func.vmap(torch.func.grad_and_value(loss_fn))``
@@ -24,18 +26,27 @@ in the ``[K, B, ...]`` batch is cyclically tiled to the bank's bucket of
 The uniform keys come in as ``sort_keys`` ``[K, E, B]`` or are drawn from
 a ``torch.Generator``.  The JAX package draws them from threefry keys,
 which torch cannot reproduce, so parity tests pass the reference's keys
-in as data.
+in as data.  ``ClientConfig.max_grad_norm > 0`` clips each client's
+gradient to that global norm before its SGD step.
+
+:func:`local_update` trains ONE client on its true examples: a client
+with fewer than ``bs`` examples is tiled up to one batch
+(``pad_client_data``), every epoch takes ``max(n // bs, 1)`` unmasked
+steps, and the body is :func:`batched_local_sgd` at K = 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Protocol, Tuple
 
+import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.optim import SGD, apply_updates
+from repro_torch.convert import params_to_jax_layout
+from repro_torch.data.pipeline import pad_client_data
+from repro_torch.optim import SGD, apply_updates, clip_by_global_norm
 
 Params = Dict[str, torch.Tensor]
 LossFn = Callable[[Params, Dict[str, torch.Tensor]], torch.Tensor]
@@ -44,11 +55,27 @@ LossFn = Callable[[Params, Dict[str, torch.Tensor]], torch.Tensor]
 _PAD_KEY = 2.0
 
 
+class Task(Protocol):
+    """Minimal model interface the FL substrate trains against (the
+    port's tasks in ``repro_torch.models.cnn``)."""
+
+    def init(self, generator: torch.Generator) -> Params: ...
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> torch.Tensor: ...
+
+    def metrics(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]: ...
+
+    def device_layout(self, x: torch.Tensor) -> torch.Tensor: ...
+
+
 @dataclasses.dataclass(frozen=True)
 class ClientConfig:
     local_epochs: int = 2
     batch_size: int = 32
     momentum: float = 0.9
+    max_grad_norm: float = 0.0     # 0 => no clipping
 
 
 def _keep(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor
@@ -57,6 +84,20 @@ def _keep(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor
     trailing axes of a ``[K, ...]`` leaf."""
     return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)),
                        new, old)
+
+
+def _grad_fn(loss_fn: LossFn, max_grad_norm: float):
+    """``grad_and_value(loss_fn)``, its gradient clipped to
+    ``max_grad_norm`` when that is positive."""
+    fn = grad_and_value(loss_fn)
+    if max_grad_norm <= 0:
+        return fn
+
+    def clipped(params, batch):
+        grads, loss = fn(params, batch)
+        return clip_by_global_norm(grads, max_grad_norm), loss
+
+    return clipped
 
 
 def batched_local_sgd(loss_fn: LossFn, params: Params, xs: torch.Tensor,
@@ -105,7 +146,7 @@ def batched_local_sgd(loss_fn: LossFn, params: Params, xs: torch.Tensor,
              for name, v in params.items()}
     m = opt.init(p)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-    step_fn = vmap(grad_and_value(loss_fn))
+    step_fn = vmap(_grad_fn(loss_fn, cfg.max_grad_norm))
     rows = torch.arange(k, device=dev)[:, None]
     padded = (None if num_examples is None else
               torch.arange(n, device=dev)[None, :] >= num_examples[:, None])
@@ -142,3 +183,54 @@ def batched_local_sgd(loss_fn: LossFn, params: Params, xs: torch.Tensor,
                                 / num_steps.to(torch.float32))
     deltas = {name: p[name] - v for name, v in params.items()}
     return deltas, torch.stack(epoch_losses, dim=1).mean(dim=1)
+
+
+def local_update(task: Task, global_params: Params, data_x: np.ndarray,
+                 data_y: np.ndarray, lr, cfg: ClientConfig,
+                 sort_keys: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[Params, float]:
+    """Run E local epochs of one client on its true (x, y) (host arrays,
+    the JAX package's NHWC layout); return (theta^{t,E} - theta^t, mean
+    loss).  ``sort_keys`` ``[E, n']`` (``n'`` the rows after tiling a
+    client of fewer than ``bs`` examples up to one batch), or None to
+    draw them from ``generator`` on the params' device."""
+    bs = cfg.batch_size
+    steps = max(data_x.shape[0] // bs, 1)
+    if data_x.shape[0] < steps * bs:
+        data_x, data_y = pad_client_data(np.asarray(data_x),
+                                         np.asarray(data_y), steps * bs)
+    dev = next(iter(global_params.values())).device
+    xs = task.device_layout(torch.as_tensor(
+        np.asarray(data_x, np.float32), device=dev))[None]
+    ys = torch.as_tensor(np.asarray(data_y).astype(np.int64),
+                         device=dev)[None]
+    if sort_keys is not None:
+        sort_keys = torch.as_tensor(sort_keys, dtype=torch.float32,
+                                    device=dev)[None]
+    deltas, losses = batched_local_sgd(
+        task.loss_fn, global_params, xs, ys, lr, cfg, steps,
+        sort_keys=sort_keys, generator=generator)
+    return {name: d[0] for name, d in deltas.items()}, float(losses[0])
+
+
+def flatten_update(delta: Params, task: Task, proj_dim: int = 256,
+                   seed: int = 0) -> np.ndarray:
+    """Random-project an update dict to a small vector (DivFL similarity).
+
+    A count-sketch style signed bucket projection — O(d) time,
+    deterministic in ``seed`` — so similarity costs O(N^2 proj_dim)
+    instead of O(N^2 d).  Its input is the JAX package's: the leaves in
+    sorted-name order, each raveled in the JAX layout
+    (``params_to_jax_layout`` of ``task``), so the sketch, and the
+    selections DivFL makes from it, are the reference's.
+    """
+    leaves = params_to_jax_layout(delta, task)
+    flat = (np.concatenate([leaves[n].ravel() for n in sorted(leaves)])
+            if leaves else np.zeros((1,), np.float32))
+    rng = np.random.default_rng(seed)
+    buckets = rng.integers(0, proj_dim, flat.shape[0])
+    signs = rng.choice(np.asarray([-1.0, 1.0], np.float32), flat.shape[0])
+    out = np.zeros((proj_dim,), np.float32)
+    np.add.at(out, buckets, flat * signs)
+    return out

@@ -11,6 +11,11 @@ bitwise the same gains as the JAX package).
 * per-client dropout — :meth:`ChannelProcess.dropout_sequence`, a
   Bernoulli ``[T, N]`` alive mask from the same numpy stream, which
   ``RoundEngine.run_scan(drop_seq=)`` consumes.
+* system heterogeneity — :func:`heterogeneous_params`, log-uniform
+  per-device multipliers on ``f_max``/``f_min``, the cycles per sample
+  and the energy budget (:class:`HeterogeneityConfig`), drawn from the
+  same numpy stream as the JAX package's and applied in f32 on the
+  ``SystemParams``' own device: bitwise the reference's fields.
 
 Device samplers (the scenario arena's channels): :func:`sample_gains`,
 :func:`sample_markov_states`, :func:`sample_gains_markov`,
@@ -41,12 +46,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import draws
+from repro_torch.core import system_model as sm
 
 # Redraw budget for the truncated exponential: ~10% of raw draws fall
 # outside [0.01, 0.5] at the paper's defaults, so P(no valid draw in 64)
@@ -341,3 +347,44 @@ class ChannelProcess:
         numpy stream, so it advances the gains' stream too."""
         u = self._rng.uniform(size=(num_rounds, self.num_devices))
         return (u >= self.cfg.dropout).astype(np.float32)
+
+    def stream(self) -> Iterator[np.ndarray]:
+        while True:
+            yield self.sample()
+
+
+@dataclasses.dataclass(frozen=True)
+class HeterogeneityConfig:
+    """System heterogeneity: per-device multipliers, log-uniform spread."""
+    cpu_speed_spread: float = 1.0    # f_max multiplier range [1/s, s]
+    cycles_spread: float = 1.0       # c_n multiplier range
+    budget_spread: float = 1.0       # Ebar multiplier range
+    seed: int = 0
+
+
+def heterogeneous_params(base: sm.SystemParams,
+                         het: HeterogeneityConfig) -> sm.SystemParams:
+    """Apply log-uniform heterogeneity multipliers to a parameter set.
+
+    The multipliers are the JAX package's numpy draws, in its order (f,
+    cycles, budget); each product of two f32 values is correctly rounded
+    on any device, so every field is bitwise the reference's.  The result
+    lives on ``base.device``."""
+    rng = np.random.default_rng(het.seed)
+    n = base.num_devices
+
+    def mult(spread: float) -> torch.Tensor:
+        if spread <= 1.0:
+            m = np.ones((n,), np.float32)
+        else:
+            lo, hi = -np.log(spread), np.log(spread)
+            m = np.exp(rng.uniform(lo, hi, n)).astype(np.float32)
+        return torch.as_tensor(m, device=base.device)
+
+    f_mult = mult(het.cpu_speed_spread)
+    f_max = base.f_max * f_mult
+    return dataclasses.replace(
+        base, f_max=f_max,
+        f_min=torch.minimum(base.f_min * f_mult, f_max),
+        cycles_per_sample=base.cycles_per_sample * mult(het.cycles_spread),
+        energy_budget=base.energy_budget * mult(het.budget_spread))

@@ -51,8 +51,9 @@ any global round, which the arena's chunked, checkpointed runs use.
 
 ``round_step(hierarchical=True)`` reduces eq. (4) cluster by cluster
 over a bank built with ``clusters=`` (``server.aggregate_hierarchical``,
-plain PyTorch).  The host-stacked round and client-axis sharding
-(``mesh=``, ROADMAP A8) are not ported.
+plain PyTorch).  ``round_step_stacked`` takes host-stacked batches
+(``ClientBank.gather_host``) through the same round core.  Client-axis
+sharding (``mesh=``, ROADMAP A8) is not ported.
 """
 
 from __future__ import annotations
@@ -184,12 +185,22 @@ class RoundEngine:
         """One ``batched_local_sgd`` over rows ``idx`` of a one-bucket
         bank, on the first ``B`` columns of the ``[K, E, >= B]`` keys."""
         xs, ys, ns, ne = _gather(bank, idx)
-        rows = bank.bucket_examples
+        return self._local_sgd(params, xs, ys, ns, ne, lr, sort_keys,
+                               per_client)
+
+    def _local_sgd(self, params: Params, xs: torch.Tensor, ys: torch.Tensor,
+                   ns: Optional[torch.Tensor], ne: Optional[torch.Tensor],
+                   lr, sort_keys: torch.Tensor, per_client: bool = False
+                   ) -> Tuple[Params, torch.Tensor]:
+        """THE round core: ``batched_local_sgd`` over ``[K, B, ...]``
+        batches in the device layout, on the first ``B`` columns of the
+        ``[K, E, >= B]`` keys (every round path trains through here)."""
+        rows = xs.shape[1]
         if sort_keys.shape[-1] != rows:
             sort_keys = sort_keys[..., :rows]
         return fl_client.batched_local_sgd(
             self.task.loss_fn, params, xs, ys, lr, self.cfg,
-            bank.steps_per_epoch, num_steps=ns, num_examples=ne,
+            rows // self.cfg.batch_size, num_steps=ns, num_examples=ne,
             sort_keys=sort_keys, per_client=per_client)
 
     def _train(self, params: Params, bank, selected: torch.Tensor, lr,
@@ -285,6 +296,35 @@ class RoundEngine:
                     global_params, deltas, coeffs,
                     bank.cluster_of_device.index_select(0, sel),
                     bank.num_clusters), losses
+            return fl_server.aggregate_fused(global_params, deltas, coeffs,
+                                             impl=self.impl), losses
+
+    def round_step_stacked(self, global_params: Params, xs: np.ndarray,
+                           ys: np.ndarray, coeffs: np.ndarray, lr: float,
+                           sort_keys: torch.Tensor,
+                           num_steps: Optional[np.ndarray] = None,
+                           num_examples: Optional[np.ndarray] = None
+                           ) -> Tuple[Params, torch.Tensor]:
+        """The host-stacked round: ``[K, B, ...]`` batches in the host
+        (NHWC) layout, as ``ClientBank.gather_host`` returns them,
+        uploaded this round, then the same round core and eq.-(4) step as
+        :meth:`round_step` — bitwise its result on the same selection."""
+        dev = self.device
+        xs = self.task.device_layout(torch.as_tensor(
+            np.asarray(xs, np.float32), device=dev))
+        ys = torch.as_tensor(np.asarray(ys).astype(np.int64), device=dev)
+
+        def mask(v):
+            return None if v is None else torch.as_tensor(
+                np.asarray(v).astype(np.int64), device=dev)
+
+        with obs_trace.span("engine.round_stacked", k=int(xs.shape[0])):
+            deltas, losses = self._local_sgd(
+                global_params, xs, ys, mask(num_steps), mask(num_examples),
+                lr, torch.as_tensor(sort_keys, dtype=torch.float32,
+                                    device=dev))
+            coeffs = torch.as_tensor(np.asarray(coeffs, np.float32),
+                                     device=dev)
             return fl_server.aggregate_fused(global_params, deltas, coeffs,
                                              impl=self.impl), losses
 

@@ -11,7 +11,10 @@ leading ``[K, ...]`` axis on every leaf.
   the JAX package, so the same ``np.random.Generator`` state gives the
   same selection.
 * ``aggregate_stacked`` is the plain form: a broadcast-multiply plus a
-  sum over the client axis in f32, per leaf.
+  sum over the client axis in f32, per leaf; ``aggregate`` (the list
+  API of the sequential path) stacks K update dicts and takes it, on
+  every device, as the JAX package computes it in jnp outside any
+  kernel.
 * ``aggregate_fused`` is the round engine's path.  On a CUDA device the
   hand-written ``fl_aggregate`` kernel reads every leaf where it lies, in
   one launch (no ravel, no unravel); on the CPU it is the same per-leaf
@@ -73,6 +76,16 @@ def aggregate_stacked(global_params: Params, stacked_deltas: Params,
     return dict(zip(names, ref.aggregate_leaves_reference(
         [global_params[n] for n in names],
         [stacked_deltas[n] for n in names], coeffs)))
+
+
+def aggregate(global_params: Params, deltas: Sequence[Params],
+              coeffs: np.ndarray) -> Params:
+    """theta + sum_i coeff_i * delta_i — eq. (4), the list API: stacks
+    onto a client axis and reduces as :func:`aggregate_stacked`."""
+    device = next(iter(global_params.values())).device
+    return aggregate_stacked(global_params, stack_deltas(deltas),
+                             torch.as_tensor(np.asarray(coeffs, np.float32),
+                                             device=device))
 
 
 class ParamRavel:

@@ -1,7 +1,7 @@
 """The FL loop (Algorithm 1) under any controller of the paper's
 comparison (``LROAController`` or a ``repro_torch.core.baselines``
 controller), with wall-clock latency and energy accounting — the port of
-``repro.fl.trainer``'s fused path.
+``repro.fl.trainer``: the fused path and the sequential reference path.
 
 All N clients' bucketed data is uploaded to the device once, when the
 trainer is built: into the tier ladder
@@ -22,12 +22,23 @@ keeps its rows as per-client int8 codes.  Per round t:
      ``fl_aggregate`` kernel                                      [device]
   6. the queues update; latency += max_{n in K^t} T_n^t (eq. 10)   [device]
 
+``use_engine=False`` takes the sequential path instead of step 4 + 5:
+one ``client.local_update`` per selected client on its true examples
+(``bank.client_view``), DivFL observing each update's sketch
+(``client.flatten_update``) before the next client trains — the
+reference semantics of DivFL — and the eq.-(4) step as the list API
+``server.aggregate`` (DivFL: ``server.fedavg_reference`` over the
+selected clients' data weights), plain PyTorch on every device.
+
 The same ``seed`` gives the JAX trainer's channel gains and selections
 (numpy streams).  The model init and the per-client epoch keys come from
 ``torch.Generator``s; ``sort_keys_fn`` replaces the latter (the parity
 tests pass the reference's keys through it).  The keys are ``[K, E, B]``
 with ``B`` the bank's widest bucket; a client in a narrower tier reads
-their first ``B_t`` columns.
+their first ``B_t`` columns.  The sequential path draws each client's
+``[E, n']`` keys (``n'`` its rows after tiling to one batch) from the
+same generator, one client after another; ``client_keys_fn(n')``
+replaces them.
 """
 
 from __future__ import annotations
@@ -75,9 +86,15 @@ class FLRunResult:
     def total_time(self) -> float:
         return self.records[-1].cum_time if self.records else 0.0
 
+    def accuracy_curve(self) -> List[tuple]:
+        """``(round, cum_time, test_accuracy)`` of every evaluated round."""
+        return [(r.round, r.cum_time, r.test_accuracy)
+                for r in self.records if r.test_accuracy is not None]
+
 
 class FederatedTrainer:
-    """Synchronous FL driver on one device (fused round engine path)."""
+    """Synchronous FL loop on one device: the fused round engine path
+    (``use_engine=True``) or the sequential reference path."""
 
     def __init__(self, task, params: sm.SystemParams, controller,
                  channel: ChannelProcess, client_data: Sequence[tuple],
@@ -87,7 +104,9 @@ class FederatedTrainer:
                  eval_every: int = 10, seed: int = 0,
                  bank_mode: str = "auto", impl: str = "auto", device="cuda",
                  sort_keys_fn: Optional[Callable[[int], np.ndarray]] = None,
-                 bank_storage: str = "fp32"):
+                 bank_storage: str = "fp32", use_engine: bool = True,
+                 client_keys_fn: Optional[Callable[[int], np.ndarray]]
+                 = None):
         if len(client_data) != params.num_devices:
             raise ValueError(f"{len(client_data)} client datasets for "
                              f"{params.num_devices} devices")
@@ -102,6 +121,7 @@ class FederatedTrainer:
         self.client_cfg = client_cfg
         self.lr_schedule = lr_schedule
         self.eval_every = eval_every
+        self.use_engine = use_engine
         self.engine = RoundEngine(task, client_cfg, impl=impl,
                                   device=self.device)
         # the ONE upload of client data: every round reads the bank
@@ -121,6 +141,7 @@ class FederatedTrainer:
         init_gen.manual_seed(seed + 1)
         self.global_params = task.init(init_gen)
         self._sort_keys_fn = sort_keys_fn
+        self._client_keys_fn = client_keys_fn
         self.w = params.data_weights.cpu().numpy()
         self._records: List[RoundRecord] = []
         #: the most recent round's (f, p, q) decision
@@ -130,32 +151,52 @@ class FederatedTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @property
+    def _fused(self) -> bool:
+        """True when rounds run on the fused engine path (the one rule
+        ``run_round`` and ``warmup`` share)."""
+        return self.use_engine
+
     # -- warmup -----------------------------------------------------------
 
     def warmup(self) -> None:
         """Run every code path a round takes once — the kernel build, the
         cuDNN/cuBLAS set-up, the solver — without changing any trainer
-        state: rounds on a copy of the params with zero lr and zero
-        coefficients, keys from a throwaway generator, one decision.  On
-        a ladder, one round per tier (each tier's SGD shape) and one whose
-        slots cycle through the tiers (the routed round)."""
+        state: keys from a throwaway generator, zero lr and zero
+        coefficients, one decision.  Fused path: rounds on a copy of the
+        params; on a ladder, one round per tier (each tier's SGD shape)
+        and one whose slots cycle through the tiers (the routed round).
+        Sequential path: one ``local_update`` per distinct effective
+        client size (``max(n, bs)``), its update discarded."""
         k = self.params.sample_count
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
-        keys = torch.rand((k, self.client_cfg.local_epochs,
-                           self.bank.bucket_examples), generator=gen,
-                          device=self.device)
-        sels = [np.zeros(k, np.int64)]
-        if isinstance(self.bank, TieredClientBank) and \
-                self.bank.num_tiers > 1:
-            reps = [int(m[0]) for m in self.bank.tier_members]
-            sels = [np.full(k, r, np.int64) for r in reps]
-            sels.append(np.asarray([reps[i % len(reps)] for i in range(k)],
-                                   np.int64))
-        p = {name: v.clone() for name, v in self.global_params.items()}
-        for sel in sels:
-            self.engine.round_step(p, self.bank, sel,
-                                   np.zeros(k, np.float32), 0.0, keys)
+        if self._fused:
+            keys = torch.rand((k, self.client_cfg.local_epochs,
+                               self.bank.bucket_examples), generator=gen,
+                              device=self.device)
+            sels = [np.zeros(k, np.int64)]
+            if isinstance(self.bank, TieredClientBank) and \
+                    self.bank.num_tiers > 1:
+                reps = [int(m[0]) for m in self.bank.tier_members]
+                sels = [np.full(k, r, np.int64) for r in reps]
+                sels.append(np.asarray([reps[i % len(reps)]
+                                        for i in range(k)], np.int64))
+            p = {name: v.clone() for name, v in self.global_params.items()}
+            for sel in sels:
+                self.engine.round_step(p, self.bank, sel,
+                                       np.zeros(k, np.float32), 0.0, keys)
+        else:
+            seen = set()
+            bs = self.client_cfg.batch_size
+            for i, n in enumerate(self.bank.sizes):
+                eff = max(int(n), bs)   # local_update tiles n < bs up to bs
+                if eff in seen:
+                    continue
+                seen.add(eff)
+                x, y = self.bank.client_view(i)
+                fl_client.local_update(self.task, self.global_params, x, y,
+                                       0.0, self.client_cfg, generator=gen)
         self.controller.decide(torch.ones(self.params.num_devices,
                                           device=self.device))
         if self.test_data is not None:
@@ -187,6 +228,46 @@ class FederatedTrainer:
         return torch.rand(shape, generator=self._key_gen,
                           device=self.device)
 
+    def _train_fused(self, selected: np.ndarray, coeffs: np.ndarray,
+                     lr: float) -> np.ndarray:
+        """The fused path: one ``RoundEngine.round_step`` gathers the
+        selected clients from the bank, trains all K and applies eq. (4)
+        in one ``fl_aggregate`` launch on the card."""
+        self.global_params, losses = self.engine.round_step(
+            self.global_params, self.bank, selected, coeffs, lr,
+            self._client_sort_keys(len(selected)))
+        return losses.cpu().numpy()
+
+    def _train_sequential(self, selected: np.ndarray, coeffs: np.ndarray,
+                          lr: float) -> np.ndarray:
+        """The sequential path: one ``local_update`` per selected client on
+        its true examples; DivFL observes each update before the next
+        client trains and averages by data weight."""
+        divfl = isinstance(self.controller, DivFLController)
+        deltas, losses = [], []
+        for idx in selected:
+            x, y = self.bank.client_view(int(idx))
+            keys = None
+            if self._client_keys_fn is not None:
+                rows = max(x.shape[0], self.client_cfg.batch_size)
+                keys = np.asarray(self._client_keys_fn(rows), np.float32)
+            delta, loss = fl_client.local_update(
+                self.task, self.global_params, x, y, lr, self.client_cfg,
+                sort_keys=keys, generator=self._key_gen)
+            deltas.append(delta)
+            losses.append(loss)
+            if divfl:
+                self.controller.observe_updates(
+                    np.asarray([idx]),
+                    fl_client.flatten_update(delta, self.task)[None, :])
+        if divfl:
+            self.global_params = fl_server.fedavg_reference(
+                self.global_params, deltas, self.w[np.asarray(selected)])
+        else:
+            self.global_params = fl_server.aggregate(self.global_params,
+                                                     deltas, coeffs)
+        return np.asarray(losses)
+
     def run_round(self, t: int) -> RoundRecord:
         with obs_trace.span("trainer.round", t=int(t)):
             return self._run_round_impl(t)
@@ -203,10 +284,8 @@ class FederatedTrainer:
             selected = fl_server.sample_clients(self._np_rng, q, k)
         lr = float(self.lr_schedule(t))
         coeffs = fl_server.aggregation_weights(selected, q, self.w, k)
-        self.global_params, losses = self.engine.round_step(
-            self.global_params, self.bank, selected, coeffs, lr,
-            self._client_sort_keys(len(selected)))
-        losses = losses.cpu().numpy()
+        train = self._train_fused if self._fused else self._train_sequential
+        losses = train(selected, coeffs, lr)
 
         wall = realized_round_time(self.params, h, decision, selected)
         e_round = sm.round_energy(self.params, h, decision.p,

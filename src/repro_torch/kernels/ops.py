@@ -1,6 +1,7 @@
 """Public wrappers around the port's kernels (``fl_aggregate``,
-``fl_aggregate_leaves``, ``fl_aggregate_lanes``, ``fl_delta_reduce``,
-``flash_attention``, ``ssd_chunk``), with one dispatch rule.
+``fl_aggregate_pytree``, ``fl_aggregate_leaves``, ``fl_aggregate_lanes``,
+``fl_delta_reduce``, ``flash_attention``, ``ssd_chunk``), with one
+dispatch rule.
 
 ``impl`` mirrors ``repro.kernels.ops.use_pallas_kernel``:
 
@@ -17,7 +18,7 @@ build or launch raises from the kernel wrapper.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -50,6 +51,22 @@ def fl_aggregate(theta: torch.Tensor, deltas: torch.Tensor,
         from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
         return fl_aggregate_cuda(theta, deltas, coeffs)
     return ref.aggregate_reference(theta, deltas, coeffs)
+
+
+def fl_aggregate_pytree(global_params: Dict[str, torch.Tensor],
+                        stacked_deltas: Dict[str, torch.Tensor],
+                        coeffs: torch.Tensor, impl: str = "auto"
+                        ) -> Dict[str, torch.Tensor]:
+    """eq. (4) over a params dict, one leaf at a time: per leaf the flat
+    :func:`fl_aggregate` of ``p.reshape(-1)`` and ``d.reshape(K, -1)`` —
+    one kernel launch per leaf on a CUDA device.  The round's path is
+    ``fl.server.aggregate_fused`` (one launch over all the leaves); this
+    per-leaf form is the JAX package's ``fl_aggregate_pytree``."""
+    return {name: fl_aggregate(p.reshape(-1),
+                               stacked_deltas[name].reshape(
+                                   stacked_deltas[name].shape[0], -1),
+                               coeffs, impl=impl).reshape(p.shape)
+            for name, p in global_params.items()}
 
 
 def fl_aggregate_leaves(thetas: Sequence[torch.Tensor],

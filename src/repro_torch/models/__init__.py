@@ -1,5 +1,6 @@
-"""repro_torch.models — the FL image-classification tasks (CNN, MLP) and
-the LM serving path (``config``, ``layers``, ``flash``, ``attention``,
-``ssm``, ``moe``, ``rglru``, ``vlm``, ``transformer``, ``encdec``)."""
+"""repro_torch.models — the FL image-classification tasks (CNN, ResNet,
+MLP) and the LM serving path (``config``, ``layers``, ``flash``,
+``attention``, ``ssm``, ``moe``, ``rglru``, ``vlm``, ``transformer``,
+``encdec``)."""
 
-from repro_torch.models.cnn import CNNTask, MLPTask
+from repro_torch.models.cnn import CNNTask, MLPTask, ResNetTask

@@ -1,6 +1,6 @@
 """Heavy-ball SGD over ``dict[str, Tensor]`` parameters — the port of the
 SGD half of ``repro.optim.sgd`` (momentum only: the FL clients use no
-weight decay and no Nesterov step).
+weight decay and no Nesterov step) and of its global-norm clipping.
 
     state = opt.init(params)
     updates, state = opt.update(grads, state, lr)
@@ -24,6 +24,20 @@ Params = Dict[str, torch.Tensor]
 def apply_updates(params: Params, updates: Params) -> Params:
     return {name: (p + updates[name]).to(p.dtype)
             for name, p in params.items()}
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares (f32), the leaves
+    in sorted-name order as the JAX package flattens a dict."""
+    return torch.sqrt(sum(torch.sum(torch.square(tree[n].to(torch.float32)))
+                          for n in sorted(tree)))
+
+
+def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+    """Scale every leaf by ``min(1, max_norm / max(norm, 1e-12))``."""
+    scale = torch.clamp(max_norm / torch.clamp(global_norm(grads),
+                                               min=1e-12), max=1.0)
+    return {name: g * scale for name, g in grads.items()}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,8 +5,10 @@ tensors and arrays round-trip with their dtypes (int64, uint8, bool,
 bfloat16 widened to float32 on disk) onto the ``like`` tree's device;
 the file format is the JAX package's, so a flat dict written by either
 package is read by the other's ``restore_arrays`` (and a nested tree
-written by the JAX package restores into a port ``like`` tree); the
-store trims metrics that run ahead of the carry, resumes at the round
+written by the JAX package restores into a port ``like`` tree); a
+``None`` is an empty subtree in both packages, so trees with ``None``
+parts round-trip in the port and each package reads the other's file;
+the store trims metrics that run ahead of the carry, resumes at the round
 the carry records when a kill left its manifest a save behind, refuses
 metrics behind the carry and a schema mismatch, records its provenance
 and shares the arena's registry."""
@@ -146,6 +148,89 @@ def test_jax_nested_tree_restores_into_a_port_like_tree(tmp_path):
         np.testing.assert_array_equal(got["params"][name].numpy(),
                                       tree["params"][name])
     np.testing.assert_array_equal(got["queues"].numpy(), tree["queues"])
+
+
+# -- None is an empty subtree, in both packages ----------------------------
+
+def _none_trees():
+    """(name, numpy tree) pairs with ``None`` parts: a flat dict, and an
+    optimizer-like state whose second moment and one list slot are off."""
+    return [
+        ("flat", {"a": np.arange(6, dtype=np.float32).reshape(2, 3),
+                  "b": None}),
+        ("optimizer", {
+            # int32: JAX without x64 restores an int64 leaf as int32
+            "step": np.asarray(7, np.int32),
+            "mu": {"w": np.linspace(-1, 1, 12, dtype=np.float32)
+                   .reshape(3, 4), "b": np.ones(4, np.float32)},
+            "nu": None,
+            "extra": [np.arange(3, dtype=np.int32), None],
+            "opt": {"clip": None, "count": np.zeros(2, np.int32)}}),
+    ]
+
+
+def _to_port(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _to_port(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_port(v) for v in tree]
+    return torch.as_tensor(tree)
+
+
+def _numpy_tree(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(v) for v in tree]
+    return np.asarray(tree)
+
+
+def _assert_none_tree(got, want):
+    if want is None:
+        assert got is None
+    elif isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _assert_none_tree(got[k], want[k])
+    elif isinstance(want, list):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            _assert_none_tree(a, b)
+    else:
+        got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", [0, 1], ids=["flat", "optimizer"])
+def test_none_leaf_round_trips_in_the_port(tmp_path, case):
+    _, tree = _none_trees()[case]
+    tck.save_checkpoint(str(tmp_path), "s", _to_port(tree))
+    keys, _ = tck.restore_arrays(str(tmp_path), "s")
+    assert not any(k == "b" or k.startswith(("nu", "opt/clip", "extra/1"))
+                   for k in keys)
+    got, _ = tck.restore_checkpoint(str(tmp_path), "s", _to_port(tree))
+    _assert_none_tree(got, tree)
+
+
+@pytest.mark.parametrize("case", [0, 1], ids=["flat", "optimizer"])
+@pytest.mark.parametrize("direction", ["jax_reads_port", "port_reads_jax"])
+def test_none_leaf_crosses_packages(tmp_path, case, direction):
+    _, tree = _none_trees()[case]
+    if direction == "jax_reads_port":
+        tck.save_checkpoint(str(tmp_path), "s", _to_port(tree))
+        got, _ = jck.restore_checkpoint(str(tmp_path), "s", tree)
+        got = _numpy_tree(got)
+    else:
+        jck.save_checkpoint(str(tmp_path), "s", tree)
+        got, _ = tck.restore_checkpoint(str(tmp_path), "s", _to_port(tree))
+    _assert_none_tree(got, tree)
+    w_keys = sorted(jck.restore_arrays(str(tmp_path), "s")[0])
+    assert w_keys == sorted(tck.restore_arrays(str(tmp_path), "s")[0])
 
 
 # -- the chunk store ----------------------------------------------------------

@@ -417,6 +417,48 @@ def test_sweep_on_the_card_matches_the_cpu(cuda):
     _chip_smoke().phase_reference_sweep()
 
 
+@pytest.mark.cuda
+def test_sequential_path_on_the_card_matches_the_cpu(cuda):
+    """The sequential reference path under LROA and DivFL on the card
+    against the CPU (selections equal; params, losses, queues and DivFL's
+    update bank within 1e-4; no ``fl_aggregate`` launch), the fused
+    trainer against the sequential one on the card at equal client sizes
+    (losses 1e-5, params 2e-5) and ``round_step_stacked`` bitwise
+    ``round_step`` (``chip_smoke.py``'s ``reference.sequential``)."""
+    _chip_smoke().phase_reference_sequential()
+
+
+@pytest.mark.cuda
+def test_resnet_round_on_the_card_matches_the_cpu(cuda):
+    """Three LROA rounds of a small ResNet trainer (width 4, 16x16x3) on
+    the card against the CPU, one ``fl_aggregate`` launch per round."""
+    smoke = _chip_smoke()
+    cfg = dict(smoke.SMALL, image_shape=(16, 16, 3), num_classes=10,
+               task="resnet")
+    smoke.phase_reference(cfg=cfg, label="reference.resnet")
+
+
+@pytest.mark.cuda
+def test_pytree_aggregate_launches_once_per_leaf(cuda):
+    """``ops.fl_aggregate_pytree`` on a small ResNet's leaves: one launch
+    per leaf, each leaf bitwise the one-launch ``aggregate_fused``."""
+    from repro_torch.fl import server
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ops
+    from repro_torch.models import ResNetTask
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = ResNetTask(image_shape=(8, 8, 3), width=4).init(gen)
+    stacked = {n: torch.randn((3,) + tuple(p.shape), device="cuda",
+                              generator=gen) for n, p in params.items()}
+    coeffs = torch.tensor([0.5, 0.3, 0.2], device="cuda")
+    before = fk.LAUNCHES["fl_aggregate"]
+    per_leaf = ops.fl_aggregate_pytree(params, stacked, coeffs)
+    assert fk.LAUNCHES["fl_aggregate"] - before == len(params)
+    one = server.aggregate_fused(params, stacked, coeffs)
+    for n in params:
+        assert torch.equal(per_leaf[n], one[n]), n
+
+
 # (B, H, Hkv, Sq, Sk, D): tests/test_kernels.py, then a D = 128 and a
 # D = 256 point with several query and kv tiles and ragged ends (Sq <= Sk,
 # so every query row sees at least one key under every mask below)
