@@ -58,7 +58,12 @@ error is caught):
    group of 7) and grok-1 (soft-cap 30), each beside SDPA at the same
    shape and mask),
    ``kernel.ssd_chunk`` (its two launches, scores and chunk, timed
-   together; no single PyTorch call);
+   together; no single PyTorch call), ``kernel.flash_lse`` (the flash
+   kernel writing its lse output, the training forward's form, at
+   gemma-2b's training shape, a ragged f32 shape and gemma2-27b's
+   soft-capped layer: lse within :data:`LSE_CAP_TOL`-widened TOL of the
+   plain version, ``out`` within FLASH_TOL of the plain version and
+   bitwise ``out`` without lse, timed with and without lse);
 4. reference — a small LROA trainer run on the card against the same
    run on the CPU; reference.lm — the smoke LMs of
    :data:`LM_REFERENCE` (gemma2-27b on the flash path with a binding
@@ -101,6 +106,14 @@ error is caught):
    DivFL's update bank within 1e-4), the fused trainer against the
    sequential one on the card at equal client sizes (losses 1e-5, params
    2e-5) and ``round_step_stacked`` bitwise ``round_step``;
+   reference.train — ``make_train_step`` (gemma-2b smoke on the flash
+   path with remat and 2 microbatches; mamba2-130m smoke with remat) and
+   ``make_fl_round_step`` (gemma-2b smoke, K = 2, given coefficients) on
+   the card against the CPU from the same seeded parameters and batches:
+   losses, parameters and every leaf's gradient within
+   :data:`TRAIN_TOL`, every leaf's gradient present, finite and nonzero,
+   the card's flash / SSD / ``fl_aggregate`` launches as the layers,
+   remat and microbatches give them;
 5. main path — the paper-scale CNN testbed (N = 120 Dirichlet-0.5
    clients, K = 8, E = 2, batch 16) on the trainer's default bank, the
    4-rung tier ladder: ``warmup()``, then 3 LROA rounds through
@@ -141,7 +154,8 @@ error is caught):
    clients, ``ResNetTask()``, lr 0.05) and paper.femnist (28x28x1, 62
    classes, ``writer_partition`` over 120 writers, ``CNNTask()``, lr
    0.1), each LROA, Uni-D, Uni-S and DivFL through ``warmup()`` and
-   ``run(6)`` with ``eval_every=2``: one ``fl_aggregate`` launch per
+   ``run(3)`` (CIFAR) or ``run(6)`` (FEMNIST) with ``eval_every=2``:
+   one ``fl_aggregate`` launch per
    round, rounds/s, accuracy curves, modelled latency, the time to 95%
    of the worst final accuracy and each baseline's saving against LROA,
    peak memory, one profiled LROA round (paper.femnist only);
@@ -176,8 +190,30 @@ error is caught):
    the flash launches of :func:`expected_launches` (one per attention
    layer in prefill: 32, 28, 8, 12 and 4; in decode none, but Whisper's
    4 cross-attention launches a step);
-9. the ``kernels`` JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. LM training at full width: train.gemma2b — ``make_train_step(remat=
+   True, microbatch=2)`` at gemma-2b under ``dryrun_config`` (18 layers,
+   d 2048, 8 heads / 1 KV head, D 256, d_ff 16384, vocab 256000: 2.51 B
+   bf16 parameters), 3 steps on one repeated batch of 4 x 1024 tokens
+   (the loss finite and falling, 72 flash launches with lse a step:
+   18 layers x forward and remat's recompute x 2 microbatches), step
+   time, tokens/s, peak memory, one profiled step (busy share, the plain
+   flash backward's share from its profiler range), one step's peak with
+   the in-place SGD update and one with the functional path;
+   fl_round.gemma2b —
+   ``make_fl_round_step`` at the same width, K = 2 clients drawn by LROA
+   over 16 (as ``examples/lm_federated_torch.py``), 4 local steps on 2 x
+   512 tokens, lr 1e-2, 2 rounds: one ``fl_aggregate`` launch per round
+   and table of leaves, round time, peak memory (and one more round's by
+   the functional SGD path), and the eq.-(4) step at its 11 bf16 leaves,
+   bitwise its order of arithmetic, timed beside its bound
+   (kernel.aggregate_gemma2b);
+   train.mamba2 —
+   ``launch/train.main`` at mamba2-130m's full config (4 x 2048
+   tokens), 4 steps with checkpoints, then resumed to step 6: the SSD
+   launches of each run, and the resumed run bitwise two fresh-momentum
+   steps from the step-4 checkpoint;
+10. the ``kernels`` JSON line (with ``flash_attention_lse``), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Float32 matmuls and convolutions run in full f32 (TF32 off), so the card
 computes what the CPU reference computes.  Imports ``torch``, ``numpy``
@@ -276,9 +312,11 @@ PAPER_SCALE = dict(num_devices=120, sample_count=8, local_epochs=2,
 # the paper's Sec.-VII testbeds at paper scale, R rounds of its 2000
 # (PERF.md section 4): CIFAR-10-like (Dirichlet 0.5, ResNetTask at its
 # defaults, the paper's CIFAR lr 0.05) and FEMNIST-like (writer
-# partition, CNNTask at its defaults: 28x28x1, 62 classes, lr 0.1)
+# partition, CNNTask at its defaults: 28x28x1, 62 classes, lr 0.1); the
+# CIFAR-like testbed runs 3 rounds (6 until the training phases came:
+# the script passed 900 s of its 1200)
 PAPER_CIFAR = dict(PAPER_SCALE, task="resnet", dataset="cifar10", lr=0.05,
-                   rounds=6, eval_every=2)
+                   rounds=3, eval_every=2)
 PAPER_FEMNIST = dict(PAPER_SCALE, image_shape=(28, 28, 1), num_classes=62,
                      task="cnn", dataset="femnist", partition="writer",
                      lr=0.1, rounds=6, eval_every=2)
@@ -2831,6 +2869,36 @@ def _bound(nbytes: float, flops: float, hbm: float, peak: float):
                                        else "operations")
 
 
+def flash_agreement(out, want) -> dict:
+    """The flash kernel's ``out`` against its plain version ``want`` under
+    :data:`FLASH_TOL` for their dtype: every element within atol + rtol
+    |want|, the relative L2 error over the output and the worst row's
+    within their limits (``ok``), with the errors and the limits."""
+    atol, rtol, l2_limit, row_limit = FLASH_TOL[want.dtype]
+    diff = out.float() - want.float()
+    ok = torch.allclose(out.float(), want.float(), atol=atol, rtol=rtol)
+    rel_l2 = float(diff.norm() / want.float().norm())
+    # rows with no visible key are 0 in both
+    row_rel_l2 = float((diff.norm(dim=-1) / want.float().norm(
+        dim=-1).clamp_min(1e-30)).max())
+    return dict(
+        atol=atol, rtol=rtol, rel_l2_limit=l2_limit,
+        row_rel_l2_limit=row_limit, max_abs_err=float(diff.abs().max()),
+        mean_abs_err=float(diff.abs().mean()),
+        # the least atol that this rtol would need
+        atol_needed=float((diff.abs() - rtol * want.float().abs()).max()),
+        rel_l2_err=rel_l2, row_rel_l2_err_max=row_rel_l2,
+        ok=ok and rel_l2 <= l2_limit and row_rel_l2 <= row_limit)
+
+
+def _flash_disagreement(agree: dict) -> str:
+    return (f"max err {agree['max_abs_err']}, atol {agree['atol']}, rtol "
+            f"{agree['rtol']}; relative L2 {agree['rel_l2_err']}, limit "
+            f"{agree['rel_l2_limit']}; worst row "
+            f"{agree['row_rel_l2_err_max']}, limit "
+            f"{agree['row_rel_l2_limit']}")
+
+
 def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
                 sfu_ops_per_s: float) -> list:
     """The flash kernel against ``ref.mha_reference`` at gemma2-27b's
@@ -2881,24 +2949,14 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
         out = fa.flash_attention_cuda(q, k, v, **kw)
         want = ref.mha_reference(q, k, v, **kw)
         torch.cuda.synchronize()
-        atol, rtol, l2_limit, row_limit = FLASH_TOL[dtype]
-        diff = out.float() - want.float()
-        ok = torch.allclose(out.float(), want.float(), atol=atol, rtol=rtol)
-        err = float(diff.abs().max())
-        mean_err = float(diff.abs().mean())
-        # the least atol that this rtol would need
-        atol_needed = float((diff.abs() - rtol * want.float().abs()).max())
-        rel_l2 = float(diff.norm() / want.float().norm())
-        # rows with no visible key are 0 in both
-        row_rel_l2 = float((diff.norm(dim=-1) / want.float().norm(
-            dim=-1).clamp_min(1e-30)).max())
+        agree = flash_agreement(out, want)
         plain_rel_l2 = None
         if dtype == torch.bfloat16:
             want32 = ref.mha_reference(q.float(), k.float(), v.float(), **kw)
             plain_rel_l2 = float((want.float() - want32).norm()
                                  / want32.norm())
             del want32
-        del want, diff
+        del want
         size = q.element_size()
         nbytes = 2 * (b * h * sq * d + b * hkv * sk * d) * size
         pairs = b * h * fa.visible_pairs(sq, sk, pt["causal"], pt["window"])
@@ -2937,10 +2995,7 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
         row = dict(
             label=pt["label"], shape=list(pt["shape"]), dtype=_dname(dtype),
             causal=pt["causal"], window=pt["window"], softcap=pt["softcap"],
-            atol=atol, rtol=rtol, rel_l2_limit=l2_limit,
-            row_rel_l2_limit=row_limit, max_abs_err=err,
-            mean_abs_err=mean_err, atol_needed=atol_needed,
-            rel_l2_err=rel_l2, row_rel_l2_err_max=row_rel_l2,
+            **{k_: v_ for k_, v_ in agree.items() if k_ != "ok"},
             plain_rel_l2_err=plain_rel_l2,
             ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
                        iters=pt["iters"], flush=flush),
@@ -2958,13 +3013,11 @@ def phase_flash(flush, hbm: float, f32_peak: float, bf16_peak: float,
             log("floor.sfu", label=pt["label"], sfu_ops=sfu_ops,
                 sfu_ops_per_s=sfu_ops_per_s,
                 floor_ms=sfu_ops / sfu_ops_per_s * 1e3)
-        require(ok and rel_l2 <= l2_limit and row_rel_l2 <= row_limit,
+        require(agree["ok"],
                 f"flash kernel disagrees with its plain version at "
                 f"{row['shape']} {row['dtype']} causal={pt['causal']} "
-                f"window={pt['window']} softcap={pt['softcap']} (max err "
-                f"{err}, atol {atol}, rtol {rtol}; relative L2 {rel_l2}, "
-                f"limit {l2_limit}; worst row {row_rel_l2}, limit "
-                f"{row_limit})")
+                f"window={pt['window']} softcap={pt['softcap']} "
+                f"({_flash_disagreement(agree)})")
         rows.append(row)
         del q, k, v, out
     torch.cuda.empty_cache()
@@ -3304,10 +3357,13 @@ def phase_serve_mamba2() -> dict:
     return serve("mamba2", get_config("mamba2-130m"), MAMBA_SERVE)
 
 
-def _profiled(fn):
+def _profiled(fn, ranges=(), match=()):
     """Run ``fn`` once under ``torch.profiler``: (its result, wall s, the
     device's busy s, kernel launches, the 8 kernels with the most device
-    time)."""
+    time; for each ``torch.profiler.record_function`` name in ``ranges``
+    its calls and the device time of the kernels launched inside it; for
+    each substring in ``match`` the device time and launches of the
+    kernels whose name holds it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3318,8 +3374,10 @@ def _profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    # a range's own device-side annotation is no kernel
+    kernels = [e for e in averages
+               if e.device_type == DeviceType.CUDA and e.key not in ranges]
     busy = sum(e.self_device_time_total for e in kernels) * 1e-6
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
@@ -3327,7 +3385,18 @@ def _profiled(fn):
         wall_s=wall, device_busy_s=busy, device_busy_share=busy / wall,
         kernel_launches=sum(e.count for e in kernels),
         top=[dict(name=e.key[:80], launches=e.count,
-                  device_s=e.self_device_time_total * 1e-6) for e in top])
+                  device_s=e.self_device_time_total * 1e-6) for e in top],
+        ranges={name: dict(
+            calls=sum(e.count for e in averages if e.key == name
+                      and e.device_type == DeviceType.CPU),
+            device_s=sum(e.device_time_total for e in averages
+                         if e.key == name
+                         and e.device_type == DeviceType.CPU) * 1e-6)
+            for name in ranges},
+        kernels_matching={sub: dict(
+            launches=sum(e.count for e in kernels if sub in e.key),
+            device_s=sum(e.self_device_time_total for e in kernels
+                         if sub in e.key) * 1e-6) for sub in match})
 
 
 def phase_profile_serve(run: dict) -> None:
@@ -3349,18 +3418,682 @@ def phase_profile_serve(run: dict) -> None:
     log("profile.serve", prefill=pre, decode_step=dec)
 
 
+# ---------------------------------------------------------------------------
+# LM training: the flash kernel's lse output, the steps card against CPU,
+# and gemma-2b / mamba2-130m at full width
+# ---------------------------------------------------------------------------
+
+# the flash kernel with its lse output: (label, (B, H, Hkv, S, D), dtype,
+# causal, window, soft-cap, scale): gemma-2b's training shape (one
+# microbatch of 2 x 1024 tokens), a ragged f32 shape, and gemma2-27b's
+# soft-capped global layer
+FLASH_LSE = (
+    ("gemma2b.train", (2, 8, 1, 1024, 256), torch.bfloat16, True, 0, 0.0,
+     None),
+    ("f32.ragged", (1, 4, 2, 300, 80), torch.float32, True, 0, 0.0, None),
+    ("gemma2.global", (2, 32, 16, 4352, 128), torch.bfloat16, True, 0,
+     GEMMA_CAP, GEMMA_SCALE),
+)
+# lse against the plain version, max abs: f32 2e-5 (TOL); bf16 2e-2
+# (TOL) plus, under a soft-cap, cap x 5e-4: the kernel's tanh.approx is
+# off by up to 2^-10.99 of |tanh| (about 4.9e-4), so a logit moves by up
+# to cap x 4.9e-4 and the lse, a p-weighted mean of its logits' moves, by
+# no more (0.0245 at cap 50)
+LSE_CAP_TOL = 5e-4
+# card against CPU in reference.train: losses, params and (relative to
+# each leaf's largest) grads, f32
+TRAIN_TOL = 1e-4
+# reference.train: (arch, config overrides, microbatch, remat)
+TRAIN_REFERENCE = (("gemma-2b", LM_FLASH, 2, True),
+                   ("mamba2-130m", {}, 1, True))
+# train.gemma2b: make_train_step at gemma-2b's full width on one
+# repeated batch of 4 x 1024 tokens, 2 microbatches, remat
+GEMMA_TRAIN = dict(batch=4, seq=1024, microbatch=2, steps=3, lr=1e-2,
+                   seed=5)
+# fl_round.gemma2b: K = 2 clients of 2 x 512 tokens, 4 local steps, lr
+# 1e-2, coefficients from LROA over 16 clients (examples/
+# lm_federated_torch.py), 2 rounds
+FL_ROUND = dict(devices=16, clients=2, local_batch=2, seq=512,
+                local_steps=4, lr=1e-2, rounds=2)
+# train.mamba2: launch/train.py at mamba2-130m's full config, 4 steps,
+# then resumed to 6
+MAMBA_TRAIN = dict(batch=4, seq=2048, lr=0.3)
+
+
+def phase_flash_lse(flush, hbm: float, f32_peak: float,
+                    bf16_peak: float) -> list:
+    """The flash kernel with its ``lse`` output at :data:`FLASH_LSE`:
+    ``lse`` against ``ref.mha_reference(return_lse=True)``, ``out``
+    against its plain version under :data:`FLASH_TOL`
+    (:func:`flash_agreement`) and bitwise ``out`` without ``lse``, the
+    kernel's time with and
+    without ``lse``, the plain version's, SDPA's where the point has no
+    soft-cap or window."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rows = []
+    for label, (b, h, hkv, s, d), dtype, causal, window, cap, scale \
+            in FLASH_LSE:
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                   for shape in ((b, h, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d)))
+        kw = dict(causal=causal, window=window, softcap=cap, scale=scale)
+        out_serving = fa.flash_attention_cuda(q, k, v, **kw)
+        out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        want_out, want_lse = ref.mha_reference(q, k, v, return_lse=True,
+                                               **kw)
+        torch.cuda.synchronize()
+        tol = TOL[dtype] + (LSE_CAP_TOL * cap if dtype == torch.bfloat16
+                            else 0.0)
+        err = float((lse - want_lse).abs().max())
+        bitwise = bool(torch.equal(out, out_serving))
+        agree = flash_agreement(out, want_out)
+        del out_serving, want_out, want_lse
+        nbytes = (2 * (b * h * s * d + b * hkv * s * d) * q.element_size()
+                  + b * h * s * 4)
+        flops = fa.flash_attention_flops(b, h, d, s, s, causal, window)
+        bound_ms, bound_by = _bound(
+            nbytes, flops, hbm,
+            bf16_peak if dtype == torch.bfloat16 else f32_peak)
+        library_ms = None
+        if cap == 0 and window == 0:
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=scale, enable_gqa=True),
+                iters=10, flush=flush)
+        row = dict(
+            label=label, shape=[b, h, hkv, s, s, d], dtype=_dname(dtype),
+            causal=causal, window=window, softcap=cap, lse_tol=tol,
+            max_abs_err=err,
+            **{f"out_{k_}": v_ for k_, v_ in agree.items() if k_ != "ok"},
+            out_bitwise_equal_without_lse=bitwise,
+            ms=time_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, return_lse=True, **kw), iters=10, flush=flush),
+            ms_without_lse=time_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, **kw), iters=10, flush=flush),
+            plain_ms=time_ms(lambda: ref.mha_reference(
+                q, k, v, return_lse=True, **kw),
+                iters=3 if s > 1024 else 10, flush=flush),
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            gflop=flops * 1e-9, mbytes=nbytes * 1e-6)
+        row["lse_cost"] = row["ms"] / row["ms_without_lse"] - 1.0
+        log("kernel.flash_lse", **row)
+        require(err <= tol, f"flash lse within {tol} of the plain version "
+                            f"at {label} (err {err})")
+        require(agree["ok"], f"flash out with lse disagrees with the plain "
+                             f"version at {label} "
+                             f"({_flash_disagreement(agree)})")
+        require(bitwise, f"flash out with lse is bitwise out without it at "
+                         f"{label}")
+        rows.append(row)
+        del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_batches(cfg, steps: int, batch: int, seq: int, seed: int,
+                   device) -> list:
+    """``steps`` batches of next-token pairs from the synthetic corpus."""
+    from repro_torch.data import synthetic_lm_tokens
+
+    toks = torch.as_tensor(synthetic_lm_tokens(
+        steps * batch, seq + 1, cfg.vocab_size, seed=seed), device=device)
+    return [{"tokens": t[:, :-1], "labels": t[:, 1:]}
+            for t in toks.reshape(steps, batch, seq + 1)]
+
+
+def _leaves(tree) -> list:
+    from repro_torch.tree import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def _grads_ok(grads) -> bool:
+    """Every leaf's gradient present, finite and not all zero."""
+    return all(g is not None and bool(torch.isfinite(g).all())
+               and bool((g != 0).any()) for g in grads)
+
+
+def _copy_to(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def phase_reference_train(devices=("cpu", "cuda")) -> None:
+    """The training steps on the card against the CPU from the same
+    seeded parameters and batches (f32 smoke configs): ``make_train_step``
+    at gemma-2b with the flash path (remat, 2 microbatches) and at
+    mamba2-130m (remat), two steps each; ``make_fl_round_step`` at
+    gemma-2b, K = 2, given coefficients.  Losses, parameters and every
+    leaf's gradient within :data:`TRAIN_TOL`; every leaf's gradient
+    present, finite and nonzero on each device (a kernel output cut from
+    the graph would leave them missing or zero); the card's flash and SSD
+    launches as the layers, remat and microbatches give them, one
+    ``fl_aggregate`` launch per FL round.  Also run by
+    ``tests/test_torch_cuda.py``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import (build_model, make_fl_round_step,
+                                          make_loss_fn, make_train_step,
+                                          value_and_grad)
+    from repro_torch.optim import SGD
+
+    for arch, over, micro, remat in TRAIN_REFERENCE:
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        params0 = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        batches0 = _train_batches(cfg, 2, 4, 32, 4, "cpu")
+        runs = []
+        for device in devices:
+            params = _copy_to(params0, device)
+            batches = [{k: v.to(device) for k, v in b.items()}
+                       for b in batches0]
+            _, grads = value_and_grad(make_loss_fn(build_model(cfg, device)),
+                                      params, batches[0])
+            require(_grads_ok(grads), f"{arch} on {device}: every leaf's "
+                                      f"grad present, finite and nonzero")
+            step = make_train_step(cfg, lr=0.1, remat=remat,
+                                   microbatch=micro, device=device)
+            state = SGD(momentum=0.9).init(params)
+            _reset_launch_counts()
+            losses = []
+            for b in batches:
+                params, state, m = step(params, state, b)
+                losses.append(float(m["loss"]))
+            runs.append((losses, [t.cpu() for t in _leaves(params)],
+                         [g.cpu() for g in grads], _launch_counts()))
+        (lc, pc, gc_, _), (lg, pg, gg, n_card) = runs
+        loss_err = max(abs(a - b) for a, b in zip(lc, lg))
+        param_err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+        grad_err = max(float((a - b).abs().max() / a.abs().max().clamp_min(
+            1e-30)) for a, b in zip(gc_, gg))
+        layers = cfg.all_blocks
+        per_pass = (2 if remat else 1) * (
+            torch.device(devices[1]).type == "cuda")
+        want = {"flash_attention": sum(kd in ("global", "local")
+                                       for kd in layers),
+                "ssd_scores": sum(kd == "ssd" for kd in layers),
+                "ssd_chunk": sum(kd == "ssd" for kd in layers)}
+        want = {kn: n * per_pass * micro * len(batches0)
+                for kn, n in want.items()}
+        want["flash_attention_lse"] = want["flash_attention"]
+        log("reference.train", arch=arch, microbatch=micro, remat=remat,
+            leaves=len(pc), losses_cpu=lc, losses_card=lg,
+            loss_max_abs_err=loss_err, param_max_abs_err=param_err,
+            grad_max_rel_err=grad_err, tol=TRAIN_TOL,
+            card_launches={k: n for k, n in n_card.items() if n},
+            expected_card_launches=want)
+        require(loss_err <= TRAIN_TOL and param_err <= TRAIN_TOL
+                and grad_err <= TRAIN_TOL,
+                f"{arch}: card and CPU train steps within {TRAIN_TOL}")
+        for kernel, n in want.items():
+            require(n_card[kernel] == n, f"{arch}: {n} {kernel} launches "
+                                         f"on the card, got {n_card[kernel]}")
+
+    cfg = dataclasses.replace(get_smoke_config("gemma-2b"), **LM_FLASH)
+    params0 = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    b0 = _train_batches(cfg, 2, 2, 32, 7, "cpu")
+    batch0 = {"tokens": torch.stack([b["tokens"] for b in b0]),
+              "labels": torch.stack([b["labels"] for b in b0]),
+              "coeffs": torch.tensor([0.6, 0.45])}
+    runs = []
+    for device in devices:
+        step = make_fl_round_step(cfg, 2, lr=0.1, local_steps=2,
+                                  device=device)
+        _reset_launch_counts()
+        new, m = step(_copy_to(params0, device),
+                      {k: v.to(device) for k, v in batch0.items()})
+        runs.append((float(m["loss"]), [t.cpu() for t in _leaves(new)],
+                     _launch_counts()))
+    (lc, pc, _), (lg, pg, n_card) = runs
+    param_err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    attn = sum(kd in ("global", "local") for kd in cfg.all_blocks)
+    log("reference.fl_round", arch="gemma-2b", clients=2, local_steps=2,
+        loss_cpu=lc, loss_card=lg, loss_abs_err=abs(lc - lg),
+        param_max_abs_err=param_err, tol=TRAIN_TOL,
+        card_launches={k: n for k, n in n_card.items() if n})
+    require(abs(lc - lg) <= TRAIN_TOL and param_err <= TRAIN_TOL,
+            f"FL round: card and CPU within {TRAIN_TOL}")
+    on_card = torch.device(devices[1]).type == "cuda"
+    require(n_card["fl_aggregate"] == on_card and
+            n_card["flash_attention"] == 2 * 2 * attn * on_card,
+            f"FL round: one fl_aggregate launch and {4 * attn} flash "
+            f"launches on the card, got {n_card}")
+
+
+@torch.no_grad()
+def _functional_sgd_step_(opt, grads, state, params, lr) -> None:
+    """``SGD.step_``'s numbers by the functional path: ``update`` and
+    ``apply_updates`` over whole trees, then copied into place."""
+    from repro_torch.optim.sgd import apply_updates
+
+    updates, new_state = opt.update(grads, state, params, lr)
+    new_params = apply_updates(params, updates)
+    del updates
+    for old, new in zip(_leaves(params) + _leaves(state),
+                        _leaves(new_params) + _leaves(new_state)):
+        old.copy_(new)
+
+
+def _step_peak(run, functional_sgd: bool = False):
+    """Peak bytes allocated over ``run()``, with ``SGD.step_`` as the
+    steps do it (in place, leaf by leaf) or, with ``functional_sgd``, as
+    the functional path does it: ``update`` and then ``apply_updates``
+    over whole trees, the old and new parameters and momentum alive at
+    once, the result then copied into place.  The difference is what the
+    in-place update saves.  Returns (the peak, or None if ``run()`` runs
+    out of memory; the kernels' launches in ``run()``)."""
+    from unittest import mock
+
+    from repro_torch.optim import SGD
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    try:
+        if functional_sgd:
+            with mock.patch.object(SGD, "step_", _functional_sgd_step_):
+                run()
+        else:
+            run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    except torch.cuda.OutOfMemoryError:
+        peak = None
+    return peak, _launch_counts()
+
+
+def phase_train_gemma2b(cfg=None, spec: dict = GEMMA_TRAIN,
+                        device="cuda") -> dict:
+    """``make_train_step(remat=True, microbatch=2)`` at gemma-2b's full
+    width (``dryrun_config``: bf16, flash) on one repeated batch of 4 x
+    1024 tokens, :data:`GEMMA_TRAIN`: the loss finite and falling, 72
+    flash launches a step (18 layers x forward and remat's recompute x 2
+    microbatches), each with lse, step time, tokens/s, peak memory, then
+    one more step under ``torch.profiler`` (busy share; the plain flash
+    backward's device time from its profiler range, the flash kernel's
+    from its name), then one step's peak memory with the in-place SGD
+    update and one with the functional path (:func:`_step_peak`).  Returns the model and the trained parameters for
+    :func:`phase_fl_round_gemma2b`.  ``cfg``, ``spec`` and ``device``:
+    a rehearsal on the CPU at a small size (no launches, no profile)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (build_model, dryrun_config,
+                                          make_train_step)
+    from repro_torch.models.flash import BACKWARD_RANGE
+    from repro_torch.models.transformer import param_bytes, param_count
+    from repro_torch.optim import SGD
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = cfg or dryrun_config(get_config("gemma-2b"))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    sync()
+    log("train.gemma2b.setup", params=param_count(params),
+        params_bytes=param_bytes(params), init_s=time.perf_counter() - t0,
+        layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
+        kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, dtype=cfg.dtype,
+        attn_impl=cfg.attn_impl)
+    batch = _train_batches(cfg, 1, spec["batch"], spec["seq"], spec["seed"],
+                           device)[0]
+    step = make_train_step(cfg, lr=spec["lr"], remat=True,
+                           microbatch=spec["microbatch"], device=device)
+    state = SGD(momentum=0.9).init(params)
+    want = cfg.num_layers * 2 * spec["microbatch"] if on_card else 0
+    losses, seconds = [], []
+    for _ in range(spec["steps"]):
+        sync()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        seconds.append(time.perf_counter() - t0)
+        n = _launch_counts()
+        require(n["flash_attention"] == want and
+                n["flash_attention_lse"] == want,
+                f"gemma-2b train step: {want} flash launches with lse, got "
+                f"{n['flash_attention']} ({n['flash_attention_lse']})")
+    tokens = spec["batch"] * spec["seq"]
+    median = statistics.median(seconds)
+    summary = dict(
+        **{k: spec[k] for k in ("batch", "seq", "microbatch", "lr")},
+        losses=losses, step_s=seconds, step_s_median=median,
+        tokens_per_s=tokens / median,
+        peak_mem_bytes=torch.cuda.max_memory_allocated() if on_card
+        else None, launches_per_step=want)
+    if on_card:
+        (params, state, m), prof = _profiled(
+            lambda: step(params, state, batch), ranges=(BACKWARD_RANGE,),
+            match=("flash_fwd",))
+        losses.append(float(m["loss"]))
+        bwd = prof["ranges"][BACKWARD_RANGE]
+        summary.update(
+            profiled_step=prof, flash_backward_device_s=bwd["device_s"],
+            flash_backward_calls=bwd["calls"],
+            flash_backward_share_of_step=bwd["device_s"] / prof["wall_s"],
+            flash_forward_device_s=prof["kernels_matching"]["flash_fwd"][
+                "device_s"])
+        require(bwd["calls"] == cfg.num_layers * spec["microbatch"],
+                f"gemma-2b: {cfg.num_layers * spec['microbatch']} flash "
+                f"backward calls in the profiled step, got {bwd['calls']}")
+        # one more step each way: the in-place update's saving
+        for key, functional in (("peak_step_bytes", False),
+                                ("peak_step_bytes_functional_sgd", True)):
+            summary[key], n = _step_peak(
+                lambda: step(params, state, batch), functional)
+            require(summary[key] is None or n["flash_attention"] == want,
+                    f"gemma-2b train step ({key}): {want} flash launches, "
+                    f"got {n['flash_attention']}")
+    log("train.gemma2b", **summary)
+    require(all(np.isfinite(losses)), "gemma-2b: finite losses")
+    require(losses[-1] < losses[0], f"gemma-2b: the loss falls on the "
+                                    f"repeated batch ({losses})")
+    steps = spec["steps"] + 3 * on_card
+    summary["launches"] = {"flash_attention": want * steps,
+                           "flash_attention_lse": want * steps}
+    del state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(summary, model=model, params=params)
+
+
+def phase_fl_round_gemma2b(model, params, spec: dict = FL_ROUND) -> dict:
+    """``make_fl_round_step`` at gemma-2b's full width (:data:`FL_ROUND`):
+    each round LROA decides q over 16 clients from the channel, K = 2 are
+    drawn and weighted ``w / (K q)`` as ``examples/lm_federated_torch.py``
+    does, each trains 4 local steps on 2 x 512 tokens; exactly one
+    ``fl_aggregate`` launch per round and table of leaves, 144 flash
+    launches (2 clients x 4 steps x 18 layers); round time, peak
+    memory, and the peak of one more round with the functional SGD path
+    (:func:`_step_peak`); then the eq.-(4) step at the model's leaves
+    timed beside its bound (:func:`_aggregate_at_leaves`,
+    ``kernel.aggregate_gemma2b``).
+    On the CPU (a rehearsal) nothing launches and nothing is timed."""
+    from repro_torch.core import (LROAController, estimate_hyperparams,
+                                  paper_default_params)
+    from repro_torch.data import synthetic_lm_tokens
+    from repro_torch.fl import ChannelConfig, ChannelProcess, sample_clients
+    from repro_torch.fl.server import aggregation_weights
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.launch.steps import make_fl_round_step
+    from repro_torch.models.transformer import param_count
+
+    cfg, device = model.cfg, model.device
+    on_card = torch.device(device).type == "cuda"
+    n, k = spec["devices"], spec["clients"]
+    shards = [synthetic_lm_tokens(spec["local_batch"], spec["seq"] + 1,
+                                  cfg.vocab_size, seed=100 + i)
+              for i in range(n)]
+    sizes = np.asarray([s.size for s in shards], np.float32)
+    sys_params = paper_default_params(num_devices=n, data_sizes=sizes,
+                                      model_params=param_count(params),
+                                      device=device)
+    controller = LROAController(sys_params, estimate_hyperparams(
+        sys_params, 0.1, loss_scale=5.0))
+    channel = ChannelProcess(n, ChannelConfig(seed=0))
+    w = sys_params.data_weights.cpu().numpy()
+    rng = np.random.default_rng(0)
+    step = make_fl_round_step(cfg, k, lr=spec["lr"],
+                              local_steps=spec["local_steps"], device=device)
+    leaves = _leaves(params)
+    tables = (-(-len(leaves) // fk._library().fl_aggregate_max_segments())
+              if on_card else 0)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    rounds = []
+    for t in range(spec["rounds"]):
+        h = torch.as_tensor(channel.sample(), dtype=torch.float32,
+                            device=device)
+        dec = controller.decide(h)
+        q = dec.q.cpu().numpy()
+        selected = sample_clients(rng, q, k)
+        coeffs = aggregation_weights(selected, q, w, k)
+        toks = torch.as_tensor(np.stack([shards[i] for i in selected]),
+                               device=device)
+        batch = {"tokens": toks[:, :, :-1], "labels": toks[:, :, 1:],
+                 "coeffs": torch.as_tensor(coeffs, device=device)}
+        if on_card:
+            torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        params, m = step(params, batch)
+        loss = float(m["loss"])
+        seconds = time.perf_counter() - t0
+        controller.step_queues(h, dec)
+        launches = _launch_counts()
+        rounds.append(dict(round=t, selected=selected.tolist(),
+                           coeffs=coeffs.tolist(), loss=loss,
+                           seconds=seconds, launches={
+                               kn: v for kn, v in launches.items() if v}))
+        require(np.isfinite(loss), "FL round at gemma-2b: finite loss")
+        require(launches["fl_aggregate"] == tables,
+                f"FL round: {tables} fl_aggregate launch(es) (one per table "
+                f"of {len(leaves)} leaves), got {launches['fl_aggregate']}")
+        want = k * spec["local_steps"] * cfg.num_layers * on_card
+        require(launches["flash_attention"] == want,
+                f"FL round: {want} flash launches, got "
+                f"{launches['flash_attention']}")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    extra, rounds_run = {}, spec["rounds"]
+    if on_card:
+        # the last round's clients once more with the functional SGD path
+        # (its result dropped): the in-place update's saving
+        peak_functional, extra = _step_peak(lambda: step(params, batch),
+                                            True)
+        rounds_run = spec["rounds"] + 1
+        require(peak_functional is None or extra["fl_aggregate"] == tables,
+                f"FL round (functional SGD): {tables} fl_aggregate "
+                f"launch(es), got {extra['fl_aggregate']}")
+        aggregate = _aggregate_at_leaves(_leaves(params), k, rounds[-1][
+            "coeffs"])
+        log("kernel.aggregate_gemma2b", **aggregate)
+    summary = dict(**spec, leaves=len(leaves), tables=tables,
+                   round_log=rounds,
+                   round_s=[r["seconds"] for r in rounds],
+                   peak_mem_bytes=peak,
+                   launches={"fl_aggregate": tables * rounds_run,
+                             **{kn: sum(r["launches"].get(kn, 0)
+                                        for r in rounds) + extra.get(kn, 0)
+                                for kn in ("flash_attention",
+                                           "flash_attention_lse")}})
+    if on_card:
+        summary.update(aggregate=aggregate,
+                       peak_mem_bytes_functional_sgd=peak_functional)
+    log("fl_round.gemma2b", **{k_: v for k_, v in summary.items()
+                               if k_ != "round_log"})
+    for r in rounds:
+        log("fl_round.gemma2b.round", **r)
+    return summary
+
+
+def _aggregate_at_leaves(thetas: list, k: int, coeffs: list) -> dict:
+    """The round's eq.-(4) step at gemma-2b's leaves (bf16 thetas and
+    seeded bf16 deltas, the last round's coefficients): one
+    ``ops.fl_aggregate_leaves`` call, bitwise its order of arithmetic
+    (``ref.aggregate_leaves_fma_reference``) and within TOL[bf16] of the
+    plain per-leaf version, timed after a clean L2 flush beside its
+    bound (each theta and delta read once, each output written once).
+    The deltas (1e-3, the thetas about 0.01-0.05) move most elements by
+    an ulp or more, which the run counts (``changed_share``), so that a
+    kernel dropping them fails the bitwise check."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ops, ref
+
+    hbm, f32_peak, _ = peaks(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    deltas = [(1e-3 * torch.randn((k,) + tuple(t.shape), device="cuda",
+                                  generator=gen)).to(t.dtype)
+              for t in thetas]
+    c = torch.tensor(coeffs, dtype=torch.float32, device="cuda")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def call():
+        return ops.fl_aggregate_leaves(thetas, deltas, c)
+
+    before = fk.LAUNCHES["fl_aggregate"]
+    out = call()
+    launches = fk.LAUNCHES["fl_aggregate"] - before
+    want = ref.aggregate_leaves_reference(thetas, deltas, c)
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(out, want))
+    close = all(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
+                for a, b in zip(out, want))
+    del want
+    # the fma order in f64 (ref.fma_f32) over pieces of 2^26 elements, so
+    # that its temporaries stay small beside the 524M-element embedding
+    bitwise_fma, piece = True, 2 ** 26
+    for theta, d, o in zip(thetas, deltas, out):
+        theta, d, o = theta.reshape(-1), d.reshape(k, -1), o.reshape(-1)
+        for a in range(0, theta.numel(), piece):
+            exact = ref.aggregate_leaves_fma_reference(
+                [theta[a:a + piece]], [d[:, a:a + piece]], c)[0]
+            bitwise_fma &= bool(torch.equal(o[a:a + piece], exact))
+    n = sum(t.numel() for t in thetas)
+    changed = sum(int((o != t).sum()) for o, t in zip(out, thetas)) / n
+    del out
+    nbytes = _leaf_bytes(thetas, deltas) + 4 * k
+    bound_ms, bound_by = _bound(nbytes, 2 * k * n, hbm, f32_peak)
+    row = dict(leaves=len(thetas), n=n, k=k, dtype="bfloat16",
+               launches=launches, tol=tol, max_abs_err=err,
+               bitwise_equal_to_fma_order=bitwise_fma,
+               changed_share=changed,
+               ms=time_ms(call, iters=10, flush=flush, clean=True),
+               plain_ms=time_ms(lambda: ref.aggregate_leaves_reference(
+                   thetas, deltas, c), iters=3, flush=flush, clean=True),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               mbytes=nbytes * 1e-6, flush="clean")
+    row["bound_share"] = bound_ms / row["ms"]
+    require(close, f"eq. (4) at gemma-2b's leaves: the kernel within {tol} "
+                   f"of the plain version (err {err})")
+    require(bitwise_fma, "eq. (4) at gemma-2b's leaves: the kernel is "
+                         "bitwise its order of arithmetic "
+                         "(ref.aggregate_leaves_fma_reference)")
+    require(changed > 0.5, f"eq. (4) at gemma-2b's leaves: the deltas move "
+                           f"most elements (moved {changed:.3f})")
+    require(launches == -(-len(thetas)
+                          // fk._library().fl_aggregate_max_segments()),
+            f"eq. (4) at gemma-2b's leaves: one launch per table, got "
+            f"{launches}")
+    del deltas, flush
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_mamba2(spec: dict = MAMBA_TRAIN, device="cuda") -> dict:
+    """``launch/train.main`` at mamba2-130m's full config
+    (:data:`MAMBA_TRAIN`): 4 steps with checkpoints at 2 and 4, then the
+    driver again with ``--steps 6``, which resumes from step 4.  The SSD
+    kernels run in every forward (24 launches of each a step); the
+    resumed run reaches step 6 with a finite loss; and it started from
+    the saved step-4 parameters with fresh momentum, as the JAX driver
+    does: two steps of ``make_train_step`` from the step-4 checkpoint
+    with a zero momentum, on the batches the resumed driver read, give
+    its parameters and momentum bitwise."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import lm_batches, synthetic_lm_tokens
+    from repro_torch.launch import train as driver
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import SGD
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = (get_config if spec.get("full", True) else get_smoke_config)(
+        "mamba2-130m")
+    ssd_layers = sum(kd == "ssd" for kd in cfg.all_blocks) * on_card
+    with tempfile.TemporaryDirectory() as ckdir:
+        argv = ["--arch", "mamba2-130m", "--batch", str(spec["batch"]),
+                "--seq", str(spec["seq"]), "--lr", str(spec["lr"]),
+                "--ckpt-every", "2", "--log-every", "1", "--ckpt-dir", ckdir,
+                "--device", str(device)]
+        if spec.get("full", True):
+            argv.append("--full-config")
+        runs = {}
+        for steps in (4, 6):
+            if on_card:
+                torch.cuda.synchronize()
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            run = driver.main(argv + ["--steps", str(steps)])
+            if on_card:
+                torch.cuda.synchronize()
+            run["seconds"] = time.perf_counter() - t0
+            run["launches"] = {k: v for k, v in _launch_counts().items()
+                               if v}
+            runs[steps] = run
+            done = steps - run["start"]
+            for kernel in ("ssd_scores", "ssd_chunk"):
+                require(run["launches"].get(kernel, 0) == done * ssd_layers,
+                        f"mamba2 driver: {done * ssd_layers} {kernel} "
+                        f"launches, got {run['launches'].get(kernel)}")
+        resumed = runs[6]
+        require(runs[4]["start"] == 0 and resumed["start"] == 4,
+                "mamba2 driver: the second run resumes from step 4")
+        require(np.isfinite(resumed["loss"]),
+                "mamba2 driver: finite loss at step 6")
+        params, _ = restore_checkpoint(ckdir, "step_4", resumed["params"])
+    # the driver's batches: its corpus and iterator, from the first batch
+    toks = synthetic_lm_tokens(max(spec["batch"] * 16, 64), spec["seq"] + 1,
+                               cfg.vocab_size, seed=0)
+    batches = lm_batches(toks, spec["batch"], seed=1)
+    step = make_train_step(cfg, lr=spec["lr"], remat=False, device=device)
+    state = SGD(momentum=0.9).init(params)
+    for _ in range(2):
+        b = {k: torch.as_tensor(v, device=device)
+             for k, v in next(batches).items()}
+        params, state, _ = step(params, state, b)
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        _leaves(params), _leaves(resumed["params"])))
+    same_momentum = all(torch.equal(a, b) for a, b in zip(
+        _leaves(state), _leaves(resumed["opt_state"])))
+    out = dict(
+        **spec, run_s={str(s): r["seconds"] for s, r in runs.items()},
+        losses={str(s): [r["loss0"], r["loss"]] for s, r in runs.items()},
+        start_of_resumed=resumed["start"],
+        launches={str(s): r["launches"] for s, r in runs.items()},
+        resumed_equals_fresh_momentum_replay=same_params and same_momentum)
+    log("train.mamba2", **out)
+    require(same_params and same_momentum,
+            "mamba2 driver: the resumed run is bitwise two steps from the "
+            "step-4 checkpoint with fresh momentum")
+    out["launches"] = {k: sum(r["launches"].get(k, 0)
+                              for r in runs.values())
+                       for k in ("ssd_scores", "ssd_chunk")}
+    del runs, resumed, params, state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
                  main_summary: dict, single_summary: dict,
                  scan_summary: dict, arena_summary: dict, map_summary: dict,
                  sweep_summary: dict, paper: dict, flash: list, ssd: list,
                  gemma: dict, mamba: dict, families: dict, smi: str,
-                 sass: dict) -> dict:
+                 sass: dict, flash_lse: list, training: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
     paths (the LROA rounds on the ladder and on the single bucket, the
     seven controllers' rollouts, the mapped arena's lane rounds and the
     paper testbeds' trainer rounds; the arena's and the sweep's
     lane-batched rounds; the gemma2, mamba2 and the other families'
-    generations) and its numbers at that path's shapes."""
+    generations; the LM training phases) and its numbers at that path's
+    shapes; ``flash_attention_lse`` is the flash kernel writing its lse
+    output, the training forward's form."""
     m = next(p for p in points if (p["n"], p["k"]) == MAIN_POINT[:2]
              and p["dtype"] == "float32")
     fg = next(r for r in flash if r["label"] == "gemma2.global")
@@ -3383,6 +4116,13 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
 
     fused = leaves["fused"]
     la = lanes[0]
+    lse_main = next(r for r in flash_lse if r["label"] == "gemma2b.train")
+
+    def trained(kernel):
+        return {path: run["launches"].get(kernel, 0)
+                for path, run in training.items()
+                if run["launches"].get(kernel, 0)}
+
     return {"kernels": [
         entry("fl_aggregate", "src/repro_torch/kernels/csrc/fl_aggregate.cu",
               "src/repro/kernels/fl_aggregate.py:35",
@@ -3391,7 +4131,8 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
               + scan_summary["launches"]["fl_aggregate"]
               + map_summary["launches"]["fl_aggregate"]
               + sum(run["launches"]["fl_aggregate"]
-                    for run in paper.values()),
+                    for run in paper.values())
+              + sum(trained("fl_aggregate").values()),
               dict(fused, library_ms=None),
               launches_by_path={
                   "main": main_summary["launches"]["fl_aggregate"],
@@ -3399,7 +4140,8 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
                   "scan": scan_summary["launches"]["fl_aggregate"],
                   "arena.map": map_summary["launches"]["fl_aggregate"],
                   **{path: run["launches"]["fl_aggregate"]
-                     for path, run in paper.items()}},
+                     for path, run in paper.items()},
+                  **trained("fl_aggregate")},
               max_abs_err_all_points=max(
                   [p["max_abs_err"] for p in points] + [fused["max_abs_err"]]
                   + [r["max_abs_err"] for r in leaves["leaves"]]
@@ -3420,7 +4162,17 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
                   "bitwise_equal_to_ravel_path", "graph_bitwise_equal",
                   "ravel_path_ms", "ravel_path_ms_zero_flush",
                   "graph_replay_ms", "wall_us", "ravel_path_wall_us")},
-              variants={"resnet_17_leaves": {
+              variants={"gemma2b_11_leaves_bf16": {
+                  "point": "fl_round.gemma2b's eq.-(4) step: gemma-2b's 11 "
+                           "bf16 leaves (2.51 B params), K=2, one launch; "
+                           "library_ms: none",
+                  "launches": training["fl_round.gemma2b"]["launches"][
+                      "fl_aggregate"],
+                  **{key: training["fl_round.gemma2b"]["aggregate"][key]
+                     for key in ("max_abs_err", "ms", "plain_ms",
+                                 "library_ms", "bound_ms", "bound_by",
+                                 "bound_share")}},
+                  "resnet_17_leaves": {
                   "point": "paper.cifar's eq.-(4) step: aggregate_fused at "
                            "the paper-scale ResNet's 17 leaves, N=694,378, "
                            "K=8, f32, one launch; library_ms: none",
@@ -3481,12 +4233,14 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
               "src/repro/kernels/flash_attention.py:93",
               total(gemma, "flash_attention")
               + sum(total(run, "flash_attention")
-                    for run in families.values()),
+                    for run in families.values())
+              + sum(trained("flash_attention").values()),
               dict(fg, library_ms=fp["library_ms"]),
               launches_by_path={
                   "serve.gemma2": total(gemma, "flash_attention"),
                   **{f"serve.{phase}": total(run, "flash_attention")
-                     for phase, run in families.items()}},
+                     for phase, run in families.items()},
+                  **trained("flash_attention")},
               design=DESIGNS["flash_attention"],
               sass=sass.get("flash_attention"),
               max_abs_err_all_points=max(r["max_abs_err"] for r in flash),
@@ -3507,10 +4261,39 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
                       "ms", "plain_ms", "library_ms", "bound_ms",
                       "bound_by", "kv_tile")}
                      for r in flash if r["label"] in FAMILY_LABELS}}),
+        entry("flash_attention_lse",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:93",
+              sum(trained("flash_attention_lse").values()), lse_main,
+              launches_by_path=trained("flash_attention_lse"),
+              design=DESIGNS["flash_attention"] + " (the lse output)",
+              point="the training forward with its lse output at gemma-2b's "
+                    "training shape: B=2 H=8 Hkv=1 S=1024 D=256 bf16 causal "
+                    "(one microbatch of train.gemma2b); library_ms: SDPA at "
+                    "the same shape, causal",
+              ms_without_lse=lse_main["ms_without_lse"],
+              lse_cost=lse_main["lse_cost"],
+              out_bitwise_equal_without_lse=all(
+                  r["out_bitwise_equal_without_lse"] for r in flash_lse),
+              max_abs_err_all_points=max(r["max_abs_err"]
+                                         for r in flash_lse),
+              variants={r["label"]: {k: r[k] for k in (
+                  "shape", "dtype", "softcap", "lse_tol", "max_abs_err",
+                  "ms", "ms_without_lse", "lse_cost", "plain_ms",
+                  "library_ms", "bound_ms", "bound_by")}
+                  for r in flash_lse if r is not lse_main}),
         entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
               "src/repro/kernels/ssd_scan.py:65",
-              total(mamba, "ssd_scores") + total(mamba, "ssd_chunk"), sm,
+              total(mamba, "ssd_scores") + total(mamba, "ssd_chunk")
+              + sum(trained("ssd_scores").values())
+              + sum(trained("ssd_chunk").values()), sm,
+              launches_by_path={
+                  "serve.mamba2": total(mamba, "ssd_scores")
+                  + total(mamba, "ssd_chunk"),
+                  **{path: n + trained("ssd_chunk")[path]
+                     for path, n in trained("ssd_scores").items()}},
               launches_by_kernel={k: total(mamba, k)
+                                  + sum(trained(k).values())
                                   for k in ("ssd_scores", "ssd_chunk")},
               design=DESIGNS["ssd_chunk"],
               max_abs_err_all_points=max(r["max_abs_err"] for r in ssd),
@@ -3628,6 +4411,7 @@ def main() -> int:
     resnet_agg = phase_aggregate_resnet(flush, hbm, f32_peak)
     flash = phase_flash(flush, hbm, f32_peak, bf16_peak, sfu_ops_per_s)
     ssd = phase_ssd(flush, hbm, f32_peak, bf16_peak)
+    flash_lse = phase_flash_lse(flush, hbm, f32_peak, bf16_peak)
     del flush
     phase_reference()
     phase_reference_lm()
@@ -3636,6 +4420,7 @@ def main() -> int:
     phase_reference_tiered()
     phase_reference_sweep()
     phase_reference_sequential()
+    phase_reference_train()
     main_summary = phase_main_path()
     ladder = main_summary.pop("trainer")
     data = main_summary.pop("data")
@@ -3682,13 +4467,21 @@ def main() -> int:
     families = {phase: phase_serve_family(phase, arch, depth, spec)
                 for phase, arch, depth, spec in FAMILY_SERVE}
 
+    gemma_train = phase_train_gemma2b()
+    fl_round = phase_fl_round_gemma2b(gemma_train.pop("model"),
+                                      gemma_train.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = {"train.gemma2b": gemma_train, "fl_round.gemma2b": fl_round,
+                "train.mamba2": phase_train_mamba2()}
+
     print(json.dumps(kernels_line(points, leaves, lanes, resnet_agg,
                                   main_summary, single_summary, scan_summary,
                                   arena_summary, map_summary, sweep_summary,
                                   {"paper.cifar": cifar,
                                    "paper.femnist": femnist},
                                   flash, ssd, gemma, mamba, families, smi,
-                                  sass)),
+                                  sass, flash_lse, training)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

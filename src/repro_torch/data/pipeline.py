@@ -2,8 +2,10 @@
 ``repro.data.pipeline`` the port uses (the port imports nothing of the JAX
 package): bucketing, cyclic tiling into ``[N, B, ...]`` stacks, tier
 assignment, input validation, the int8 codes of a bank's rows, the
-k-means routing of hierarchical aggregation, client shards and the
-train/test split.  Same inputs, same arrays.
+k-means routing of hierarchical aggregation, client shards, the
+train/test split and the shuffled batch iterators of the training
+drivers (:func:`batch_iterator`, :func:`lm_batches`).  Same inputs, same
+arrays.
 
 Bucket invariants (see ``repro_torch.fl.client``):
 
@@ -19,7 +21,7 @@ Bucket invariants (see ``repro_torch.fl.client``):
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -271,6 +273,22 @@ def stack_client_arrays(client_data: Sequence[Tuple[np.ndarray, np.ndarray]],
             np.asarray(sizes, np.int32))
 
 
+def batch_iterator(x: np.ndarray, y: np.ndarray, batch_size: int,
+                   seed: int = 0, drop_remainder: bool = True
+                   ) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite shuffled epochs of {x, y} batches."""
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    while True:
+        perm = rng.permutation(n)
+        end = (n // batch_size) * batch_size if drop_remainder else n
+        for s in range(0, max(end, batch_size), batch_size):
+            idx = perm[s:s + batch_size]
+            if drop_remainder and len(idx) < batch_size:
+                break
+            yield {"x": x[idx], "y": y[idx]}
+
+
 def make_client_datasets(x: np.ndarray, y: np.ndarray,
                          partitions: Sequence[np.ndarray]
                          ) -> List[Tuple[np.ndarray, np.ndarray]]:
@@ -286,3 +304,16 @@ def train_test_split(x: np.ndarray, y: np.ndarray, test_fraction: float = 0.1,
     cut = int(n * (1.0 - test_fraction))
     tr, te = perm[:cut], perm[cut:]
     return (x[tr], y[tr]), (x[te], y[te])
+
+
+def lm_batches(tokens: np.ndarray, batch_size: int, seed: int = 0
+               ) -> Iterator[Dict[str, np.ndarray]]:
+    """Next-token-prediction batches: inputs = toks[:-1], labels = toks[1:]."""
+    rng = np.random.default_rng(seed)
+    n = tokens.shape[0]
+    while True:
+        perm = rng.permutation(n)
+        for s in range(0, (n // batch_size) * batch_size, batch_size):
+            idx = perm[s:s + batch_size]
+            seq = tokens[idx]
+            yield {"tokens": seq[:, :-1], "labels": seq[:, 1:]}

@@ -46,7 +46,8 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.convert import params_to_jax_layout
 from repro_torch.data.pipeline import pad_client_data
-from repro_torch.optim import SGD, apply_updates, clip_by_global_norm
+from repro_torch.optim import (SGD, SGDState, apply_updates,
+                               clip_by_global_norm)
 
 Params = Dict[str, torch.Tensor]
 LossFn = Callable[[Params, Dict[str, torch.Tensor]], torch.Tensor]
@@ -144,7 +145,7 @@ def batched_local_sgd(loss_fn: LossFn, params: Params, xs: torch.Tensor,
     else:
         p = {name: v.unsqueeze(0).expand((k,) + tuple(v.shape)).clone()
              for name, v in params.items()}
-    m = opt.init(p)
+    m = opt.init(p).momentum
     lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
     step_fn = vmap(_grad_fn(loss_fn, cfg.max_grad_norm))
     rows = torch.arange(k, device=dev)[:, None]
@@ -165,8 +166,8 @@ def batched_local_sgd(loss_fn: LossFn, params: Params, xs: torch.Tensor,
         losses = []
         for s in range(steps_per_epoch):
             grads, loss = step_fn(p, {"x": xe[:, s], "y": ye[:, s]})
-            updates, new_m = opt.update(grads, m, lr)
-            new_p = apply_updates(p, updates)
+            updates, new_state = opt.update(grads, SGDState(m), p, lr)
+            new_p, new_m = apply_updates(p, updates), new_state.momentum
             if keep is None:
                 p, m = new_p, new_m
             else:

@@ -8,7 +8,10 @@
   ``csrc/fl_aggregate.cu``, ``csrc/flash_attention.cu`` and
   ``csrc/ssd_chunk.cu``, each with its launch counter ``LAUNCHES``;
 * ``ref`` — the plain PyTorch versions the kernels are held against;
-* ``_build`` — ``nvcc`` at first use, one process per source.
+* ``_build`` — ``nvcc`` at first use, one process per source, and
+  ``refuse_grad``, the check every wrapper makes: a kernel reached with
+  grad enabled and an input that requires grad raises (the kernels with
+  a backward run inside their ``autograd.Function``, where grad is off).
 
 The kernel modules build their CUDA sources lazily, at the first launch,
 so importing this package needs neither ``nvcc`` nor a card."""

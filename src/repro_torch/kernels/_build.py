@@ -12,6 +12,9 @@ without ``nvcc``.
 
 There is no fallback: a failed build raises with the compiler's output,
 and so does asking for a library on a machine without CUDA.
+:func:`refuse_grad` is the one check every kernel wrapper makes before it
+launches: a kernel writes into fresh tensors that autograd cannot see, so
+it never runs where its output would be expected to carry a gradient.
 """
 
 from __future__ import annotations
@@ -119,3 +122,20 @@ def load_library(name: str, verbose: bool = False) -> ctypes.CDLL:
     ``ctypes`` handle; the caller declares the exported signatures."""
     build_all([name], verbose=verbose)
     return _LIBS[name]
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if ``kernel`` is reached with grad enabled and an input that
+    requires grad: its output would come back detached and every
+    parameter upstream would get no gradient.  A kernel with a backward
+    is launched inside its ``torch.autograd.Function``'s forward, where
+    grad is off (``models.flash.flash_attention``,
+    ``models.ssm.ssd_chunked``)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} CUDA kernel has no backward here: call it under "
+            f"torch.no_grad(), on inputs that do not require grad, or "
+            f"through its autograd.Function")

@@ -58,6 +58,20 @@
 //   scores and a 4 x (D/16) block of the output in registers; q, k, v in
 //   f32 in shared memory (113 KB at D = 128).
 //
+// An optional second output, `lse` (f32 [B, H, Sq], contiguous), is the
+// row's log-sum-exp in natural log, `m + log(max(l, 1e-30))` with m the
+// row's largest visible logit: what the JAX package's `_forward`
+// (src/repro/models/flash.py:95) returns beside `out`, and what the
+// training backward (repro_torch/models/flash.py) recomputes P from.
+// Both paths write it in their epilogue when its pointer is not null:
+// the f32 path from lane 0 of each row's 16 lanes, the bf16 path from
+// lane 0 of each quad after the quad reduction of l (its m is base-2, so
+// lse = m ln 2 + log(l)).  The write is a template parameter: serving
+// passes null and runs the instantiations without it, the code it ran
+// before the output existed (tested at run time instead, the write
+// slowed the D = 128 serving kernel on an H100), and nothing else of the
+// kernel depends on it, so `out` is the same with or without lse.
+//
 // Plain C interface (no PyTorch headers, so the build takes seconds); the
 // Python wrapper (repro_torch/kernels/flash_attention.py) validates the
 // inputs, passes raw pointers, element strides and the current stream,
@@ -90,6 +104,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] f32, or null: not written
   int batch, heads, kv_heads, sq, sk, d;
   // element strides of the (batch, head, sequence) axes; the head_dim
   // axis is contiguous
@@ -106,8 +121,9 @@ __host__ __device__ inline size_t smem_bytes(int d) {
                           (size_t)kBK * d + (size_t)kBQ * (kBK + 1));
 }
 
-// MAXJ: the largest D / 16 this instantiation serves (4, 8 or 16).
-template <typename T, int MAXJ>
+// MAXJ: the largest D / 16 this instantiation serves (4, 8 or 16); LSE:
+// whether it writes p.lse.
+template <typename T, int MAXJ, bool LSE>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int d_head = p.d;
@@ -251,26 +267,36 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
         o_base[qpos * p.o_ss + tx + 16 * j] = from_f32<T>(acc[a][j] / l_safe);
       }
     }
+    // m and l are the same in the row's 16 lanes (reduced above)
+    if (LSE && tx == 0) {
+      p.lse[((long long)b * p.heads + h) * p.sq + qpos] = m[a] + logf(l_safe);
+    }
   }
 }
 
-template <typename T, int MAXJ>
+template <typename T, int MAXJ, bool LSE>
 cudaError_t launch_typed(const Params& p, cudaStream_t stream) {
   const size_t bytes = smem_bytes(p.d);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, MAXJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      flash_fwd_kernel<T, MAXJ, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + kBQ - 1) / kBQ, p.heads, p.batch);
-  flash_fwd_kernel<T, MAXJ><<<grid, kThreads, bytes, stream>>>(p);
+  flash_fwd_kernel<T, MAXJ, LSE><<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+template <bool LSE>
+cudaError_t launch_f32_lse(const Params& p, cudaStream_t stream) {
   const int nj = p.d / 16;
-  if (nj <= 4) return launch_typed<float, 4>(p, stream);
-  if (nj <= 8) return launch_typed<float, 8>(p, stream);
-  return launch_typed<float, 16>(p, stream);
+  if (nj <= 4) return launch_typed<float, 4, LSE>(p, stream);
+  if (nj <= 8) return launch_typed<float, 8, LSE>(p, stream);
+  return launch_typed<float, 16, LSE>(p, stream);
+}
+
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  return p.lse != nullptr ? launch_f32_lse<true>(p, stream)
+                          : launch_f32_lse<false>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -647,7 +673,9 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
   wgmma_commit();
 }
 
-// DP: padded head dim; BKV: kv rows per tile.
+// DP: padded head dim; BKV: kv rows per tile; LSE: whether it writes
+// p.lse (serving runs the instantiation without, so its code is the same
+// as before the output existed).
 //
 // Software pipeline within each warpgroup: in step u the warpgroup issues
 // S_u = Q K_u^T and then O += P_{u-1} V_{u-1}; it waits for S_u only,
@@ -656,7 +684,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
 // u + 1.  So K_u and V_{u-1} are read in step u: the ring holds two K and
 // two V tiles, and at the top of step u (after a barrier, when step u - 1
 // is done everywhere) the block starts copying K_{u+1} and V_u.
-template <int DP, int BKV>
+template <int DP, int BKV, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16_kernel(Params p) {
   extern __shared__ uint8_t smem_raw[];
@@ -862,6 +890,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // m is the base-2 logit (k t), the same in the quad's 4 lanes
+  if (LSE && quad == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lse_row = p.lse + ((long long)b * p.heads + h) * p.sq;
+    if (row0 < p.sq) lse_row[row0] = m0 * kLn2 + logf(fmaxf(l0, 1e-30f));
+    if (row1 < p.sq) lse_row[row1] = m1 * kLn2 + logf(fmaxf(l1, 1e-30f));
+  }
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
     const int col = 8 * j + 2 * quad;
@@ -878,16 +913,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int DP, int BKV>
-cudaError_t launch_bf16_dim(const Params& p, cudaStream_t stream) {
+template <int DP, int BKV, bool LSE>
+cudaError_t launch_bf16_lse(const Params& p, cudaStream_t stream) {
   constexpr size_t bytes = bf16_smem_bytes(DP, BKV);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<DP, BKV>,
+      flash_fwd_bf16_kernel<DP, BKV, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.batch * p.heads, (p.sq + kBQ2 - 1) / kBQ2);
-  flash_fwd_bf16_kernel<DP, BKV><<<grid, kThreads, bytes, stream>>>(p);
+  flash_fwd_bf16_kernel<DP, BKV, LSE><<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int DP, int BKV>
+cudaError_t launch_bf16_dim(const Params& p, cudaStream_t stream) {
+  return p.lse != nullptr ? launch_bf16_lse<DP, BKV, true>(p, stream)
+                          : launch_bf16_lse<DP, BKV, false>(p, stream);
 }
 
 cudaError_t launch_bf16(const Params& p, int d_pad, int kv_tile,
@@ -922,14 +963,15 @@ cudaError_t launch_bf16(const Params& p, int d_pad, int kv_tile,
 extern "C" {
 
 // strides: q (b, h, s), k (b, h, s), v (b, h, s), out (b, h, s), in
-// elements.  d_pad, kv_tile: the head dim the kernel computes with and
-// its kv rows per tile (d and 64 for f32).  Returns a cudaError_t code
-// (0 on success); 1 (cudaErrorInvalidValue) for arguments the kernel
-// does not take.
+// elements.  lse: a contiguous f32 [batch, heads, sq] buffer, or null
+// (serving: no lse).  d_pad, kv_tile: the head dim the kernel computes
+// with and its kv rows per tile (d and 64 for f32).  Returns a
+// cudaError_t code (0 on success); 1 (cudaErrorInvalidValue) for
+// arguments the kernel does not take.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int dtype, int batch, int heads,
-                           int kv_heads, int sq, int sk, int d, int d_pad,
-                           int kv_tile, const long long* strides,
+                           void* out, void* lse, int dtype, int batch,
+                           int heads, int kv_heads, int sq, int sk, int d,
+                           int d_pad, int kv_tile, const long long* strides,
                            float scale, float softcap, int causal,
                            int window, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
@@ -942,6 +984,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.k = k;
   p.v = v;
   p.o = out;
+  p.lse = static_cast<float*>(lse);
   p.batch = batch;
   p.heads = heads;
   p.kv_heads = kv_heads;

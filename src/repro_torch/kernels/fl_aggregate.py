@@ -15,8 +15,10 @@ tensors.
 ``fl_aggregate_cuda(theta, deltas, coeffs)`` and ``fl_delta_reduce_cuda(
 deltas, coeffs)`` (the theta-less partial, f32 out) are its one-leaf case
 on a flat ``[N]`` / ``[K, N]`` model.  All take CUDA tensors only: they
-validate devices, dtypes, shapes and contiguity, allocate the outputs with
-``torch.empty``, build the segment table on the host
+validate devices, dtypes, shapes and contiguity, refuse inputs that
+require grad under grad mode (the kernel has no backward;
+``_build.refuse_grad``), allocate the outputs with ``torch.empty``,
+build the segment table on the host
 (:func:`plan_segments`), launch on the current stream without
 synchronising, and raise on any launch error.  Each launch adds one to
 :data:`LAUNCHES`, so a run can show that its main path went through the
@@ -185,6 +187,8 @@ def _launch_segments(segs: Sequence[Seg], coeffs: torch.Tensor,
     """Plan the tables of ``segs`` (empty ones skipped) and launch each
     on the current stream, ``coeffs`` a contiguous f32 ``[R, K]`` (or
     ``[K]``, R = 1) table the segments' rows index."""
+    _build.refuse_grad(counter, coeffs, *(t for seg in segs
+                                          for t in seg[:2]))
     lib = _library()
     k = int(coeffs.shape[-1])
     coeff_rows = int(coeffs.shape[0]) if coeffs.dim() == 2 else 1

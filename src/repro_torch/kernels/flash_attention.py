@@ -10,7 +10,18 @@ views with no copy, and the output is allocated with q's strides (a
 ``[B, S, H, D]`` buffer for them).  The wrapper validates devices,
 dtypes, shapes and strides, launches on the current stream without
 synchronising and raises on any launch error.  Each launch adds one to
-:data:`LAUNCHES`.
+``LAUNCHES["flash_attention"]``, and one more to
+``LAUNCHES["flash_attention_lse"]`` when it also wrote ``lse``.
+
+With ``return_lse=True`` the kernel also writes each query row's
+log-sum-exp (f32 ``[B, H, Sq]``, natural log,
+``m + log(max(l, 1e-30))``), the residual the training backward
+(``repro_torch.models.flash``) recomputes P from, as the JAX package's
+``_forward`` returns it.  Serving leaves it off and passes the library a
+null pointer; ``out`` is bitwise the same either way.  The wrapper
+refuses inputs that require grad under grad mode
+(``_build.refuse_grad``): the differentiable entry is
+``models.flash.flash_attention``.
 
 The library holds two kernels, chosen by dtype: bf16 runs on the tensor
 cores (``wgmma``, D padded to 64, 128 or 256), f32 on the CUDA cores.
@@ -37,11 +48,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 256
 
 #: launches since the last :func:`reset_launch_counts`
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_lse": 0}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 _LIB: list = []
@@ -92,7 +104,7 @@ def _library() -> ctypes.CDLL:
         lib = _build.load_library("flash_attention")
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_launch.argtypes = (
-            [vp, vp, vp, vp] + [i32] * 9
+            [vp] * 5 + [i32] * 9
             + [ctypes.POINTER(ctypes.c_longlong), f32, f32, i32, i32, vp])
         lib.flash_attention_launch.restype = i32
         lib.flash_attention_error_string.argtypes = [i32]
@@ -142,14 +154,19 @@ def _check(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """q [B, H, Sq, D], k/v [B, Hkv, Sk, D] (f32 or bf16, one dtype; any
     strides with a contiguous head_dim) -> [B, H, Sq, D] in q's dtype,
-    laid out with q's strides."""
+    laid out with q's strides; with ``return_lse``, ``(out, lse)``, lse
+    f32 ``[B, H, Sq]``."""
+    _build.refuse_grad("flash_attention", q, k, v)
     lib = _library()
     path = _check(q, k, v)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     scale = scale if scale is not None else d ** -0.5
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
@@ -157,12 +174,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, k.shape[1], sq, k.shape[2], d,
-            path.d_pad, path.kv_tile, strides, float(scale), float(softcap), int(bool(causal)),
+            None if lse is None else lse.data_ptr(), _DTYPE_CODES[q.dtype],
+            b, h, k.shape[1], sq, k.shape[2], d, path.d_pad, path.kv_tile,
+            strides, float(scale), float(softcap), int(bool(causal)),
             int(window), stream)
     if code != 0:
         text = lib.flash_attention_error_string(code).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {text} "
                            f"(cudaError {code})")
     LAUNCHES["flash_attention"] += 1
-    return out
+    if lse is None:
+        return out
+    LAUNCHES["flash_attention_lse"] += 1
+    return out, lse

@@ -109,16 +109,17 @@ def fl_delta_reduce(deltas: torch.Tensor, coeffs: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float | None = None,
-                    impl: str = "auto") -> torch.Tensor:
+                    return_lse: bool = False, impl: str = "auto"):
     """q: [B, H, Sq, D]; k, v: [B, Hkv, Sk, D] -> [B, H, Sq, D] (the
     kernel reads strided views, so ``[B, S, H, D]`` tensors may pass as
-    ``transpose(1, 2)``)."""
+    ``transpose(1, 2)``); with ``return_lse``, ``(out, lse)``, lse f32
+    ``[B, H, Sq]``."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              return_lse=return_lse)
     if use_cuda_kernel(impl, q.device):
         from repro_torch.kernels.flash_attention import flash_attention_cuda
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, scale=scale)
-    return ref.mha_reference(q, k, v, causal=causal, window=window,
-                             softcap=softcap, scale=scale)
+        return flash_attention_cuda(q, k, v, **kw)
+    return ref.mha_reference(q, k, v, **kw)
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

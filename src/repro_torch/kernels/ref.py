@@ -126,10 +126,13 @@ NEG_INF = -2.0e38
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0, softcap: float = 0.0,
-                  scale: float | None = None) -> torch.Tensor:
+                  scale: float | None = None, return_lse: bool = False):
     """q: [B, H, Sq, D]; k, v: [B, Hkv, Sk, D] (GQA when Hkv < H) ->
     [B, H, Sq, D] in q's dtype.  Scale, then soft-cap, then mask, in f32;
-    the plain version of the flash-attention kernel."""
+    the plain version of the flash-attention kernel.  With
+    ``return_lse``, ``(out, lse)``: lse f32 ``[B, H, Sq]``, each row's
+    log-sum-exp of its masked logits (natural log), the kernel's
+    optional second output."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = h // hkv
@@ -149,7 +152,18 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngst,bntd->bngsd", p, v.to(torch.float32))
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    out = out.reshape(b, h, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, h, sq)
+
+
+def _masked_exp(seg: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``where(keep, exp(seg), 0)`` with the same values, and a gradient
+    that is 0, not NaN, where ``exp(seg)`` would overflow outside ``keep``
+    (the JAX package's ``where(tri, exp(seg), 0)`` gives NaN there:
+    ROADMAP section C)."""
+    return torch.where(keep, torch.exp(torch.where(keep, seg, 0.0)), 0.0)
 
 
 def ssd_chunk_reference(x: torch.Tensor, dt: torch.Tensor,
@@ -171,8 +185,9 @@ def ssd_chunk_reference(x: torch.Tensor, dt: torch.Tensor,
     tri = torch.tril(torch.ones((length, length), dtype=torch.bool,
                                 device=x.device))
     # select, never multiply by a 0/1 mask: exp(seg) overflows above the
-    # diagonal, where seg > 0
-    decay = torch.where(tri[:, :, None], torch.exp(seg), 0.0)
+    # diagonal, where seg > 0; and exponentiate 0 there, so that the
+    # backward's 0 * exp(seg) is 0 and not NaN (the values are the same)
+    decay = _masked_exp(seg, tri[:, :, None])
     scores = torch.einsum("in,jn->ij", c_in.to(f32), b_in.to(f32))
     w = scores[:, :, None] * decay * dt[None].to(f32)
     y = torch.einsum("ijh,jhd->ihd", w, x.to(f32))
@@ -201,7 +216,7 @@ def ssd_chunk_batched_reference(x: torch.Tensor, dt: torch.Tensor,
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # [B,nc,i,j,nh]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    decay = torch.where(tri[:, :, None], torch.exp(seg), 0.0)
+    decay = _masked_exp(seg, tri[:, :, None])
     scores = torch.einsum("bcin,bcjn->bcij", cc, bc)
     w = scores[..., None] * decay * dtc[:, :, None, :, :]
     y = torch.einsum("bcijh,bcjhd->bcihd", w, xc)

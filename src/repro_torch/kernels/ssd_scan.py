@@ -10,7 +10,10 @@ chunk-end state, exactly the signature of ``ssd_chunk_tpu``: x
 (y_diag ``[B, S, nh, hd]`` in x's dtype, states ``[B, nc, nh, hd, N]``
 f32).  CUDA tensors only: the wrapper validates devices, dtypes, shapes
 and contiguity, launches on the current stream without synchronising and
-raises on any launch error.
+raises on any launch error.  It refuses inputs that require grad under
+grad mode (``_build.refuse_grad``): the differentiable entry is
+``models.ssm.ssd_chunked``, whose ``autograd.Function`` launches this
+forward and differentiates the plain version in its backward.
 
 It launches two kernels: ``ssd_scores`` computes C B^T once per
 (batch, chunk) into a ``[B, nc, L, L]`` f32 scratch (the lower triangle,
@@ -120,6 +123,7 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                    b_in: torch.Tensor, c_in: torch.Tensor, *, chunk: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Intra-chunk SSD over a full sequence (see the module docstring)."""
+    _build.refuse_grad("ssd_chunk", x, dt, a_log, b_in, c_in)
     lib = _library()
     _check(x, dt, a_log, b_in, c_in, chunk)
     bsz, s, nh, hd = x.shape

@@ -1,2 +1,3 @@
-"""repro_torch.launch — step builders (``steps``) and the greedy serving
-loop (``serve``) for the LM path."""
+"""repro_torch.launch — step builders (``steps``: prefill, decode, the
+train step and the FL round step), the greedy serving loop (``serve``)
+and the LM training driver (``train``)."""

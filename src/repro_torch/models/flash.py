@@ -1,16 +1,22 @@
 """Flash attention in the model's ``[B, S, H, D]`` layout, ported from
 ``repro.models.flash``.
 
-* :func:`flash_attention` — the forward for train and prefill.  On a
-  CUDA device it launches the hand-written flash kernel
+* :func:`flash_attention` — train and prefill.  On a CUDA device the
+  forward launches the hand-written flash kernel
   (``kernels/csrc/flash_attention.cu``) once, on ``transpose(1, 2)``
   views of q, k and v (the kernel reads their strides, so nothing is
   copied) and returns ``[B, S, H, D]``; on the CPU it runs the kernel's
-  plain version (``kernels.ref.mha_reference``).  The JAX package's
-  blockwise jnp scan is the XLA lowering of the same function; its block
-  sizes (``FlashConfig.block_q``/``block_kv``) were chosen for the TPU
-  and the CUDA kernel picks its own tiles.  No backward yet: the training
-  slice ports it.
+  plain version (``kernels.ref.mha_reference``).  Where q, k or v
+  require grad under grad mode it is the ``torch.autograd.Function``
+  :class:`FlashAttention`, the counterpart of the JAX package's
+  ``custom_vjp``: its forward also asks the kernel for each row's
+  log-sum-exp, and its backward is :func:`flash_backward`, a plain
+  PyTorch port of the JAX package's ``_backward`` (blockwise over
+  ``FlashConfig.block_q`` / ``block_kv``, P recomputed from the saved
+  lse, f32 accumulation).  The JAX package differentiates its jnp
+  ``_forward`` / ``_backward`` and never the Pallas kernel, so it has no
+  backward kernel to port; a CUDA backward is later kernel work.  Without
+  grad (serving) the kernel runs without the lse output.
 * :func:`flash_decode` — one query token against a long KV cache, the
   blockwise online softmax of the JAX version in plain PyTorch (it is a
   jnp scan outside any Pallas kernel there, so it has no kernel here).
@@ -24,10 +30,13 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.profiler
 
 from repro_torch.kernels import ops
 
 NEG_INF = -2.0e38
+#: the ``torch.profiler`` range around :class:`FlashAttention`'s backward
+BACKWARD_RANGE = "flash_attention.backward"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,18 +51,129 @@ class FlashConfig:
     kv_valid_len: int = -1       # decode: valid cache length (-1 => all)
 
 
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             cfg: FlashConfig, return_lse: bool):
+    """The kernel (the plain version on the CPU) in the model's layout:
+    out ``[B, Sq, nq, D]`` and, with ``return_lse``, lse f32
+    ``[B, nq, Sq]``."""
+    if cfg.q_offset != 0 or cfg.kv_valid_len >= 0:
+        raise ValueError("the flash kernel takes no q_offset or "
+                         "kv_valid_len (train and prefill never set them)")
+    res = ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=cfg.causal, window=cfg.window, softcap=cfg.softcap,
+        scale=cfg.scale, return_lse=return_lse)
+    if return_lse:
+        return res[0].transpose(1, 2), res[1]
+    return res.transpose(1, 2)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``out = softmax(mask(cap(q k^T * scale))) v`` with a blockwise
+    backward: the forward saves (q, k, v, out, lse), as the JAX package's
+    ``_fa_fwd`` does, and the backward is :func:`flash_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg: FlashConfig):
+        out, lse = _forward(q, k, v, cfg, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # a profiler range, so a trace can attribute the plain backward's
+        # device time (chip_smoke.py's train.gemma2b reads it)
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            grads = flash_backward(q, k, v, out, lse, dout, ctx.cfg)
+        return (*grads, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cfg: FlashConfig) -> torch.Tensor:
     """``softmax(mask(cap(q k^T * scale))) v``; q ``[B, Sq, nq, D]``, k/v
-    ``[B, Sk, nkv, D]`` -> ``[B, Sq, nq, D]`` in q's dtype."""
-    if cfg.q_offset != 0 or cfg.kv_valid_len >= 0:
-        raise ValueError("the flash kernel takes no q_offset or "
-                         "kv_valid_len (prefill never sets them)")
-    out = ops.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=cfg.causal, window=cfg.window, softcap=cfg.softcap,
-        scale=cfg.scale)
-    return out.transpose(1, 2)
+    ``[B, Sk, nkv, D]`` -> ``[B, Sq, nq, D]`` in q's dtype;
+    differentiable (:class:`FlashAttention`) where an input requires
+    grad under grad mode."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, cfg)
+    return _forward(q, k, v, cfg, return_lse=False)
+
+
+def _block_visible(q0: int, q1: int, k0: int, k1: int,
+                   cfg: FlashConfig) -> bool:
+    """Whether the mask lets any (query, key) pair of rows q0..q1-1 and
+    keys k0..k1-1 through; a block it empties contributes exactly 0 in
+    the JAX package's ``_backward`` (P = exp(NEG_INF - lse)), so it is
+    skipped."""
+    if cfg.causal and k0 > q1 - 1:
+        return False
+    return not (cfg.window > 0 and k1 - 1 <= q0 - cfg.window)
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   cfg: FlashConfig):
+    """(dq, dk, dv) of :func:`flash_attention`, the FlashAttention-2
+    recipe of the JAX package's ``_backward``
+    (``src/repro/models/flash.py:159-239``) in plain PyTorch.
+
+    For each kv block of ``cfg.block_kv`` keys and each query block of
+    ``cfg.block_q`` rows (the last of each ragged, so nothing is padded):
+    P = exp(cap(q k^T scale) - lse) under the mask, dP = dout v^T,
+    dS = P (dP - rowsum(out * dout)), times the soft-cap's derivative
+    ``1 - tanh^2`` and the scale, then dv += P^T dout, dk += dS^T q,
+    dq += dS k, with GQA's query heads summed into their kv head.
+    Everything is f32 and only one block's [B, nq, bq, bkv] scores exist
+    at a time: memory O(block^2), never O(S^2).  Blocks the causal or
+    window mask empties are skipped (they add exactly 0).  dq, dk and dv
+    come back in q's, k's and v's dtypes."""
+    f32 = torch.float32
+    b, sq, nq, d = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    group = nq // nkv
+    bq, bkv = cfg.block_q, cfg.block_kv
+    delta = (out.to(f32) * dout.to(f32)).sum(dim=-1)          # [B, Sq, nq]
+    dq = torch.zeros((b, sq, nq, d), dtype=f32, device=q.device)
+    dk = torch.zeros((b, sk, nkv, d), dtype=f32, device=q.device)
+    dv = torch.zeros((b, sk, nkv, d), dtype=f32, device=q.device)
+    pos = torch.arange(max(sq, sk), device=q.device)
+    for k0 in range(0, sk, bkv):
+        k1 = min(k0 + bkv, sk)
+        kb, vb = k[:, k0:k1].to(f32), v[:, k0:k1].to(f32)
+        for q0 in range(0, sq, bq):
+            q1 = min(q0 + bq, sq)
+            if not _block_visible(q0, q1, k0, k1, cfg):
+                continue
+            qpos, kpos = pos[q0:q1, None], pos[None, k0:k1]
+            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                              device=q.device)
+            if cfg.causal:
+                mask &= kpos <= qpos
+            if cfg.window > 0:
+                mask &= kpos > qpos - cfg.window
+            qg = q[:, q0:q1].to(f32).reshape(b, q1 - q0, nkv, group, d)
+            dog = dout[:, q0:q1].to(f32).reshape(b, q1 - q0, nkv, group, d)
+            raw = torch.einsum("bsngd,btnd->bngst", qg, kb) * cfg.scale
+            capped = (cfg.softcap * torch.tanh(raw / cfg.softcap)
+                      if cfg.softcap > 0 else raw)
+            capped = torch.where(mask, capped, NEG_INF)
+            lse_b = lse[:, :, q0:q1].reshape(b, nkv, group, q1 - q0)
+            p = torch.exp(capped - lse_b[..., None])         # [B,n,g,bq,bkv]
+            dp = torch.einsum("bsngd,btnd->bngst", dog, vb)
+            delta_b = delta[:, q0:q1].permute(0, 2, 1).reshape(
+                b, nkv, group, q1 - q0)
+            ds = p * (dp - delta_b[..., None])
+            if cfg.softcap > 0:
+                ds = ds * (1.0 - torch.square(capped / cfg.softcap))
+            ds = torch.where(mask, ds, 0.0) * cfg.scale
+            dv[:, k0:k1] += torch.einsum("bngst,bsngd->btnd", p, dog)
+            dk[:, k0:k1] += torch.einsum("bngst,bsngd->btnd", ds, qg)
+            dq[:, q0:q1] += torch.einsum("bngst,btnd->bsngd", ds, kb
+                                         ).reshape(b, q1 - q0, nq, d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _scores(q: torch.Tensor, kb: torch.Tensor, scale: float) -> torch.Tensor:

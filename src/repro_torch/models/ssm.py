@@ -4,10 +4,18 @@ from ``repro.models.ssm``.
 The chunked SSD algorithm: within a chunk the recurrence is a
 decay-masked, attention-like product, which on the card is the
 hand-written SSD-chunk kernel (``kernels/csrc/ssd_chunk.cu``, one launch
-per layer and prefill, through ``kernels.ops.ssd_chunk``; its plain
-version on the CPU); across chunks a small ``[nh, hd, N]`` state
-recurrence runs as a PyTorch loop over the chunks.  Single-token decode
-updates the state in O(d * N).
+per layer and prefill or train forward, through ``kernels.ops.ssd_chunk``;
+its plain version on the CPU); across chunks a small ``[nh, hd, N]``
+state recurrence runs as a PyTorch loop over the chunks.  Single-token
+decode updates the state in O(d * N).
+
+In training the intra-chunk part is the ``torch.autograd.Function``
+:class:`SSDChunk`: the kernel's forward, and a backward that recomputes
+the plain version (``kernels.ref.ssd_chunk_batched_reference``) from the
+saved inputs and differentiates it with ``torch.autograd``, which is what
+``jax.grad`` does through the JAX package's jnp ``ssd_chunked`` (its
+training path reaches no Pallas kernel either).  A CUDA backward of the
+chunk is later kernel work.
 
 Structure per block (single-group Mamba-2):
   in_proj -> (z, x, B, C, dt); causal depthwise conv on (x|B|C);
@@ -21,7 +29,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -82,6 +90,27 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y + b), new_tail
 
 
+class SSDChunk(torch.autograd.Function):
+    """``ops.ssd_chunk`` with a backward: (y_diag, states) of f32 x, dt,
+    a_log, b_in, c_in; the backward differentiates the plain version,
+    recomputed from the saved inputs (memory of one layer's chunk
+    products at a time)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b_in, c_in, chunk: int):
+        ctx.save_for_backward(x, dt, a_log, b_in, c_in)
+        ctx.chunk = chunk
+        return ops.ssd_chunk(x, dt, a_log, b_in, c_in, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, states = ref.ssd_chunk_batched_reference(*ins, ctx.chunk)
+        grads = torch.autograd.grad((y, states), ins, (dy, dstates))
+        return (*grads, None)
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                 b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
                 initial_state: Optional[torch.Tensor] = None
@@ -91,7 +120,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     x: [B, S, nh, hd], dt: [B, S, nh] (post-softplus), b_in/c_in:
     [B, S, N].  Returns (y [B, S, nh, hd] in x's dtype, final_state
     [B, nh, hd, N] f32).  The intra-chunk part (y_diag and the chunk
-    states) is one ``ops.ssd_chunk`` call on the f32-cast inputs.
+    states) is one ``ops.ssd_chunk`` call on the f32-cast inputs, through
+    :class:`SSDChunk` where an input requires grad under grad mode.
     """
     bsz, s_orig, nh, hd = x.shape
     n = b_in.shape[-1]
@@ -107,10 +137,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     s = s_orig + pad
     nc = s // chunk
 
-    y_diag, s_chunk = ops.ssd_chunk(
-        x.to(f32).contiguous(), dt.to(f32).contiguous(),
-        a_log.to(f32).contiguous(), b_in.to(f32).contiguous(),
-        c_in.to(f32).contiguous(), chunk=chunk)
+    ins = [t.to(f32).contiguous() for t in (x, dt, a_log, b_in, c_in)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        y_diag, s_chunk = SSDChunk.apply(*ins, chunk)
+    else:
+        y_diag, s_chunk = ops.ssd_chunk(*ins, chunk=chunk)
 
     a = -torch.exp(a_log.to(f32))                            # [nh]
     dac = (dt.to(f32) * a).reshape(bsz, nc, chunk, nh)

@@ -35,6 +35,7 @@ import dataclasses
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -42,6 +43,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-export)
 
 PyTree = Any
 
@@ -50,30 +52,10 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def tree_map(fn, tree: PyTree) -> PyTree:
-    """Apply ``fn`` to every tensor leaf of nested dicts / NamedTuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
-    return fn(tree)
-
-
 def layer_slice(tree: PyTree, g: Optional[int]) -> PyTree:
     """Layer ``g``'s views of a tree stacked over layers (the tree itself
     for ``g=None``, an unstacked suffix block)."""
     return tree if g is None else tree_map(lambda t: t[g], tree)
-
-
-def tree_leaves(tree: PyTree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        for v in tree:
-            yield from tree_leaves(v)
-    else:
-        yield tree
 
 
 # --------------------------------------------------------------------------
@@ -213,9 +195,14 @@ def init_block_cache(batch: int, seq_len: int, cfg: ModelConfig, kind: str,
 class TransformerLM:
     """A decoder-only LM over explicit parameter trees (see the module
     docstring); ``device`` is where :meth:`init` and :meth:`init_cache`
-    place their tensors."""
+    place their tensors.  ``remat``: in ``mode="train"`` each block of
+    the stacked groups runs under ``torch.utils.checkpoint``
+    (non-reentrant), as the JAX package wraps it in ``jax.checkpoint``:
+    the backward recomputes the block's forward, flash and SSD kernel
+    launches included, and keeps only its input."""
     cfg: ModelConfig
     device: Any = "cuda"
+    remat: bool = False
 
     def layers(self) -> Iterator[Tuple[str, Optional[int], str]]:
         """(cache/param key, group index or None for a suffix block,
@@ -289,13 +276,29 @@ class TransformerLM:
         cfg = self.cfg
         caches_out: Dict[str, PyTree] = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        train = mode == "train"
+        if train:
+            # one unbind per stacked leaf: its backward stacks the layers'
+            # gradients once, where a view per layer would add a zero-filled
+            # full-size gradient per layer
+            unbound = {key: tree_map(lambda t: t.unbind(0), tree)
+                       for key, tree in params["blocks"].items()}
         for key, g, kind in self.layers():
-            group = params["blocks"] if g is not None \
-                else params["suffix_blocks"]
+            if g is None:
+                p = params["suffix_blocks"][key]
+            elif train:
+                p = tree_map(lambda ts, g=g: ts[g], unbound[key])
+            else:
+                p = layer_slice(params["blocks"][key], g)
             c_in = layer_slice(cache[key], g) if mode == "decode" else None
-            x, nc, a = _apply_block(layer_slice(group[key], g), x, cfg, kind,
-                                    rope=rope, cache=c_in,
-                                    cache_index=cache_index, mode=mode)
+            if self.remat and train and g is not None:
+                x, nc, a = torch.utils.checkpoint.checkpoint(
+                    _apply_block, p, x, cfg, kind, rope=rope, cache=None,
+                    cache_index=None, mode=mode, use_reentrant=False)
+            else:
+                x, nc, a = _apply_block(p, x, cfg, kind, rope=rope,
+                                        cache=c_in, cache_index=cache_index,
+                                        mode=mode)
             if a is not None:
                 aux = aux + a
             if mode == "train":

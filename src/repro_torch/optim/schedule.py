@@ -30,3 +30,24 @@ def paper_step_decay(lr: float, total_rounds: int) -> Schedule:
     """The paper's schedule: halve at 50% and 75% of total rounds."""
     return step_decay(lr, [int(0.5 * total_rounds),
                            int(0.75 * total_rounds)], 0.5)
+
+
+def cosine(lr: float, total_steps: int, warmup_steps: int = 0,
+           final_fraction: float = 0.0) -> Schedule:
+    """Linear warmup to ``lr`` over ``warmup_steps``, then a half cosine
+    from ``lr`` down to ``final_fraction * lr`` at ``total_steps``, in
+    float32 as the JAX package computes it."""
+    f32 = np.float32
+
+    def fn(step: int) -> float:
+        step = f32(step)
+        warm = f32(lr) * step / f32(max(warmup_steps, 1))
+        prog = np.clip((step - f32(warmup_steps))
+                       / f32(max(total_steps - warmup_steps, 1)),
+                       f32(0.0), f32(1.0))
+        cos = f32(final_fraction * lr) + f32(
+            (1 - final_fraction) * lr * 0.5) * (
+            f32(1.0) + np.cos(f32(np.pi) * prog))
+        return float(warm if step < warmup_steps else cos)
+
+    return fn

@@ -108,7 +108,7 @@ def test_sgd_step_matches_reference():
                              jp, jnp.float32(0.1))
         jp = {n: jp[n] + ju[n] for n in jp}
         tu, ts = topt.update({n: torch.as_tensor(v) for n, v in g.items()},
-                             ts, torch.tensor(0.1))
+                             ts, tp, torch.tensor(0.1))
         tp = apply_updates(tp, tu)
     for n in params:
         _close(tp[n], np.asarray(jp[n]), tol=1e-6)

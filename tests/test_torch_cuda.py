@@ -682,3 +682,140 @@ def test_flash_at_the_families_shapes_matches_plain(cuda, shape, causal,
     want = ref.mha_reference(q, k, v, **kw)
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+# the flash kernel's lse output and the training path's backwards:
+# (B, H, Hkv, Sq, Sk, D), causal, window, soft-cap; gemma-2b's head shape
+# (MQA, D = 256) at a short sequence, a ragged GQA case with a window, and
+# a soft-capped one
+LSE_CASES = [((2, 8, 1, 200, 200, 256), True, 0, 0.0),
+             ((1, 4, 2, 77, 77, 64), True, 16, 0.0),
+             ((1, 4, 2, 130, 130, 128), True, 0, 30.0)]
+# lse against the plain version: f32 2e-5; bf16 2e-2, plus cap x 5e-4
+# under a soft-cap (the kernel's tanh.approx; chip_smoke.LSE_CAP_TOL)
+LSE_CAP_TOL = 5e-4
+# the flash backward on the card against autograd through the plain
+# version, f32: the backward reads the kernel's out and lse, each within
+# 2e-5 of the plain version's, and sums up to S such terms into dq / dk,
+# so the gradients are held within 1e-4 (atol and rtol)
+GRAD_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,softcap", LSE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_lse_matches_plain_and_leaves_out_unchanged(
+        cuda, shape, causal, window, softcap, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, h, hkv, sq, sk, d = shape
+    q = _randn((b, h, sq, d), 4, dtype, cuda)
+    k = _randn((b, hkv, sk, d), 5, dtype, cuda)
+    v = _randn((b, hkv, sk, d), 6, dtype, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention_cuda(q, k, v, **kw)
+    out2, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    assert fa.LAUNCHES["flash_attention_lse"] == \
+        before["flash_attention_lse"] + 1
+    assert torch.equal(out, out2)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    _, want = ref.mha_reference(q, k, v, return_lse=True, **kw)
+    tol = TOL[dtype] + (LSE_CAP_TOL * softcap if dtype == "bfloat16"
+                        else 0.0)
+    torch.testing.assert_close(lse, want, atol=tol, rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,softcap", LSE_CASES)
+def test_flash_backward_on_the_card_matches_autograd_through_plain(
+        cuda, shape, causal, window, softcap):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models.flash import FlashConfig, flash_attention
+    b, h, hkv, sq, sk, d = shape
+    q = _randn((b, sq, h, d), 7, "float32", cuda).requires_grad_(True)
+    k = _randn((b, sk, hkv, d), 8, "float32", cuda).requires_grad_(True)
+    v = _randn((b, sk, hkv, d), 9, "float32", cuda).requires_grad_(True)
+    dout = _randn((b, sq, h, d), 10, "float32", cuda)
+    cfg = FlashConfig(block_q=64, block_kv=32, causal=causal, window=window,
+                      softcap=softcap, scale=d ** -0.5)
+    before = fa.LAUNCHES["flash_attention_lse"]
+    got = torch.autograd.grad(flash_attention(q, k, v, cfg), (q, k, v),
+                              dout)
+    assert fa.LAUNCHES["flash_attention_lse"] == before + 1
+    want_out = ref.mha_reference(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, softcap=softcap,
+        scale=d ** -0.5).transpose(1, 2)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_backward_on_the_card_matches_autograd_through_plain(cuda):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.models.ssm import SSDChunk
+    b, s, nh, hd, n, chunk = 2, 128, 3, 16, 8, 64
+    x = _randn((b, s, nh, hd), 11, "float32", cuda)
+    dt = torch.nn.functional.softplus(_randn((b, s, nh), 12, "float32",
+                                             cuda))
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, device=cuda))
+    bm = _randn((b, s, n), 13, "float32", cuda)
+    cm = _randn((b, s, n), 14, "float32", cuda)
+    ins = [t.requires_grad_(True) for t in (x, dt, a_log, bm, cm)]
+    dy = _randn((b, s, nh, hd), 15, "float32", cuda)
+    ds = _randn((b, s // chunk, nh, hd, n), 16, "float32", cuda)
+    before = dict(sk.LAUNCHES)
+    y, states = SSDChunk.apply(*ins, chunk)
+    assert sk.LAUNCHES["ssd_chunk"] == before["ssd_chunk"] + 1
+    got = torch.autograd.grad((y, states), ins, (dy, ds))
+    wy, wstates = ref.ssd_chunk_batched_reference(*ins, chunk)
+    torch.testing.assert_close(y, wy, atol=2e-5, rtol=2e-5)
+    want = torch.autograd.grad((wy, wstates), ins, (dy, ds))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_kernels_under_grad_without_a_backward_raise(cuda):
+    """A kernel's output is a fresh tensor autograd cannot see: each
+    wrapper refuses inputs that require grad under grad mode instead of
+    returning a detached result, and takes them under ``no_grad``."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    theta, deltas, coeffs = _inputs(1000, 2, 0, "float32", cuda)
+    q = _randn((1, 2, 16, 16), 1, "float32", cuda)
+    x = _randn((1, 16, 2, 8), 2, "float32", cuda)
+    dt, bm = (_randn(s, 3, "float32", cuda) for s in ((1, 16, 2), (1, 16, 4)))
+    a_log = torch.zeros(2, device=cuda)
+    calls = [
+        ("fl_aggregate", lambda t: fk.fl_aggregate_cuda(t, deltas, coeffs),
+         theta),
+        ("fl_aggregate", lambda t: fk.fl_aggregate_leaves_cuda(
+            [t], [deltas], coeffs), theta),
+        ("flash_attention", lambda t: fa.flash_attention_cuda(t, q, q), q),
+        ("ssd_chunk", lambda t: sk.ssd_chunk_cuda(t, dt, a_log, bm, bm,
+                                                  chunk=8), x)]
+    for name, call, arg in calls:
+        leaf = arg.clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match=name):
+            call(leaf)
+        with torch.no_grad():
+            call(leaf)
+        call(arg)
+
+
+@pytest.mark.cuda
+def test_training_steps_on_the_card_match_the_cpu(cuda):
+    """``make_train_step`` (gemma-2b with the flash path, remat and 2
+    microbatches; mamba2-130m) and ``make_fl_round_step`` on the card
+    against the CPU, every leaf's gradient present, finite and nonzero:
+    the check ``chip_smoke.py``'s ``reference.train`` runs."""
+    _smoke_module().phase_reference_train()
