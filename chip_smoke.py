@@ -57,6 +57,10 @@ error is caught):
    queries against 1500 keys), granite-moe (a group of 3), qwen2-vl (a
    group of 7) and grok-1 (soft-cap 30), each beside SDPA at the same
    shape and mask),
+   ``kernel.delta_reduce_leaves`` (the client-sharded round's partial,
+   the zero-theta leaf table into views of one flat buffer, at one of 2
+   ranks' K = 4: the CNN's 6 leaves and the ResNet's 17, one launch,
+   bitwise its fma order, beside ``torch.mv`` on the ravelled numbers),
    ``kernel.ssd_chunk`` (its two launches, scores and chunk, timed
    together; no single PyTorch call), ``kernel.flash_lse`` (the flash
    kernel writing its lse output, the training forward's form, at
@@ -121,6 +125,28 @@ error is caught):
    simplex, moved queues, changed params and exactly one
    ``fl_aggregate`` launch per round, logging the ladder and the tiers
    each round hit; main.single — the same on one 2048-row bucket;
+   then, in spawned worlds (``launch.world.run_world``, a deadline on
+   each) of two gloo ranks on ``cuda:0`` and of one NCCL rank:
+   reference.shard — on :data:`TIERED`, the sharded ``round_step``
+   (single bucket, a ladder round hitting three tiers, hierarchical over
+   2 clusters), a two-round LROA ``run_scan`` and a four-lane
+   ``Arena(mesh=)`` over two rounds, each against the unsharded port on
+   the card (round 1e-6; run_scan params 1e-6, metrics rtol 1e-5, atol
+   1e-4; the arena params 1e-6, metrics and queues rtol 1e-5, atol 1e-4),
+   params bitwise across ranks, one ``fl_delta_reduce`` launch a rank a
+   round, each rank's partial bitwise its fma order; shard.main (the
+   gloo world) — ``FederatedTrainer(mesh=)`` on main.single's bucket (60
+   of 120 rows a rank) and on main's ladder (its odd rungs whole on each
+   rank), warmed up, 2 LROA rounds each: rows and bytes a rank, round
+   time, ``fl_delta_reduce`` launches a rank a round, the all-reduce's
+   bytes and time, params bitwise across ranks, selections equal to
+   main's and main.single's and params within :data:`SHARD_MAIN_TOL` of
+   theirs after each round, below the error one rank's partial dropped
+   from the first all-reduce would leave; each rank writes
+   ``runlogs/shard/rank<r>.jsonl``, rank 0 a Chrome trace, span counts
+   read back with ``load_jsonl``; shard.arena — the seven controllers
+   and LROA at a second seed, 4 lanes a rank, 2 rounds on the ladder:
+   lane-rounds/s over the slower rank, one lane launch a rank a round;
    profile, profile.single — one more round of each under
    ``torch.profiler``; scan — the paper's comparison on the single
    bucket: the seven controllers' ``run_scan`` rollouts of 4
@@ -153,8 +179,9 @@ error is caught):
    paper.cifar (50,000 synthetic 32x32x3 images, Dirichlet 0.5 over 120
    clients, ``ResNetTask()``, lr 0.05) and paper.femnist (28x28x1, 62
    classes, ``writer_partition`` over 120 writers, ``CNNTask()``, lr
-   0.1), each LROA, Uni-D, Uni-S and DivFL through ``warmup()`` and
-   ``run(3)`` (CIFAR) or ``run(6)`` (FEMNIST) with ``eval_every=2``:
+   0.1), each LROA, Uni-D, Uni-S and DivFL through ``run(3)`` (CIFAR)
+   or ``run(6)`` (FEMNIST) with ``eval_every=2``, LROA's after
+   ``warmup()``:
    one ``fl_aggregate`` launch per
    round, rounds/s, accuracy curves, modelled latency, the time to 95%
    of the worst final accuracy and each baseline's saving against LROA,
@@ -212,8 +239,9 @@ error is caught):
    tokens), 4 steps with checkpoints, then resumed to step 6: the SSD
    launches of each run, and the resumed run bitwise two fresh-momentum
    steps from the step-4 checkpoint;
-10. the ``kernels`` JSON line (with ``flash_attention_lse``), then the
-   last line ``{"ok": true, "device": {...}}``.
+10. the ``kernels`` JSON line (with ``flash_attention_lse`` and
+   ``fl_delta_reduce``), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Float32 matmuls and convolutions run in full f32 (TF32 off), so the card
 computes what the CPU reference computes.  Imports ``torch``, ``numpy``
@@ -227,6 +255,7 @@ import dataclasses
 import gc
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -450,6 +479,9 @@ def phase_kernels(flush, hbm: float, f32_peak: float) -> list:
                               flush=flush, clean=True),
             reduce_plain_ms=time_ms(lambda: ref.delta_reduce_reference(
                 deltas, coeffs), flush=flush, clean=True),
+            reduce_library_ms=(time_ms(lambda: torch.mv(deltas.t(), coeffs),
+                                       flush=flush, clean=True)
+                               if f32 else None),
             reduce_bound_ms=max(red_bytes / hbm, ops / f32_peak) * 1e3)
         row["bound_share"] = row["bound_ms"] / row["ms"]
         log("kernel", **row)
@@ -878,12 +910,12 @@ def make_task(cfg: dict):
 def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None,
                   bank_mode: str = "auto", bank_storage: str = "fp32",
                   controller: str = "lroa", use_engine: bool = True,
-                  client_keys_fn=None):
+                  client_keys_fn=None, mesh=None):
     """A ``FederatedTrainer`` on ``cfg``'s testbed under ``controller``
     (a key of :data:`CONTROLLER_CLASSES`), on the bank ``bank_mode`` builds
     (the trainer's default 'auto': the tier ladder when the partition
     spans several tiers); ``use_engine=False`` takes the sequential
-    reference path."""
+    reference path; ``mesh`` shards the client axis over its ranks."""
     import repro_torch.core as core
     from repro_torch.fl import (ChannelConfig, ChannelProcess, ClientConfig,
                                 FederatedTrainer)
@@ -906,7 +938,7 @@ def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None,
         eval_every=cfg.get("eval_every", max(cfg["rounds"] // 6, 1)),
         seed=cfg["seed"], bank_mode=bank_mode, bank_storage=bank_storage,
         device=device, sort_keys_fn=sort_keys_fn, use_engine=use_engine,
-        client_keys_fn=client_keys_fn)
+        client_keys_fn=client_keys_fn, mesh=mesh)
 
 
 def make_data(cfg: dict) -> dict:
@@ -2362,7 +2394,7 @@ def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE,
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     trainer._sync()
-    per_round, rounds = [], []
+    per_round, rounds, snapshots = [], [], []
     _reset_launch_counts()
     with trace.installed(trace.MemorySink()) as sink:
         t_all = time.perf_counter()
@@ -2373,6 +2405,11 @@ def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE,
             trainer._sync()
             per_round.append(time.perf_counter() - t0)
             rounds.append((rec, fk.LAUNCHES["fl_aggregate"] - count0))
+            if t < SHARD_ROUNDS:    # shard.main's yardstick
+                snapshots.append(dict(
+                    selected=[int(i) for i in rec.selected],
+                    params={n: p.cpu().numpy()
+                            for n, p in trainer.global_params.items()}))
             q = trainer.last_decision.q
             require(bool(torch.all(q > 0)) and
                     abs(float(q.sum()) - 1.0) <= 1e-5,
@@ -2411,7 +2448,8 @@ def phase_main_path(device: str = "cuda", cfg: dict = PAPER_SCALE,
                    queue_max_change=moved, param_max_change=changed,
                    tiers_hit=hits, launches=launches)
     log(label, **summary)
-    summary.update(trainer=trainer, test=data["test"], data=data)
+    summary.update(trainer=trainer, test=data["test"], data=data,
+                   snapshots=snapshots)
     return summary
 
 
@@ -2566,8 +2604,9 @@ def phase_paper(label: str, cfg: dict, device: str = "cuda",
                 ) -> dict:
     """One of the paper's Sec.-VII testbeds at paper scale on the
     trainer's default bank (the tier ladder): each controller's
-    ``FederatedTrainer`` runs ``warmup()``, then ``run(R)`` with the
-    launch counts set to 0 just before and read just after.  Each round
+    ``FederatedTrainer`` runs ``run(R)`` with the launch counts set to 0
+    just before and read just after, the first controller's after
+    ``warmup()``.  Each round
     must make exactly one ``fl_aggregate`` launch (none on the CPU), the
     losses stay finite and the params change.  Logged per controller:
     rounds/s, the round times, ``accuracy_curve()``, the modelled total
@@ -2596,7 +2635,12 @@ def phase_paper(label: str, cfg: dict, device: str = "cuda",
     for name in controllers:
         trainer = build_trainer(device, cfg, data, controller=name)
         t0 = time.perf_counter()
-        trainer.warmup()
+        if name == controllers[0]:
+            # the later controllers' trainers (same task, bank and
+            # shapes) find the process warm: with every trainer warmed up
+            # the script passed 900 s, and the later controllers' round
+            # times did not move (PERF.md section 6)
+            trainer.warmup()
         warm_s = time.perf_counter() - t0
         init = {n: p.clone() for n, p in trainer.global_params.items()}
         per_round = []
@@ -4080,20 +4124,687 @@ def phase_train_mamba2(spec: dict = MAMBA_TRAIN, device="cuda") -> dict:
     return out
 
 
+# -- client- and lane-axis sharding (launch.mesh, torch.distributed) ---------
+
+# the sharded phases: ranks of the gloo world on the one card (NCCL
+# refuses two ranks on one device; the one-rank world runs NCCL), the
+# deadline on each world's rendezvous, every collective and the join, and
+# the rounds of shard.main and shard.arena
+SHARD_RANKS = 2
+SHARD_TIMEOUT = 600.0
+SHARD_ROUNDS = 2
+# the reference's sharded-against-unsharded tolerances: the round's params
+# and losses (tests/test_client_bank.py:214-216); the arena's params, and
+# its metrics and queues (rtol, atol; tests/test_arena.py:1049-1056)
+SHARD_ROUND_TOL = 1e-6
+SHARD_ARENA_TOL = (1e-6, 1e-5, 1e-4)
+# reference.shard's selections on TIERED (12 clients, 6 rows a rank on one
+# bucket; rungs of 4, 3 and 5 clients, the first split over the ranks):
+# each rank has a slot whose row the other holds, and the ladder's
+# selection hits all three rungs
+SHARD_SEL = {"single": [11, 2, 7, 0], "ladder": [10, 3, 0, 6]}
+SHARD_COEFFS = [0.2, 0.3, 0.1, 0.4]
+# shard.arena: the seven controllers and LROA at a second seed
+SHARD_ARENA_SEEDS = [0] * 7 + [1]
+# shard.main's banks: the single bucket, whose N = 120 rows split over 2
+# ranks, and the trainer's default ladder, whose rungs of 41, 59, 19 and
+# 1 clients do not, so the reference's rule holds them whole on every
+# rank and each rank gathers its own slots' rows with no exchange
+SHARD_MAIN_BANKS = ("single", "auto")
+# shard.main's limit on the sharded trainer's params against the unsharded
+# trainer's (main, main.single) after each round: above the sound
+# readings and below the error that one rank's partial dropped from the
+# first round's all-reduce leaves, both printed by every run (PERF.md
+# section 6)
+SHARD_MAIN_TOL = 5e-3
+
+
+def _device_sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _digest(tree) -> str:
+    """sha1 of a params dict's names and bytes (bitwise equality across
+    ranks without shipping the params)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for name in sorted(tree):
+        v = tree[name].detach().cpu().contiguous()
+        h.update(name.encode())
+        h.update(v.view(torch.uint8).numpy().tobytes() if v.numel() else b"")
+    return h.hexdigest()
+
+
+def _max_err(a: dict, b: dict) -> float:
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+class _PartialTap:
+    """Records every ``ops.fl_delta_reduce_leaves`` call of the block (its
+    deltas, coefficients and the partials it wrote, before the all-reduce
+    sums them in place), so each rank's partial is held afterwards against
+    the kernel's order of arithmetic
+    (``ref.aggregate_leaves_fma_reference(None, ...)``)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.calls = ops, []
+        self.orig = ops.fl_delta_reduce_leaves
+
+        def tapped(deltas, coeffs, outs, impl="auto"):
+            got = self.orig(deltas, coeffs, outs=outs, impl=impl)
+            self.calls.append(([d.clone() for d in deltas], coeffs.clone(),
+                               [g.clone() for g in got]))
+            return got
+
+        ops.fl_delta_reduce_leaves = tapped
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.ops.fl_delta_reduce_leaves = self.orig
+        return False
+
+    def bitwise(self) -> bool:
+        from repro_torch.kernels import ref
+
+        return bool(self.calls) and all(
+            all(torch.equal(g, w) for g, w in zip(
+                got, ref.aggregate_leaves_fma_reference(None, d, c)))
+            for d, c, got in self.calls)
+
+
+def _shard_reference(mesh, device: str) -> dict:
+    """reference.shard on one rank: the TIERED testbed's sharded round
+    (single bucket, ladder, hierarchical over 2 clusters), a two-round
+    LROA ``run_scan`` on the ladder and a four-lane ``Arena.run`` over two
+    rounds with the lanes split over the mesh, each beside the unsharded
+    port on the same card; params digests for the cross-rank check."""
+    import repro_torch.core as core
+    from repro_torch.fl import ClientConfig, RoundEngine
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.sim import Arena, ScenarioGrid
+
+    cfg = TIERED
+    data = make_data(cfg)
+    task = make_task(cfg)
+    ccfg = ClientConfig(local_epochs=cfg["local_epochs"],
+                        batch_size=cfg["batch_size"])
+    eng = RoundEngine(task, ccfg, device=device, mesh=mesh)
+    one = RoundEngine(task, ccfg, device=device)
+    p0 = {n: v.to(device) for n, v in
+          task.init(torch.Generator().manual_seed(7)).items()}
+
+    def fresh():
+        return {n: v.clone() for n, v in p0.items()}
+
+    coeffs = np.asarray(SHARD_COEFFS, np.float32)
+    out = {"rounds": {}}
+    with _PartialTap() as tap:
+        for case, sel, kw in (
+                ("single", SHARD_SEL["single"], dict(tiered="single")),
+                ("ladder", SHARD_SEL["ladder"], dict(tiered="tiered")),
+                ("hierarchical", SHARD_SEL["single"],
+                 dict(tiered="single", clusters=2))):
+            bank = eng.make_bank(data["clients"], **kw)
+            plain = one.make_bank(data["clients"], **kw)
+            keys = torch.rand(
+                (len(sel), cfg["local_epochs"], bank.bucket_examples),
+                generator=torch.Generator().manual_seed(11)).to(device)
+            hier = case == "hierarchical"
+            before = fk.LAUNCHES["fl_delta_reduce"]
+            ps, ls = eng.round_step(fresh(), bank, sel, coeffs, cfg["lr"],
+                                    keys, hierarchical=hier)
+            _device_sync()
+            launches = fk.LAUNCHES["fl_delta_reduce"] - before
+            p1, l1 = one.round_step(fresh(), plain, sel, coeffs, cfg["lr"],
+                                    keys, hierarchical=hier)
+            rungs = getattr(bank, "tiers", [bank])
+            out["rounds"][case] = dict(
+                digest=_digest(ps), param_max_abs_err=_max_err(ps, p1),
+                loss_max_abs_err=float((ls - l1).abs().max()),
+                bitwise=all(torch.equal(ps[n], p1[n]) for n in ps)
+                and torch.equal(ls, l1),
+                fl_delta_reduce_launches=launches,
+                tiers_hit=_tiers_hit(plain, sel),
+                rows_held=[r.rows_held for r in rungs],
+                nbytes=bank.nbytes, unsharded_nbytes=plain.nbytes)
+        sp = core.paper_default_params(
+            num_devices=cfg["num_devices"], sample_count=cfg["sample_count"],
+            local_epochs=cfg["local_epochs"], data_sizes=data["sizes"],
+            device=device)
+        hp = core.estimate_hyperparams(sp, 0.1, loss_scale=1.5, mu=1.0,
+                                       nu=1e5)
+        h = np.random.default_rng(5).uniform(
+            0.05, 0.4, (SHARD_ROUNDS, cfg["num_devices"])).astype(np.float32)
+        lr = np.full(SHARD_ROUNDS, cfg["lr"], np.float32)
+        scans = []
+        for e in (eng, one):
+            before = fk.LAUNCHES["fl_delta_reduce"]
+            p, q, met = e.run_scan(fresh(), sp, e.make_bank(data["clients"]),
+                                   h, lr, torch.Generator().manual_seed(3),
+                                   policy="lroa", V=hp.V, lam=hp.lam)
+            _device_sync()
+            scans.append((p, q.cpu().numpy(), met,
+                          fk.LAUNCHES["fl_delta_reduce"] - before))
+        (ps, qs, ms, launches), (p1, q1, m1, _) = scans
+        out["scan"] = dict(
+            digest=_digest(ps), param_max_abs_err=_max_err(ps, p1),
+            selections_equal=bool(np.array_equal(ms["selected"],
+                                                 m1["selected"])),
+            metric_max_abs_err={n: float(np.abs(ms[n] - m1[n]).max())
+                                for n in m1 if n != "selected"},
+            metrics_close=all(np.allclose(ms[n], m1[n],
+                                          rtol=SHARD_ARENA_TOL[1],
+                                          atol=SHARD_ARENA_TOL[2])
+                              for n in m1 if n != "selected"),
+            queue_max_abs_err=float(np.abs(qs - q1).max()),
+            fl_delta_reduce_launches=launches)
+    out["partials_bitwise_fma_order"] = tap.bitwise()
+    out["partials_checked"] = len(tap.calls)
+    grid = ScenarioGrid.create(["lroa", "uni_d", "uni_s", "divfl"],
+                               seeds=[0, 1, 2, 3], V=hp.V, lam=hp.lam,
+                               sample_count=cfg["sample_count"],
+                               num_devices=cfg["num_devices"])
+    bank = one.make_bank(data["clients"])
+    reps = [Arena(one, mesh=m).run(fresh(), sp, bank, grid, SHARD_ROUNDS,
+                                   lr) for m in (mesh, None)]
+    (a, b) = reps
+    out["arena"] = dict(
+        digest=_digest(a.params), lanes=len(grid), shards=a.meta["shards"],
+        param_max_abs_err=_max_err(a.params, b.params),
+        selections_equal=bool(np.array_equal(a.metrics["selected"],
+                                             b.metrics["selected"])),
+        metrics_close=all(np.allclose(a.metrics[n], b.metrics[n],
+                                      rtol=SHARD_ARENA_TOL[1],
+                                      atol=SHARD_ARENA_TOL[2])
+                          for n in b.metrics if n != "selected"),
+        metric_max_abs_err={n: float(np.abs(a.metrics[n]
+                                            - b.metrics[n]).max())
+                            for n in b.metrics if n != "selected"},
+        queues_close=bool(np.allclose(a.queues, b.queues,
+                                      rtol=SHARD_ARENA_TOL[1],
+                                      atol=SHARD_ARENA_TOL[2])),
+        metrics_digest=_digest({n: torch.as_tensor(v)
+                                for n, v in a.metrics.items()}))
+    return out
+
+
+def _span_counts(path: str) -> dict:
+    from repro_torch.obs import trace as obs_trace
+
+    counts: dict = {}
+    for r in obs_trace.load_jsonl(path):
+        counts[r["name"]] = counts.get(r["name"], 0) + 1
+    return counts
+
+
+def _shard_trainer(mesh, device: str, data: dict, bank_mode: str,
+                   want: list, cfg: dict = PAPER_SCALE) -> dict:
+    """One bank of shard.main on one rank: ``FederatedTrainer(mesh=)``
+    on ``bank_mode``'s bank, warmed up, then SHARD_ROUNDS LROA rounds
+    timed, each round's params held against the unsharded trainer's
+    (``want``, from ``main`` / ``main.single``); the first round's
+    partial of this rank (the error its loss from the all-reduce would
+    leave)."""
+    t0 = time.perf_counter()
+    trainer = build_trainer(device, cfg, data, bank_mode=bank_mode,
+                            mesh=mesh)
+    bank = trainer.bank
+    rungs = getattr(bank, "tiers", [bank])
+    _device_sync()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.warmup()
+    _device_sync()
+    warmup_s = time.perf_counter() - t0
+    _reset_launch_counts()
+    seconds, recs, errs = [], [], []
+    with _PartialTap() as tap:
+        for t in range(SHARD_ROUNDS):
+            _device_sync()
+            t0 = time.perf_counter()
+            recs.append(trainer.run_round(t))
+            _device_sync()
+            seconds.append(time.perf_counter() - t0)
+            errs.append(max(float(np.abs(
+                p.cpu().numpy() - want[t]["params"][n]).max())
+                for n, p in trainer.global_params.items()))
+    launches = _launch_counts()
+    return dict(
+        bank=type(bank).__name__, rungs=len(rungs),
+        rows_per_rung=[r.rows_held for r in rungs],
+        clients_per_rung=[r.num_clients for r in rungs],
+        rows_held=sum(r.rows_held for r in rungs),
+        bytes_held=int(bank.nbytes), build_s=build_s, warmup_s=warmup_s,
+        round_s=seconds,
+        selected=[[int(i) for i in r.selected] for r in recs],
+        selections_equal_unsharded=[[int(i) for i in r.selected]
+                                    for r in recs]
+        == [w["selected"] for w in want],
+        loss=[r.mean_loss for r in recs], param_max_abs_err_unsharded=errs,
+        dropped_partial_err=max(float(g.abs().max())
+                                for g in tap.calls[0][2]),
+        launches={k: v for k, v in launches.items() if v},
+        fl_delta_reduce_per_round=launches["fl_delta_reduce"]
+        / SHARD_ROUNDS,
+        partials_bitwise_fma_order=tap.bitwise(),
+        partials_checked=len(tap.calls), digest=_digest(
+            trainer.global_params),
+        n_params=sum(p.numel() for p in trainer.global_params.values()),
+        tiers_hit=[_tiers_hit(bank, r.selected) for r in recs])
+
+
+def _shard_main(mesh, device: str, trace_dir: str, data: dict,
+                unsharded: dict, cfg: dict = PAPER_SCALE) -> dict:
+    """shard.main on one rank: :func:`_shard_trainer` on each of
+    SHARD_MAIN_BANKS, then the all-reduce of one model-sized f32 buffer
+    timed on its own; the rank's flight-recorder file, and rank 0's
+    Chrome trace."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.obs import trace as obs_trace
+
+    rank = mesh_lib.axis_rank(mesh)
+    path = os.path.join(trace_dir, f"rank{rank}.jsonl")
+    sink = obs_trace.install_sink(obs_trace.JsonlSink(path))
+    banks = {mode: _shard_trainer(mesh, device, data, mode, unsharded[mode],
+                                  cfg) for mode in SHARD_MAIN_BANKS}
+    buf = torch.ones(banks["single"]["n_params"], dtype=torch.float32,
+                     device=device)
+    reduce_s = []
+    for _ in range(10):
+        _device_sync()
+        t0 = time.perf_counter()
+        mesh_lib.all_reduce_sum_(buf, mesh)
+        _device_sync()
+        reduce_s.append(time.perf_counter() - t0)
+    obs_trace.remove_sink(sink)
+    sink.close()
+    out = dict(rank=rank, banks=banks, all_reduce_bytes=4 * buf.numel(),
+               all_reduce_ms=statistics.median(reduce_s) * 1e3,
+               spans=_span_counts(path), trace=path)
+    if rank == 0:
+        out["chrome_trace"] = obs_trace.export_chrome_trace(
+            obs_trace.load_jsonl(path),
+            os.path.join(trace_dir, "rank0.chrome.json"), "shard.main rank 0")
+    return out
+
+
+def _shard_arena(mesh, device: str, trace_dir: str, data: dict,
+                 cfg: dict = PAPER_SCALE) -> dict:
+    """shard.arena on one rank: the seven controllers and LROA at a second
+    seed (8 lanes, 4 a rank) over SHARD_ROUNDS rounds on the paper-scale
+    testbed's ladder, the lanes split over the mesh.  The clock runs from
+    a barrier to a barrier, so every rank reads the world's time."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.core import POLICIES
+    from repro_torch.sim import Arena, ScenarioGrid
+
+    rank = mesh_lib.axis_rank(mesh)
+    path = os.path.join(trace_dir, f"rank{rank}.arena.jsonl")
+    sink = obs_trace.install_sink(obs_trace.JsonlSink(path))
+    trainer = build_trainer(device, cfg, data)
+    grid = ScenarioGrid.create(
+        list(POLICIES) + ["lroa"], seeds=SHARD_ARENA_SEEDS,
+        V=trainer.controller.hp.V, lam=trainer.controller.hp.lam,
+        sample_count=cfg["sample_count"], num_devices=cfg["num_devices"])
+    lr = [trainer.lr_schedule(t) for t in range(SHARD_ROUNDS)]
+    arena = Arena(trainer.engine, mesh=mesh)
+
+    def barrier():
+        mesh_lib.all_reduce_sum_(torch.zeros(1, device=device), mesh)
+        _device_sync()
+
+    _reset_launch_counts()
+    barrier()
+    t0 = time.perf_counter()
+    rep = arena.run(trainer.global_params, trainer.params, trainer.bank,
+                    grid, SHARD_ROUNDS, lr)
+    barrier()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    obs_trace.remove_sink(sink)
+    sink.close()
+    finite = all(bool(torch.isfinite(v).all()) for v in rep.params.values())
+    return dict(
+        rank=rank, lanes=len(grid), lanes_per_rank=len(grid)
+        // mesh_lib.axis_size(mesh), rounds=SHARD_ROUNDS, seconds=seconds,
+        launches={k: v for k, v in launches.items() if v},
+        digest=_digest(rep.params), finite=finite,
+        shape_ok=all(v.shape[0] == len(grid) for v in rep.params.values())
+        and rep.metrics["loss"].shape == (len(grid), SHARD_ROUNDS),
+        modelled_latency=rep.metrics["wall_time"].sum(axis=1).tolist(),
+        spans=_span_counts(path))
+
+
+def shard_job(payload: dict, rank: int, world_size: int) -> dict:
+    """One rank of a sharded phase (run by ``launch.world.run_world``):
+    the mesh over the world on ``payload['device']``, then
+    reference.shard (cuDNN deterministic) and, with
+    ``payload['unsharded']`` (the unsharded trainers' params and
+    selections after each round, by bank mode), shard.main and
+    shard.arena on the paper-scale testbed pickled at
+    ``payload['data']`` (the parent's, so no rank rebuilds it).  Returns
+    numbers and digests only."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = payload["device"]
+    on_card = torch.device(device).type == "cuda"
+    mesh = mesh_lib.make_fl_mesh(device_type="cuda" if on_card else "cpu",
+                                 device=device if on_card else None)
+    out = dict(rank=rank, world_size=world_size,
+               backend=torch.distributed.get_backend())
+    t0 = time.perf_counter()
+    with cudnn_deterministic():
+        out["reference"] = _shard_reference(mesh, device)
+    out["reference_s"] = time.perf_counter() - t0
+    if payload.get("unsharded"):
+        t0 = time.perf_counter()
+        with open(payload["data"], "rb") as fh:
+            data = pickle.load(fh)
+        out["data_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["main"] = _shard_main(mesh, device, payload["trace_dir"], data,
+                                  payload["unsharded"])
+        out["main_s"] = time.perf_counter() - t0
+        out["arena"] = _shard_arena(mesh, device, payload["trace_dir"],
+                                    data)
+    return out
+
+
+def _run_shard_world(ranks: int, backend: str, unsharded, workdir: str,
+                     trace_dir: str, data: dict = None) -> list:
+    from repro_torch.launch.world import run_world
+
+    t0 = time.perf_counter()
+    data_path = None
+    if data is not None:
+        os.makedirs(workdir, exist_ok=True)
+        data_path = os.path.join(workdir, "data.pkl")
+        with open(data_path, "wb") as fh:
+            pickle.dump(data, fh, protocol=5)
+    out = run_world(shard_job, ranks, backend=backend, workdir=workdir,
+                    timeout=SHARD_TIMEOUT,
+                    payload=dict(device="cuda:0", unsharded=unsharded,
+                                 data=data_path, trace_dir=trace_dir))
+    for r in out:
+        r["world_s"] = time.perf_counter() - t0
+    return out
+
+
+def _check_shard_reference(label: str, ranks: list) -> None:
+    """reference.shard's requirements over every rank's results."""
+    refs = [r["reference"] for r in ranks]
+    one_rank = len(ranks) == 1
+    for case in refs[0]["rounds"]:
+        rows = [ref["rounds"][case] for ref in refs]
+        want = 0 if case == "hierarchical" else 1
+        log(f"{label}.round", case=case, ranks=len(ranks),
+            backend=ranks[0]["backend"],
+            params_bitwise_across_ranks=len({r["digest"] for r in rows}) == 1,
+            **{k: [r[k] for r in rows] for k in (
+                "param_max_abs_err", "loss_max_abs_err", "bitwise",
+                "fl_delta_reduce_launches", "tiers_hit", "rows_held",
+                "nbytes", "unsharded_nbytes")}, tol=SHARD_ROUND_TOL)
+        require(len({r["digest"] for r in rows}) == 1,
+                f"{label} {case}: params bitwise equal on every rank")
+        require(all(r["param_max_abs_err"] <= SHARD_ROUND_TOL and
+                    r["loss_max_abs_err"] <= SHARD_ROUND_TOL for r in rows),
+                f"{label} {case}: the sharded round within "
+                f"{SHARD_ROUND_TOL} of the unsharded one")
+        require(all(r["fl_delta_reduce_launches"] == want for r in rows),
+                f"{label} {case}: {want} fl_delta_reduce launch a rank")
+        if case == "ladder":
+            require(len(rows[0]["tiers_hit"]) > 1,
+                    f"{label}: the ladder round hits several tiers")
+    scans = [ref["scan"] for ref in refs]
+    log(f"{label}.scan", rounds=SHARD_ROUNDS, policy="lroa",
+        params_bitwise_across_ranks=len({s["digest"] for s in scans}) == 1,
+        **{k: [s[k] for s in scans] for k in (
+            "selections_equal", "param_max_abs_err", "metric_max_abs_err",
+            "metrics_close", "queue_max_abs_err",
+            "fl_delta_reduce_launches")}, tol=SHARD_ROUND_TOL,
+        metric_tol=SHARD_ARENA_TOL[1:])
+    require(len({s["digest"] for s in scans}) == 1 and
+            all(s["selections_equal"] and s["metrics_close"] and
+                s["param_max_abs_err"] <= SHARD_ROUND_TOL and
+                s["queue_max_abs_err"] <= SHARD_ARENA_TOL[2] and
+                s["fl_delta_reduce_launches"] == SHARD_ROUNDS
+                for s in scans),
+            f"{label}: the sharded run_scan agrees with the unsharded one")
+    arenas = [ref["arena"] for ref in refs]
+    log(f"{label}.arena", rounds=SHARD_ROUNDS,
+        params_bitwise_across_ranks=len({a["digest"] for a in arenas}) == 1,
+        metrics_bitwise_across_ranks=len({a["metrics_digest"]
+                                          for a in arenas}) == 1,
+        **{k: [a[k] for a in arenas] for k in (
+            "lanes", "shards", "selections_equal", "param_max_abs_err",
+            "metric_max_abs_err", "metrics_close", "queues_close")},
+        tol=SHARD_ARENA_TOL)
+    require(len({a["digest"] for a in arenas}) == 1 and
+            len({a["metrics_digest"] for a in arenas}) == 1,
+            f"{label}: every rank returns the same arena report")
+    require(all(a["selections_equal"] and a["metrics_close"] and
+                a["queues_close"] and a["shards"] == len(ranks) and
+                a["param_max_abs_err"] <= SHARD_ARENA_TOL[0]
+                for a in arenas),
+            f"{label}: the sharded arena agrees with the unsharded one")
+    log(label, ranks=len(ranks), backend=ranks[0]["backend"],
+        partials_checked=[ref["partials_checked"] for ref in refs],
+        partials_bitwise_fma_order=[ref["partials_bitwise_fma_order"]
+                                    for ref in refs],
+        seconds=[r["reference_s"] for r in ranks],
+        world_s=ranks[0]["world_s"], one_rank_bitwise=(
+            {c: r["bitwise"] for c, r in refs[0]["rounds"].items()}
+            if one_rank else None))
+    require(all(ref["partials_bitwise_fma_order"] for ref in refs),
+            f"{label}: each rank's partial is bitwise its fma order")
+
+
+def phase_shard(root: str, data: dict, unsharded: dict, bank_bytes: dict
+                ) -> dict:
+    """reference.shard in a world of SHARD_RANKS gloo ranks on cuda:0 and
+    in a one-rank NCCL world; shard.main (held against ``unsharded``, the
+    ``main`` and ``main.single`` trainers' params and selections after
+    each of their first rounds, by bank mode; ``bank_bytes`` their banks'
+    bytes) and shard.arena in the gloo world, on their testbed ``data``.
+    A
+    rank that fails or outlives SHARD_TIMEOUT fails the phase
+    (``launch.world.run_world`` raises after killing every rank)."""
+    trace_dir = os.path.join(ROOT, "runlogs", "shard")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    os.makedirs(trace_dir)
+    gloo = _run_shard_world(SHARD_RANKS, "gloo", unsharded,
+                            os.path.join(root, "gloo"), trace_dir, data)
+    _check_shard_reference("reference.shard", gloo)
+    nccl = _run_shard_world(1, "nccl", None, os.path.join(root, "nccl"),
+                            trace_dir)
+    _check_shard_reference("reference.shard.nccl", nccl)
+    mains = [r["main"] for r in gloo]
+    for mode in SHARD_MAIN_BANKS:
+        rows = [m["banks"][mode] for m in mains]
+        sound = max(max(r["param_max_abs_err_unsharded"]) for r in rows)
+        fault = min(r["dropped_partial_err"] for r in rows)
+        log("shard.main", ranks=SHARD_RANKS, backend="gloo",
+            device="cuda:0", bank_mode=mode, bank=rows[0]["bank"],
+            rungs=rows[0]["rungs"],
+            clients_per_rung=rows[0]["clients_per_rung"],
+            rows_per_rung_per_rank=[r["rows_per_rung"] for r in rows],
+            rows_per_rank=[r["rows_held"] for r in rows],
+            bytes_per_rank=[r["bytes_held"] for r in rows],
+            unsharded_bytes=bank_bytes[mode],
+            build_s=[r["build_s"] for r in rows],
+            warmup_s=[r["warmup_s"] for r in rows],
+            round_s=[r["round_s"] for r in rows],
+            tiers_hit=rows[0]["tiers_hit"],
+            fl_delta_reduce_per_rank_per_round=[
+                r["fl_delta_reduce_per_round"] for r in rows],
+            launches=[r["launches"] for r in rows],
+            params_bitwise_across_ranks=len({r["digest"]
+                                             for r in rows}) == 1,
+            partials_bitwise_fma_order=[r["partials_bitwise_fma_order"]
+                                        for r in rows],
+            selections_equal_unsharded=rows[0]["selections_equal_unsharded"],
+            loss=rows[0]["loss"],
+            param_max_abs_err_unsharded=rows[0][
+                "param_max_abs_err_unsharded"],
+            dropped_partial_err=[r["dropped_partial_err"] for r in rows],
+            param_tol=SHARD_MAIN_TOL)
+        require(len({r["digest"] for r in rows}) == 1,
+                f"shard.main {mode}: params bitwise equal on every rank")
+        require(all(r["fl_delta_reduce_per_round"] == 1 and
+                    r["partials_bitwise_fma_order"] for r in rows),
+                f"shard.main {mode}: one fl_delta_reduce launch a rank a "
+                f"round, each partial bitwise its fma order")
+        require(rows[0]["selections_equal_unsharded"] and
+                all(np.isfinite(rows[0]["loss"])),
+                f"shard.main {mode}: the sharded trainer selects as the "
+                f"unsharded one")
+        require(sound <= SHARD_MAIN_TOL < fault,
+                f"shard.main {mode}: params within {SHARD_MAIN_TOL} of "
+                f"the unsharded trainer's after every round ({sound}), "
+                f"below the {fault} a rank's dropped partial would leave")
+    single = [m["banks"]["single"] for m in mains]
+    require(all(r["rows_held"] * SHARD_RANKS == r["clients_per_rung"][0]
+                and r["bytes_held"] < bank_bytes["single"] for r in single),
+            "shard.main single: each rank holds its share of the rows, and "
+            "fewer bytes than the whole bank")
+    log("shard.main.collective", all_reduce_bytes=mains[0][
+        "all_reduce_bytes"], all_reduce_ms=[m["all_reduce_ms"]
+                                            for m in mains],
+        spans=[m["spans"] for m in mains],
+        chrome_trace=os.path.relpath(mains[0]["chrome_trace"], ROOT),
+        reference_s=[r["reference_s"] for r in gloo],
+        data_s=[r["data_s"] for r in gloo],
+        main_s=[r["main_s"] for r in gloo], world_s=gloo[0]["world_s"],
+        nccl_world_s=nccl[0]["world_s"])
+    arenas = [r["arena"] for r in gloo]
+    slowest = max(a["seconds"] for a in arenas)
+    log("shard.arena", ranks=SHARD_RANKS, lanes=arenas[0]["lanes"],
+        lanes_per_rank=arenas[0]["lanes_per_rank"], rounds=SHARD_ROUNDS,
+        seconds=[a["seconds"] for a in arenas],
+        lane_rounds_per_s=arenas[0]["lanes"] * SHARD_ROUNDS / slowest,
+        launches=[a["launches"] for a in arenas],
+        params_bitwise_across_ranks=len({a["digest"] for a in arenas}) == 1,
+        modelled_latency=arenas[0]["modelled_latency"],
+        spans=[a["spans"] for a in arenas])
+    require(len({a["digest"] for a in arenas}) == 1 and
+            all(a["finite"] and a["shape_ok"] for a in arenas),
+            "shard.arena: every rank returns the whole, finite report")
+    require(all(a["launches"].get("fl_aggregate_lanes") == SHARD_ROUNDS
+                for a in arenas),
+            "shard.arena: one lane launch a rank a round")
+    return dict(main=mains, arena=arenas, launches={
+        "fl_delta_reduce": {
+            f"shard.main.{mode}.rank{m['rank']}":
+            m["banks"][mode]["launches"].get("fl_delta_reduce", 0)
+            for m in mains for mode in SHARD_MAIN_BANKS},
+        "fl_aggregate_lanes": {f"shard.arena.rank{a['rank']}":
+                               a["launches"].get("fl_aggregate_lanes", 0)
+                               for a in arenas}})
+
+
+def phase_delta_reduce_leaves(flush, hbm: float, f32_peak: float) -> list:
+    """The partial eq.-(4) reduce of the client-sharded round
+    (``ops.fl_delta_reduce_leaves``, the zero-theta leaf table writing
+    into views of one flat f32 buffer, as ``server.aggregate_fused_psum``
+    calls it) at one rank's share of K = 8 over SHARD_RANKS ranks: the
+    paper-scale CNN's 6 leaves and the ResNet's 17, f32.  One launch,
+    bitwise its order of arithmetic (``ref.aggregate_leaves_fma_reference(
+    None, ...)``), within TOL of the plain version
+    (``ref.delta_reduce_leaves_reference``), timed beside its bound and
+    ``torch.mv`` on the same numbers ravelled into one ``[K, N]`` tensor
+    (no one PyTorch call takes the leaves)."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ops, ref
+
+    k = MAIN_POINT[1] // SHARD_RANKS
+    rows = []
+    for label, cfg in (("cnn", PAPER_SCALE), ("resnet", PAPER_CIFAR)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(9)
+        params = make_task(cfg).init(gen)
+        names = sorted(params)
+        deltas = [torch.randn((k,) + tuple(params[n].shape), device="cuda",
+                              generator=gen) * 1e-2 for n in names]
+        coeffs = torch.softmax(torch.randn(k, device="cuda", generator=gen),
+                               0)
+        total = sum(params[n].numel() for n in names)
+        flat = torch.empty(total, dtype=torch.float32, device="cuda")
+        views, off = [], 0
+        for n in names:
+            views.append(flat[off:off + params[n].numel()].view(
+                params[n].shape))
+            off += params[n].numel()
+
+        def kernel():
+            return ops.fl_delta_reduce_leaves(deltas, coeffs, outs=views)
+
+        before = fk.LAUNCHES["fl_delta_reduce"]
+        got = [v.clone() for v in kernel()]
+        launches = fk.LAUNCHES["fl_delta_reduce"] - before
+        exact = ref.aggregate_leaves_fma_reference(None, deltas, coeffs)
+        plain = ref.delta_reduce_leaves_reference(deltas, coeffs)
+        ravelled = torch.cat([d.reshape(k, -1) for d in deltas], dim=1)
+        lib = torch.mv(ravelled.t(), coeffs)
+        torch.cuda.synchronize()
+        tol = TOL[torch.float32]
+        err = max(float((g - w).abs().max()) for g, w in zip(got, plain))
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, exact))
+        lib_err = float((torch.cat([g.reshape(-1) for g in got])
+                         - lib).abs().max())
+        nbytes = 4 * k * total + 4 * total + 4 * k
+        bound_ms, bound_by = _bound(nbytes, 2 * k * total, hbm, f32_peak)
+        row = dict(
+            label=label, leaves=len(names), n=total, k=k, dtype="float32",
+            launches=launches, tol=tol, max_abs_err=err,
+            bitwise_equal_to_fma_order=bitwise,
+            library_max_abs_err=lib_err, flush="clean",
+            ms=time_ms(kernel, flush=flush, clean=True),
+            plain_ms=time_ms(lambda: ref.delta_reduce_leaves_reference(
+                deltas, coeffs), flush=flush, clean=True),
+            library_ms=time_ms(lambda: torch.mv(ravelled.t(), coeffs),
+                               flush=flush, clean=True),
+            library="torch.mv on the leaves ravelled into one [K, N] "
+                    "tensor",
+            bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes * 1e-6)
+        row["bound_share"] = bound_ms / row["ms"]
+        log("kernel.delta_reduce_leaves", **row)
+        require(launches == 1, f"the partial reduce at the {label}'s "
+                               f"{len(names)} leaves: one launch, got "
+                               f"{launches}")
+        require(err <= tol, f"the partial reduce at the {label}'s leaves "
+                            f"disagrees with its plain version (err {err})")
+        require(bitwise, f"the partial reduce at the {label}'s leaves is "
+                         f"bitwise its order of arithmetic")
+        rows.append(row)
+        del deltas, exact, plain, ravelled, lib, flat, views, got
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
                  main_summary: dict, single_summary: dict,
                  scan_summary: dict, arena_summary: dict, map_summary: dict,
                  sweep_summary: dict, paper: dict, flash: list, ssd: list,
                  gemma: dict, mamba: dict, families: dict, smi: str,
-                 sass: dict, flash_lse: list, training: dict) -> dict:
+                 sass: dict, flash_lse: list, training: dict,
+                 reduce_leaves: list, shard: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
     paths (the LROA rounds on the ladder and on the single bucket, the
     seven controllers' rollouts, the mapped arena's lane rounds and the
     paper testbeds' trainer rounds; the arena's and the sweep's
     lane-batched rounds; the gemma2, mamba2 and the other families'
-    generations; the LM training phases) and its numbers at that path's
-    shapes; ``flash_attention_lse`` is the flash kernel writing its lse
-    output, the training forward's form."""
+    generations; the LM training phases; the sharded trainer's and arena's
+    rounds, per rank) and its numbers at that path's shapes;
+    ``flash_attention_lse`` is the flash kernel writing its lse output,
+    the training forward's form; ``fl_delta_reduce`` is ``fl_aggregate``'s
+    zero-theta form, a rank's partial eq.-(4) term."""
     m = next(p for p in points if (p["n"], p["k"]) == MAIN_POINT[:2]
              and p["dtype"] == "float32")
     fg = next(r for r in flash if r["label"] == "gemma2.global")
@@ -4116,6 +4827,8 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
 
     fused = leaves["fused"]
     la = lanes[0]
+    rc = next(r for r in reduce_leaves if r["label"] == "cnn")
+    rr = next(r for r in reduce_leaves if r["label"] == "resnet")
     lse_main = next(r for r in flash_lse if r["label"] == "gemma2b.train")
 
     def trained(kernel):
@@ -4195,21 +4908,48 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
                   **{key: m[key] for key in (
                       "max_abs_err", "bitwise_equal_to_fma_order", "ms",
                       "ms_zero_flush", "plain_ms", "library_ms",
-                      "library_ms_zero_flush", "bound_ms", "bound_by")}},
-                  "fl_delta_reduce": {
-                  "launches": main_summary["launches"]["fl_delta_reduce"],
-                  "max_abs_err": m["reduce_max_abs_err"],
-                  "ms": m["reduce_ms"], "plain_ms": m["reduce_plain_ms"],
-                  "bound_ms": m["reduce_bound_ms"]}}),
+                      "library_ms_zero_flush", "bound_ms", "bound_by")}}}),
+        entry("fl_delta_reduce",
+              "src/repro_torch/kernels/csrc/fl_aggregate.cu",
+              "src/repro/kernels/ops.py:91",
+              sum(shard["launches"]["fl_delta_reduce"].values()), rc,
+              launches_by_path=shard["launches"]["fl_delta_reduce"],
+              design="fl_aggregate's kernel with no theta "
+                     "(fl_delta_reduce_leaves_cuda), writing each leaf's "
+                     "f32 partial into a view of one flat buffer",
+              point="one rank's partial of shard.main's round: the "
+                    "paper-scale CNN's 6 leaves, N=545,002, K=4 (8 over 2 "
+                    "ranks), f32, one launch; library_ms: torch.mv on the "
+                    "same numbers ravelled into one [K, N] tensor",
+              bitwise_equal_to_fma_order=all(
+                  r["bitwise_equal_to_fma_order"] for r in reduce_leaves),
+              shard_partials_bitwise_fma_order=all(
+                  b["partials_bitwise_fma_order"] for mm in shard["main"]
+                  for b in mm["banks"].values()),
+              max_abs_err_all_points=max(
+                  [r["max_abs_err"] for r in reduce_leaves]
+                  + [p["reduce_max_abs_err"] for p in points]),
+              variants={
+                  "resnet_17_leaves": {k: rr[k] for k in (
+                      "leaves", "n", "k", "max_abs_err", "ms", "plain_ms",
+                      "library_ms", "bound_ms", "bound_by",
+                      "bound_share")},
+                  "flat_545002_k8": {
+                      "launches": 0, "max_abs_err": m["reduce_max_abs_err"],
+                      "ms": m["reduce_ms"], "plain_ms": m["reduce_plain_ms"],
+                      "library_ms": m["reduce_library_ms"],
+                      "bound_ms": m["reduce_bound_ms"]}}),
         entry("fl_aggregate_lanes",
               "src/repro_torch/kernels/csrc/fl_aggregate.cu",
               "src/repro/kernels/fl_aggregate.py:35",
               arena_summary["launches"]["fl_aggregate_lanes"]
-              + sweep_summary["launches"]["fl_aggregate_lanes"],
+              + sweep_summary["launches"]["fl_aggregate_lanes"]
+              + sum(shard["launches"]["fl_aggregate_lanes"].values()),
               dict(la, library_ms=None),
               launches_by_path={
                   "arena": arena_summary["launches"]["fl_aggregate_lanes"],
-                  "sweep": sweep_summary["launches"]["fl_aggregate_lanes"]},
+                  "sweep": sweep_summary["launches"]["fl_aggregate_lanes"],
+                  **shard["launches"]["fl_aggregate_lanes"]},
               design="the header comment of src/repro_torch/kernels/csrc/"
                      "fl_aggregate.cu (segments on coefficient rows)",
               point="the arena's round at paper scale: 7 lanes x the CNN's "
@@ -4409,6 +5149,7 @@ def main() -> int:
     leaves = phase_aggregate_leaves(flush, hbm, f32_peak)
     lanes = phase_aggregate_lanes(flush, hbm, f32_peak)
     resnet_agg = phase_aggregate_resnet(flush, hbm, f32_peak)
+    reduce_leaves = phase_delta_reduce_leaves(flush, hbm, f32_peak)
     flash = phase_flash(flush, hbm, f32_peak, bf16_peak, sfu_ops_per_s)
     ssd = phase_ssd(flush, hbm, f32_peak, bf16_peak)
     flash_lse = phase_flash_lse(flush, hbm, f32_peak, bf16_peak)
@@ -4429,6 +5170,12 @@ def main() -> int:
     single = single_summary.pop("trainer")
     test = single_summary.pop("test")
     del main_summary["test"], single_summary["data"]
+    with tempfile.TemporaryDirectory() as root:
+        shard = phase_shard(root, data, {
+            "auto": main_summary.pop("snapshots"),
+            "single": single_summary.pop("snapshots")}, {
+            "auto": main_summary["bank_bytes"],
+            "single": single_summary["bank_bytes"]})
     phase_profile(ladder, ROUNDS)
     phase_profile(single, ROUNDS, "profile.single")
     with cudnn_deterministic():
@@ -4481,7 +5228,8 @@ def main() -> int:
                                   {"paper.cifar": cifar,
                                    "paper.femnist": femnist},
                                   flash, ssd, gemma, mamba, families, smi,
-                                  sass, flash_lse, training)),
+                                  sass, flash_lse, training, reduce_leaves,
+                                  shard)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
 """ClientBank — the device-resident FL data plane; the port of
-``repro.fl.client_bank`` without a mesh.
+``repro.fl.client_bank``.
 
 ALL N clients' bucketed data is tiled and stacked to ``[N, B, ...]`` once
 at construction, uploaded once, and every round gathers its K selected
@@ -38,7 +38,16 @@ The scale plane behind the same interface:
 * ``nbytes`` / ``bytes_per_client`` / :func:`estimate_bank_nbytes`: the
   device footprint as a tracked number.
 
-Client-axis sharding (``mesh=``) is ROADMAP A8 and raises here.
+Client-axis sharding (``mesh=``, ``mesh_axis=``; a ``launch.mesh``
+``DeviceMesh``, one rank per shard): the reference's placement rule —
+when the axis has ``shards > 1`` ranks and they divide N, rank r holds
+the contiguous rows ``[r N/shards, (r + 1) N/shards)`` of every stack
+(``row_start``, ``rows_held``; ``nbytes`` counts this rank's); otherwise
+every rank holds them all.  On a ladder the rule applies per rung.  The
+host copies, the masks' host mirrors and the cluster routing stay whole
+on every rank (control-plane data).  The round engine fetches a slot's
+row from the rank that holds it (``RoundEngine(mesh=)``).  A
+``BankPool`` takes no mesh, as in the reference.
 """
 
 from __future__ import annotations
@@ -56,10 +65,8 @@ from repro_torch.data.pipeline import (assign_clusters, assign_tiers,
                                        stack_client_arrays,
                                        validate_client_data)
 from repro_torch.fl.client import ClientConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs.metrics import MetricsRegistry
-
-#: what ``mesh=`` raises with
-MESH = "client-axis sharding (mesh=) is not ported yet (ROADMAP A8)"
 
 _STORAGES = ("fp32", "int8")
 
@@ -71,11 +78,6 @@ def _check_storage(storage: str) -> str:
         raise ValueError(f"storage must be one of {_STORAGES}, "
                          f"got {storage!r}")
     return storage
-
-
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(MESH)
 
 
 def _nbytes(tensors) -> int:
@@ -111,8 +113,8 @@ class ClientBank:
     def __init__(self, client_data: Sequence[tuple],
                  client_cfg: ClientConfig, device="cuda",
                  x_layout: Layout = None, storage: str = "fp32",
-                 clusters: Optional[int] = None, mesh=None):
-        _check_mesh(mesh)
+                 clusters: Optional[int] = None, mesh=None,
+                 mesh_axis: str = mesh_lib.AXIS):
         validate_client_data(client_data)
         self.batch_size = client_cfg.batch_size
         self.storage = _check_storage(storage)
@@ -129,21 +131,24 @@ class ClientBank:
         # every client exactly fills the bucket => the masks are inert and
         # the unmasked SGD path runs
         self.uniform = bool(np.all(num_examples == self.bucket_examples))
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        self._place(mesh, mesh_axis)
+        rows = slice(self.row_start, self.row_start + self.rows_held)
         if self.storage == "int8":
             host_x, scale, zero = quantize_stack(host_x)
-            self.x_scale = torch.as_tensor(scale, device=self.device)
-            self.x_zero = torch.as_tensor(zero, device=self.device)
+            self.x_scale = torch.as_tensor(scale[rows], device=self.device)
+            self.x_zero = torch.as_tensor(zero[rows], device=self.device)
         else:
             host_x = host_x.astype(np.float32, copy=False)
             self.x_scale = self.x_zero = None
-        xs = torch.as_tensor(host_x, device=self.device)
+        xs = torch.as_tensor(host_x[rows], device=self.device)
         self.xs = (x_layout(xs) if x_layout is not None else xs).contiguous()
-        self.ys = torch.as_tensor(host_y.astype(np.int64),
+        self.ys = torch.as_tensor(host_y[rows].astype(np.int64),
                                   device=self.device)
-        self.num_steps = torch.as_tensor(num_steps.astype(np.int64),
+        self.num_steps = torch.as_tensor(num_steps[rows].astype(np.int64),
                                          device=self.device)
-        self.num_examples = torch.as_tensor(num_examples.astype(np.int64),
-                                            device=self.device)
+        self.num_examples = torch.as_tensor(
+            num_examples[rows].astype(np.int64), device=self.device)
         if clusters is not None:
             feats = client_cluster_features(self._clients)
             self.cluster_of, self.cluster_centroids = kmeans_clusters(
@@ -155,6 +160,17 @@ class ClientBank:
             self.cluster_of = self.cluster_centroids = None
             self.num_clusters = 0
             self.cluster_of_device = None
+
+    def _place(self, mesh, axis: str) -> None:
+        """The reference's placement rule (``_placement``): this rank's
+        contiguous ``N / shards`` rows when the axis has ``shards > 1``
+        ranks dividing N, else every row."""
+        n = self.num_clients
+        self.shards = 1 if mesh is None else mesh_lib.axis_size(mesh, axis)
+        self.row_sharded = self.shards > 1 and n % self.shards == 0
+        self.rows_held = n // self.shards if self.row_sharded else n
+        self.row_start = (mesh_lib.axis_rank(mesh, axis) * self.rows_held
+                          if self.row_sharded else 0)
 
     @property
     def sizes(self) -> np.ndarray:
@@ -173,8 +189,8 @@ class ClientBank:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes held: the xs/ys stacks, the two masks and (int8)
-        the scale/zero codes."""
+        """Device bytes this rank holds: the xs/ys stacks, the two masks
+        and (int8) the scale/zero codes."""
         return _nbytes([self.xs, self.ys, self.num_steps, self.num_examples]
                        + [t for t in self.quant_args() if t is not None])
 
@@ -191,8 +207,9 @@ class ClientBank:
     def device_args(self) -> Tuple[torch.Tensor, torch.Tensor,
                                    Optional[torch.Tensor],
                                    Optional[torch.Tensor]]:
-        """(xs, ys, num_steps, num_examples); the masks are None for a
-        uniform bank (every client fills the bucket)."""
+        """(xs, ys, num_steps, num_examples) — the rows this rank holds;
+        the masks are None for a uniform bank (every client fills the
+        bucket)."""
         if self.uniform:
             return self.xs, self.ys, None, None
         return self.xs, self.ys, self.num_steps, self.num_examples
@@ -240,8 +257,7 @@ class TieredClientBank:
                  client_cfg: ClientConfig, device="cuda",
                  x_layout: Layout = None, max_tiers: int = 4,
                  assignment: Optional[tuple] = None, storage: str = "fp32",
-                 mesh=None):
-        _check_mesh(mesh)
+                 mesh=None, mesh_axis: str = mesh_lib.AXIS):
         validate_client_data(client_data)
         self.batch_size = client_cfg.batch_size
         self.storage = _check_storage(storage)
@@ -261,9 +277,11 @@ class TieredClientBank:
         for members in self.tier_members:
             pos[members] = np.arange(members.size, dtype=np.int32)
         self.pos_in_tier = pos
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.tiers = [ClientBank([client_data[i] for i in members],
                                  client_cfg, device=device,
-                                 x_layout=x_layout, storage=storage)
+                                 x_layout=x_layout, storage=storage,
+                                 mesh=mesh, mesh_axis=mesh_axis)
                       for members in self.tier_members]
         self.tier_of_device = torch.as_tensor(
             self.tier_of.astype(np.int64), device=self.device)
@@ -289,7 +307,8 @@ class TieredClientBank:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes held across the ladder (the tiers' stacks)."""
+        """Device bytes this rank holds across the ladder (the tiers'
+        stacks)."""
         return sum(bank.nbytes for bank in self.tiers)
 
     @property

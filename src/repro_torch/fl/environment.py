@@ -40,6 +40,12 @@ streams of channel key ``c``:
 
 So a lane's gains never depend on its dropout rate or on the other
 lanes, and the dropout axis draws from a stream of its own.
+
+:meth:`ChannelProcess.sample_device` and :meth:`ChannelProcess.
+dropout_device` (the JAX package's ``sample_jax`` / ``dropout_jax``)
+draw a process's gains and alive mask on the device from one channel
+key through these samplers, bitwise the arena's pregenerated lane for
+the same key and statistics.
 """
 
 from __future__ import annotations
@@ -340,6 +346,36 @@ class ChannelProcess:
             out.append(self._first_in_range(draws))
         return np.concatenate(out) if out else np.zeros(
             (0, self.num_devices), np.float32)
+
+    def sample_device(self, key: torch.Tensor,
+                      num_rounds: Optional[int] = None) -> torch.Tensor:
+        """Gains drawn on ``key``'s device — ``[T, N]`` float32 (``[N]``
+        when ``num_rounds`` is None) — keyed by ``key`` (an int64 channel
+        key), not the process's numpy seed.  Delegates to the lane
+        samplers at one lane: the stationary mode draws the key's gain
+        stream, the Markov mode the key's Gilbert-Elliott fold, exactly
+        as ``sim.Arena.sample_channels`` draws a lane with this key and
+        these statistics (bitwise)."""
+        keys = torch.as_tensor(key, dtype=torch.int64).reshape(1)
+        t = 1 if num_rounds is None else int(num_rounds)
+        cfg = self.cfg
+        if cfg.mode == "markov":
+            h = sample_gains_markov(keys, t, self.num_devices, cfg.mean_gain,
+                                    cfg.bad_gain, cfg.min_gain, cfg.max_gain,
+                                    cfg.p_gb, cfg.p_bg)[0]
+        else:
+            h = sample_gains(keys, t, self.num_devices, cfg.mean_gain,
+                             cfg.min_gain, cfg.max_gain)[0]
+        return h[0] if num_rounds is None else h
+
+    def dropout_device(self, key: torch.Tensor, num_rounds: int
+                       ) -> torch.Tensor:
+        """``[T, N]`` float32 alive mask drawn on ``key``'s device from
+        the dropout stream of the SAME key the gains consume (bitwise
+        ``sim.Arena.sample_dropout``'s lane for this key and rate)."""
+        keys = torch.as_tensor(key, dtype=torch.int64).reshape(1)
+        return sample_dropout_mask(keys, int(num_rounds), self.num_devices,
+                                   self.cfg.dropout)[0]
 
     def dropout_sequence(self, num_rounds: int) -> np.ndarray:
         """[T, N] alive mask (1.0 = alive), each client dropping with

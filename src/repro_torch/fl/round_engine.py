@@ -1,5 +1,5 @@
 """Device-resident FL round engine over a client bank — the port of
-``repro.fl.round_engine.RoundEngine`` without a mesh: one round
+``repro.fl.round_engine.RoundEngine``: one round
 (:meth:`RoundEngine.round_step`) and a whole rollout of Algorithm 1
 (:meth:`RoundEngine.run_scan`), on a single-bucket ``ClientBank``, the
 tier ladder (``TieredClientBank``) or a ``BankPool``, fp32 or int8.
@@ -52,8 +52,26 @@ any global round, which the arena's chunked, checkpointed runs use.
 ``round_step(hierarchical=True)`` reduces eq. (4) cluster by cluster
 over a bank built with ``clusters=`` (``server.aggregate_hierarchical``,
 plain PyTorch).  ``round_step_stacked`` takes host-stacked batches
-(``ClientBank.gather_host``) through the same round core.  Client-axis
-sharding (``mesh=``, ROADMAP A8) is not ported.
+(``ClientBank.gather_host``) through the same round core.
+
+Client-axis sharding (``mesh=``, a ``launch.mesh`` ``DeviceMesh`` with
+the axis ``mesh_axis``; one ``torch.distributed`` rank per shard) — the
+reference's ``shard_map`` of the round core.  The control plane runs
+replicated on every rank (the same solver, numpy and counter-based
+draws give the same bits with no communication); the data plane is
+split (:meth:`RoundEngine._sharded_round`): rank r trains the contiguous
+slots ``[r K/s, (r + 1) K/s)`` of the selection (K must divide, else
+``ValueError`` as in the reference), routed by tier on a ladder; a slot
+whose bank row another rank holds (the bank's placement, see
+``fl.client_bank``) is fetched with one ``all_to_all`` of packed rows per
+tier the selection hits; the rank's partial eq.-(4) term is one
+``fl_delta_reduce`` launch, summed over the ranks by one ``all_reduce``
+(``server.aggregate_fused_psum``, or ``aggregate_hierarchical_psum``),
+so every rank adds the same update and the params stay bitwise
+replicated; the losses come back in slot order on every rank.
+``round_step`` and ``run_scan`` take this path whenever the engine has a
+mesh (a one-rank mesh included); ``round_step_stacked``, whose batches
+come from the host, trains them whole on every rank.
 """
 
 from __future__ import annotations
@@ -70,10 +88,10 @@ from repro_torch.core import system_model as sm
 from repro_torch.data.pipeline import assign_tiers, validate_client_data
 from repro_torch.fl import client as fl_client
 from repro_torch.fl import server as fl_server
-from repro_torch.fl.client_bank import (ClientBank, TieredClientBank,
-                                        _check_mesh)
+from repro_torch.fl.client_bank import ClientBank, TieredClientBank
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import IMPLS
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import trace as obs_trace
 
 Params = Dict[str, torch.Tensor]
@@ -102,28 +120,81 @@ def bank_layout_key(bank, tier_subset=None) -> tuple:
     return (bank.steps_per_epoch, not bank.uniform, bank.storage == "int8")
 
 
-def _gather(bank, idx: torch.Tensor):
-    """THE gather: rows ``idx`` (``[K]`` int64 on the device) of a
-    one-bucket bank's stacks -> ``(xs, ys, num_steps, num_examples)``.
-    An int8 bank's rows are dequantized right after the gather, at ``[K,
+def _take(bank, idx: torch.Tensor) -> tuple:
+    """Rows ``idx`` (``[K]`` int64 on the device) of every stack a
+    one-bucket bank holds on this rank: ``(xs, ys, num_steps,
+    num_examples, x_scale, x_zero)``, None where the bank has none."""
+    return tuple(None if t is None else torch.index_select(t, 0, idx)
+                 for t in bank.device_args() + bank.quant_args())
+
+
+def _finish(rows: tuple):
+    """Taken rows -> ``(xs, ys, num_steps, num_examples)``.  An int8
+    bank's rows are dequantized here, right after the gather, at ``[K,
     B, ...]``: ``q * scale + zero`` rounded once per element
     (``ref.fma_f32``), the fused multiply-add XLA gives the JAX
     package's gather (``data.pipeline.dequantize_stack``, a product then
     a sum, may differ from it in the last bit)."""
-    all_x, all_y, all_steps, all_sizes = bank.device_args()
-    scale, zero = bank.quant_args()
-    xs = torch.index_select(all_x, 0, idx)
+    xs, ys, ns, ne, scale, zero = rows
     if scale is not None:
         shape = (-1,) + (1,) * (xs.dim() - 1)
-        xs = ref.fma_f32(xs.to(torch.float32),
-                         torch.index_select(scale, 0, idx).reshape(shape),
-                         torch.index_select(zero, 0, idx).reshape(shape))
-    ys = torch.index_select(all_y, 0, idx)
-    ns = None if all_steps is None else torch.index_select(all_steps, 0,
-                                                           idx)
-    ne = None if all_sizes is None else torch.index_select(all_sizes, 0,
-                                                           idx)
+        xs = ref.fma_f32(xs.to(torch.float32), scale.reshape(shape),
+                         zero.reshape(shape))
     return xs, ys, ns, ne
+
+
+def _gather(bank, idx: torch.Tensor):
+    """THE gather: rows ``idx`` of a one-bucket bank -> ``(xs, ys,
+    num_steps, num_examples)`` (:func:`_take`, then :func:`_finish`)."""
+    return _finish(_take(bank, idx))
+
+
+def _pack_rows(rows: tuple) -> torch.Tensor:
+    """Taken rows (None entries skipped) as one ``[R, bytes]`` uint8
+    tensor: each stack's row bytes side by side."""
+    return torch.cat([t.reshape(t.shape[0], int(np.prod(
+        t.shape[1:], dtype=np.int64))).contiguous().view(torch.uint8)
+        for t in rows if t is not None], dim=1)
+
+
+def _unpack_rows(packed: torch.Tensor, like: tuple) -> tuple:
+    """Inverse of :func:`_pack_rows` for ``packed`` rows of the stacks
+    ``like`` (each stack's dtype and row shape; None stays None)."""
+    out, off = [], 0
+    for t in like:
+        if t is None:
+            out.append(None)
+            continue
+        width = int(np.prod(t.shape[1:], dtype=np.int64)) * t.element_size()
+        out.append(packed[:, off:off + width].contiguous().view(t.dtype)
+                   .reshape((packed.shape[0],) + tuple(t.shape[1:])))
+        off += width
+    return tuple(out)
+
+
+def _by_tier(tiers: np.ndarray, tier_sel: np.ndarray, device, train_tier
+             ) -> Tuple[Params, torch.Tensor]:
+    """The tier routing of both round cores: for each tier ``t`` of
+    ``tiers`` in order, ``train_tier(t, m)`` trains the slots ``m`` (int64
+    on ``device``) whose entry of ``tier_sel`` (host ``[k]``) is ``t`` and
+    returns their deltas and losses (or None when it trains none); the
+    results are scattered back to slot order in ``[k, ...]`` buffers."""
+    k = len(tier_sel)
+    deltas, losses = {}, None
+    for t in tiers:
+        m = torch.as_tensor(np.flatnonzero(tier_sel == t), device=device)
+        got = train_tier(int(t), m)
+        if got is None:
+            continue
+        d, l = got
+        if losses is None:
+            losses = l.new_empty(k)
+            deltas = {name: v.new_empty((k,) + tuple(v.shape[1:]))
+                      for name, v in d.items()}
+        losses.index_copy_(0, m, l)
+        for name, v in d.items():
+            deltas[name].index_copy_(0, m, v)
+    return deltas, losses
 
 
 class RoundEngine:
@@ -131,18 +202,24 @@ class RoundEngine:
 
     ``impl`` selects the eq.-(4) path (see ``repro_torch.kernels.ops``):
     'auto' launches the CUDA kernel on a CUDA device and runs the plain
-    per-leaf reduce on the CPU.  ``mesh=`` raises (ROADMAP A8).
+    per-leaf reduce on the CPU.  ``mesh`` (a ``launch.mesh`` mesh with
+    the axis ``mesh_axis``) shards the client axis over its ranks (see
+    the module docstring); ``device`` is then this rank's device.
     """
 
     def __init__(self, task, client_cfg: fl_client.ClientConfig,
-                 impl: str = "auto", device="cuda", mesh=None):
-        _check_mesh(mesh)
+                 impl: str = "auto", device="cuda", mesh=None,
+                 mesh_axis: str = mesh_lib.AXIS):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if mesh is not None:
+            mesh_lib.check_mesh(mesh, mesh_axis)
         self.task = task
         self.cfg = client_cfg
         self.impl = impl
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
 
     def make_bank(self, client_data, tiered: str = "auto",
                   max_tiers: int = 4, storage: str = "fp32",
@@ -156,7 +233,8 @@ class RoundEngine:
         the ladder, even of one rung.  ``storage``: 'fp32' or 'int8'
         (per-client affine codes, dequantized in the gather).
         ``clusters``: fit k-means routing for ``round_step(...,
-        hierarchical=True)`` — single-bucket banks only.
+        hierarchical=True)`` — single-bucket banks only.  The bank is
+        placed on the engine's mesh (``fl.client_bank``).
         """
         if tiered not in ("auto", "single", "tiered"):
             raise ValueError(f"unknown bank mode {tiered!r}")
@@ -168,7 +246,7 @@ class RoundEngine:
             assignment = assign_tiers(sizes, self.cfg.batch_size, max_tiers)
             tiered = "single" if len(assignment[1]) == 1 else "tiered"
         kw = dict(device=self.device, x_layout=self.task.device_layout,
-                  storage=storage)
+                  storage=storage, mesh=self.mesh, mesh_axis=self.mesh_axis)
         if tiered == "single":
             return ClientBank(client_data, self.cfg, clusters=clusters, **kw)
         if clusters is not None:
@@ -226,25 +304,126 @@ class RoundEngine:
             tier_sel = bank.tier_of_device.index_select(
                 0, selected).cpu().numpy()
         pos = bank.pos_device.index_select(0, selected)
-        k = selected.shape[0]
-        deltas, losses = {}, None
-        for t in np.unique(tier_sel):
-            m = torch.as_tensor(np.flatnonzero(tier_sel == t),
-                                device=selected.device)
+
+        def train_tier(t: int, m: torch.Tensor):
             starts = ({name: v.index_select(0, m)
                        for name, v in params.items()} if per_client
                       else params)
-            d, l = self._sgd(starts, bank.tiers[int(t)],
-                             pos.index_select(0, m), lr,
-                             sort_keys.index_select(0, m), per_client)
-            if losses is None:
-                losses = l.new_empty(k)
-                deltas = {name: v.new_empty((k,) + tuple(v.shape[1:]))
-                          for name, v in d.items()}
-            losses.index_copy_(0, m, l)
-            for name, v in d.items():
-                deltas[name].index_copy_(0, m, v)
-        return deltas, losses
+            return self._sgd(starts, bank.tiers[t], pos.index_select(0, m),
+                             lr, sort_keys.index_select(0, m), per_client)
+
+        return _by_tier(np.unique(tier_sel), tier_sel, selected.device,
+                        train_tier)
+
+    # -- the client-sharded round core ---------------------------------------
+
+    def _shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        return mesh_lib.axis_size(self.mesh, self.mesh_axis)
+
+    def _my_slots(self, k: int) -> Tuple[int, int]:
+        """``[lo, hi)``: this rank's contiguous slots of ``k`` (the
+        reference's ``P(axis)`` split of the client axis)."""
+        shards = self._shards()
+        if k % shards:
+            raise ValueError(
+                f"sample_count {k} not divisible by mesh axis "
+                f"{self.mesh_axis!r} size {shards}")
+        return mesh_lib.contiguous_block(k, self.mesh, self.mesh_axis)
+
+    def _fetch(self, bank, rows: np.ndarray, take: np.ndarray, lo: int,
+               hi: int):
+        """The gathered ``(xs, ys, num_steps, num_examples)`` of this
+        rank's slots ``j`` in ``[lo, hi)`` with ``take[j]``, in slot
+        order (None when it has none), from ``bank`` (one bucket) at
+        ``rows[j]``.  A bank whose rows are split over the mesh serves
+        each slot from the rank that holds its row: every rank packs the
+        rows the others need (:func:`_pack_rows`) and ONE
+        ``all_to_all`` exchanges them — every rank knows the whole
+        selection, so the counts need no handshake; every rank calls
+        this for the same banks, in the same order."""
+        mine = [j for j in range(lo, hi) if take[j]]
+        dev = self.device
+        if not getattr(bank, "row_sharded", False):
+            if not mine:
+                return None
+            return _gather(bank, torch.as_tensor(rows[mine], device=dev))
+        per, shards = bank.rows_held, bank.shards
+        me = mesh_lib.axis_rank(self.mesh, self.mesh_axis)
+        span = hi - lo
+        owner, local = rows // per, rows % per
+        send_counts, send_rows, recv_counts, order = [], [], [], []
+        for r in range(shards):
+            theirs = [j for j in range(r * span, (r + 1) * span)
+                      if take[j] and owner[j] == me]
+            send_counts.append(len(theirs))
+            send_rows += [int(local[j]) for j in theirs]
+            from_r = [j for j in mine if owner[j] == r]
+            recv_counts.append(len(from_r))
+            order += from_r
+        taken = _take(bank, torch.as_tensor(np.asarray(send_rows, np.int64),
+                                            device=dev))
+        packed = mesh_lib.all_to_all_rows(_pack_rows(taken), send_counts,
+                                          recv_counts, self.mesh,
+                                          self.mesh_axis)
+        if not mine:
+            return None
+        perm = torch.as_tensor([order.index(j) for j in mine], device=dev)
+        return _finish(tuple(None if t is None else t.index_select(0, perm)
+                             for t in _unpack_rows(packed, taken)))
+
+    def _sharded_train(self, params: Params, bank, selected: np.ndarray,
+                       lr, sort_keys: torch.Tensor, lo: int, hi: int
+                       ) -> Tuple[Params, torch.Tensor]:
+        """Local SGD of this rank's slots ``[lo, hi)`` of ``selected``
+        (host ``[K]``) -> deltas ``[hi - lo, ...]`` and losses in slot
+        order; on a multi-tier ladder one fetch for every tier the
+        selection hits (on every rank) and one SGD call per tier this
+        rank's slots hit, as :meth:`_train` routes them."""
+        bank = _one_bucket(bank)
+        keys = sort_keys[lo:hi]
+        if not isinstance(bank, TieredClientBank):
+            xs, ys, ns, ne = self._fetch(bank, selected,
+                                         np.ones(selected.size, bool), lo, hi)
+            return self._local_sgd(params, xs, ys, ns, ne, lr, keys)
+        tier_sel = bank.tier_of[selected]
+        pos = bank.pos_in_tier[selected].astype(np.int64)
+
+        def train_tier(t: int, m: torch.Tensor):
+            got = self._fetch(bank.tiers[t], pos, tier_sel == t, lo, hi)
+            if got is None:
+                return None
+            return self._local_sgd(params, *got, lr, keys.index_select(0, m))
+
+        return _by_tier(np.unique(tier_sel), tier_sel[lo:hi], self.device,
+                        train_tier)
+
+    def _sharded_round(self, params: Params, bank, selected: np.ndarray,
+                       coeffs: torch.Tensor, lr, sort_keys: torch.Tensor,
+                       hierarchical: bool = False
+                       ) -> Tuple[Params, torch.Tensor]:
+        """THE sharded round: this rank's slots trained
+        (:meth:`_sharded_train`), its deltas and coefficients reduced to
+        the replicated new params (``server.aggregate_fused_psum``, or
+        the hierarchical form over its slots' clusters), and every rank's
+        losses gathered in slot order."""
+        lo, hi = self._my_slots(int(selected.size))
+        deltas, losses = self._sharded_train(params, bank, selected, lr,
+                                             sort_keys, lo, hi)
+        if hierarchical:
+            bank = _one_bucket(bank)
+            csel = bank.cluster_of_device.index_select(0, torch.as_tensor(
+                selected[lo:hi].astype(np.int64), device=self.device))
+            new = fl_server.aggregate_hierarchical_psum(
+                params, deltas, coeffs[lo:hi], csel, bank.num_clusters,
+                self.mesh, self.mesh_axis)
+        else:
+            new = fl_server.aggregate_fused_psum(
+                params, deltas, coeffs[lo:hi], self.mesh, self.mesh_axis,
+                impl=self.impl)
+        return new, mesh_lib.all_gather_cat(losses, self.mesh,
+                                            self.mesh_axis)
 
     def round_step(self, global_params: Params, bank,
                    selected: np.ndarray, coeffs: np.ndarray, lr: float,
@@ -260,7 +439,8 @@ class RoundEngine:
         routes the slots on the host (``tier_of``); an empty selection
         returns a copy of the params.  ``hierarchical=True`` reduces
         eq. (4) over the bank's k-means clusters (a bank built with
-        ``clusters=``; single-bucket banks and pools only).
+        ``clusters=``; single-bucket banks and pools only).  With a
+        mesh, :meth:`_sharded_round` (K divisible by the axis size).
         """
         selected = np.asarray(selected)
         if selected.size and not (0 <= int(selected.min()) and
@@ -283,6 +463,13 @@ class RoundEngine:
                 return ({name: v.clone() for name, v in
                          global_params.items()},
                         torch.zeros(0, dtype=torch.float32, device=dev))
+            if self.mesh is not None:
+                return self._sharded_round(
+                    global_params, bank, selected.astype(np.int64),
+                    torch.as_tensor(np.asarray(coeffs, np.float32),
+                                    device=dev), lr,
+                    torch.as_tensor(sort_keys, dtype=torch.float32,
+                                    device=dev), hierarchical)
             sel = torch.as_tensor(selected.astype(np.int64), device=dev)
             deltas, losses = self._train(
                 global_params, bank, sel, lr,
@@ -334,7 +521,14 @@ class RoundEngine:
         """The data-plane half of a rollout over ``bank``:
         ``round_fn(params, selected, coeffs, lr, sort_keys)`` trains the
         ``[K]`` slots (:meth:`_train`) and applies eq. (4) in one
-        ``fl_aggregate`` launch on a CUDA device."""
+        ``fl_aggregate`` launch on a CUDA device; with a mesh it reads
+        the selection back and runs :meth:`_sharded_round`."""
+        if self.mesh is not None:
+            def sharded_fn(params, selected, coeffs, lr, sort_keys):
+                return self._sharded_round(params, bank,
+                                           selected.cpu().numpy(), coeffs,
+                                           lr, sort_keys)
+            return sharded_fn
 
         def round_fn(params, selected, coeffs, lr, sort_keys):
             deltas, losses = self._train(params, bank, selected, lr,
@@ -583,7 +777,9 @@ class RoundEngine:
         names; and ``q_sum`` [T], the port's check that every round's q
         lies on the simplex).  Every round's eq.-(4) step is one
         ``fl_aggregate`` launch on a CUDA device, however many tiers the
-        round hits.
+        round hits.  With a mesh each round is :meth:`_sharded_round`
+        (the slot count divisible by the axis size): one
+        ``fl_delta_reduce`` launch and one ``all_reduce`` per round.
         """
         if policy not in pol.POLICY_IDS:
             raise ValueError(f"unknown policy {policy!r} (scan-traceable: "
@@ -596,6 +792,8 @@ class RoundEngine:
         k = k_act if k_max is None else int(k_max)
         if k < k_act:
             raise ValueError(f"k_max={k} is below the true K={k_act}")
+        if self.mesh is not None:
+            self._my_slots(k)
         round_fn = self._scan_plan(bank)
         dev, n = self.device, sp.num_devices
         if sp.device.type != dev.type:

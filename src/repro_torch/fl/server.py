@@ -29,6 +29,16 @@ leading ``[K, ...]`` axis on every leaf.
   reduce (the scale plane's routing, ``index_add_`` for the segment
   sum); plain PyTorch on every device, as the JAX package's
   ``segment_sum`` form is plain XLA.
+* ``aggregate_fused_psum`` / ``aggregate_hierarchical_psum`` are the
+  client-sharded forms (the JAX package's ``shard_map`` bodies, here one
+  ``torch.distributed`` rank per shard over ``launch.mesh``): each rank
+  reduces its slice of the client axis (one ``fl_delta_reduce`` launch
+  over its leaves on a CUDA device, into views of one flat f32 buffer;
+  or ``[C, ...]`` cluster partials), ONE ``all_reduce`` sums the flat
+  buffer over the mesh axis, and theta is added once per leaf.  Every
+  rank receives the same sum, so the params stay bitwise replicated;
+  with one rank each is bitwise its unsharded form (the same order of
+  arithmetic: the sum, then theta).
 * ``ParamRavel`` is the JAX package's flat-vector adapter, kept for the
   flat entry points (``ops.fl_aggregate``, ``ops.fl_delta_reduce``).
 """
@@ -41,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import mesh as mesh_lib
 
 Params = Dict[str, torch.Tensor]
 
@@ -141,6 +152,44 @@ def aggregate_fused(global_params: Params, stacked_deltas: Params,
         [stacked_deltas[n] for n in names], coeffs, impl=impl)))
 
 
+def _flat_views(buffer: torch.Tensor, shapes) -> list:
+    """Contiguous views of ``buffer`` with the given shapes, in order."""
+    views, off = [], 0
+    for shape in shapes:
+        size = int(np.prod(shape)) if shape else 1
+        views.append(buffer[off:off + size].view(shape))
+        off += size
+    return views
+
+
+def aggregate_fused_psum(global_params: Params, stacked_deltas: Params,
+                         coeffs: torch.Tensor, mesh, axis_name: str = "data",
+                         impl: str = "auto") -> Params:
+    """Mesh-sharded eq. (4): per-rank partial reduce, one cross-rank sum.
+
+    ``stacked_deltas`` holds this rank's slice ``[K/shards, ...]`` of
+    the client axis and ``coeffs`` the matching ``[K/shards]``.  The
+    rank's partial ``sum_k c_k d_k`` of every leaf (sorted names) is
+    written in f32 into views of ONE flat buffer
+    by one ``ops.fl_delta_reduce_leaves`` call (one kernel launch per
+    table of leaves on a CUDA device, the broadcast-multiply and sum on
+    the CPU), the buffer is summed over ``axis_name`` by one
+    ``all_reduce``, and theta is added once per leaf in f32 and cast to
+    its dtype."""
+    device = next(iter(global_params.values())).device
+    coeffs = coeffs.to(device=device, dtype=torch.float32).contiguous()
+    names = sorted(global_params)
+    shapes = [tuple(global_params[n].shape) for n in names]
+    flat = torch.empty(sum(int(np.prod(s)) if s else 1 for s in shapes),
+                       dtype=torch.float32, device=device)
+    parts = _flat_views(flat, shapes)
+    ops.fl_delta_reduce_leaves([stacked_deltas[n] for n in names], coeffs,
+                               outs=parts, impl=impl)
+    mesh_lib.all_reduce_sum_(flat, mesh, axis_name)
+    return {n: (global_params[n].to(torch.float32) + parts[i]).to(
+        global_params[n].dtype) for i, n in enumerate(names)}
+
+
 def aggregate_fused_lanes(params_stacked: Params, deltas_stacked: Params,
                           coeffs: torch.Tensor, impl: str = "auto"
                           ) -> Params:
@@ -182,6 +231,33 @@ def aggregate_hierarchical(global_params: Params, stacked_deltas: Params,
         partials.index_add_(0, sel, c * d)
         out[name] = (p.to(torch.float32) + partials.sum(dim=0)).to(p.dtype)
     return out
+
+
+def aggregate_hierarchical_psum(global_params: Params,
+                                stacked_deltas: Params, coeffs: torch.Tensor,
+                                cluster_sel: torch.Tensor, num_clusters: int,
+                                mesh, axis_name: str = "data") -> Params:
+    """Mesh-sharded :func:`aggregate_hierarchical`: each rank sums its
+    slice of the client axis into ``[num_clusters, ...]`` f32 partials
+    per leaf (``index_add_``), every leaf's partials packed into one flat
+    buffer, ONE ``all_reduce`` over ``axis_name`` (the traffic is cluster
+    rows, not client rows), then per leaf the cluster axis summed and
+    added to theta."""
+    device = next(iter(global_params.values())).device
+    coeffs = coeffs.to(device=device, dtype=torch.float32)
+    sel = cluster_sel.to(device=device, dtype=torch.int64)
+    names = list(global_params)
+    shapes = [(num_clusters,) + tuple(global_params[n].shape) for n in names]
+    flat = torch.zeros(sum(int(np.prod(s)) for s in shapes),
+                       dtype=torch.float32, device=device)
+    parts = _flat_views(flat, shapes)
+    for name, part in zip(names, parts):
+        d = stacked_deltas[name].to(torch.float32)
+        c = coeffs.reshape((-1,) + (1,) * (d.dim() - 1))
+        part.index_add_(0, sel, c * d)
+    mesh_lib.all_reduce_sum_(flat, mesh, axis_name)
+    return {n: (global_params[n].to(torch.float32) + parts[i].sum(dim=0)).to(
+        global_params[n].dtype) for i, n in enumerate(names)}
 
 
 def fedavg_reference(global_params: Params, deltas: Sequence[Params],

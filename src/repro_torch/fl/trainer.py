@@ -30,6 +30,13 @@ reference semantics of DivFL — and the eq.-(4) step as the list API
 ``server.aggregate`` (DivFL: ``server.fedavg_reference`` over the
 selected clients' data weights), plain PyTorch on every device.
 
+``mesh=`` (a ``launch.mesh`` mesh, one ``torch.distributed`` rank per
+shard; every rank builds the same trainer) shards the client axis: the
+bank's rows split over the ranks, each round's K slots trained K/shards
+per rank, the eq.-(4) partials summed by one ``all_reduce`` (see
+``fl.round_engine``).  The control plane runs on every rank with the same
+bits, so every rank holds the same params, selections and records.
+
 The same ``seed`` gives the JAX trainer's channel gains and selections
 (numpy streams).  The model init and the per-client epoch keys come from
 ``torch.Generator``s; ``sort_keys_fn`` replaces the latter (the parity
@@ -93,8 +100,9 @@ class FLRunResult:
 
 
 class FederatedTrainer:
-    """Synchronous FL loop on one device: the fused round engine path
-    (``use_engine=True``) or the sequential reference path."""
+    """Synchronous FL loop on one device, or on the ranks of ``mesh``:
+    the fused round engine path (``use_engine=True``) or the sequential
+    reference path."""
 
     def __init__(self, task, params: sm.SystemParams, controller,
                  channel: ChannelProcess, client_data: Sequence[tuple],
@@ -106,7 +114,7 @@ class FederatedTrainer:
                  sort_keys_fn: Optional[Callable[[int], np.ndarray]] = None,
                  bank_storage: str = "fp32", use_engine: bool = True,
                  client_keys_fn: Optional[Callable[[int], np.ndarray]]
-                 = None):
+                 = None, mesh=None):
         if len(client_data) != params.num_devices:
             raise ValueError(f"{len(client_data)} client datasets for "
                              f"{params.num_devices} devices")
@@ -123,7 +131,7 @@ class FederatedTrainer:
         self.eval_every = eval_every
         self.use_engine = use_engine
         self.engine = RoundEngine(task, client_cfg, impl=impl,
-                                  device=self.device)
+                                  device=self.device, mesh=mesh)
         # the ONE upload of client data: every round reads the bank
         self.bank = self.engine.make_bank(client_data, tiered=bank_mode,
                                           storage=bank_storage)

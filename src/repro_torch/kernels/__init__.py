@@ -1,7 +1,7 @@
 """repro_torch.kernels — the port's hand-written CUDA kernels.
 
 * ``ops`` — the public wrappers (``fl_aggregate``, ``fl_aggregate_leaves``,
-  ``fl_aggregate_lanes``, ``fl_delta_reduce``,
+  ``fl_aggregate_lanes``, ``fl_delta_reduce``, ``fl_delta_reduce_leaves``,
   ``flash_attention``, ``ssd_chunk``) and the one dispatch rule
   ``use_cuda_kernel``;
 * ``fl_aggregate``, ``flash_attention``, ``ssd_scan`` — the bindings of

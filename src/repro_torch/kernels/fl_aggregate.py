@@ -14,7 +14,10 @@ launch per table; lane s of it is bitwise the one-lane call on lane s's
 tensors.
 ``fl_aggregate_cuda(theta, deltas, coeffs)`` and ``fl_delta_reduce_cuda(
 deltas, coeffs)`` (the theta-less partial, f32 out) are its one-leaf case
-on a flat ``[N]`` / ``[K, N]`` model.  All take CUDA tensors only: they
+on a flat ``[N]`` / ``[K, N]`` model; ``fl_delta_reduce_leaves_cuda(
+deltas, coeffs, outs)`` is the theta-less partial over a leaf table,
+written into given f32 views (a rank's term of the client-sharded
+round, ``fl.server.aggregate_fused_psum``).  All take CUDA tensors only: they
 validate devices, dtypes, shapes and contiguity, refuse inputs that
 require grad under grad mode (the kernel has no backward;
 ``_build.refuse_grad``), allocate the outputs with ``torch.empty``,
@@ -227,11 +230,25 @@ def _launch_segments(segs: Sequence[Seg], coeffs: torch.Tensor,
 
 def _launch_leaves(thetas: Sequence[torch.Tensor] | None,
                    deltas: Sequence[torch.Tensor], coeffs: torch.Tensor,
-                   counter: str) -> List[torch.Tensor]:
-    """Validate, allocate the outputs, plan the tables and launch each."""
+                   counter: str, outs: Sequence[torch.Tensor] | None = None
+                   ) -> List[torch.Tensor]:
+    """Validate, allocate the outputs (or take the given ones: f32, the
+    reduce only), plan the tables and launch each."""
     _check_leaves(thetas, deltas, coeffs, _library())
     device = deltas[0].device
-    if thetas is None:
+    if outs is not None:
+        outs = list(outs)
+        if thetas is not None or len(outs) != len(deltas):
+            raise ValueError("given outputs are the reduce's: one f32 "
+                             "tensor per leaf, no thetas")
+        for i, (d, out) in enumerate(zip(deltas, outs)):
+            if (out.dtype != torch.float32 or out.shape != d.shape[1:]
+                    or not out.is_contiguous()):
+                raise ValueError(f"leaf {i}: out must be contiguous "
+                                 f"float32 {tuple(d.shape[1:])}, got "
+                                 f"{out.dtype} {tuple(out.shape)}")
+            _check_tensor(out, f"leaf {i} out", coeffs.get_device())
+    elif thetas is None:
         outs = [torch.empty(d.shape[1:], dtype=torch.float32, device=device)
                 for d in deltas]
     else:
@@ -324,6 +341,20 @@ def fl_aggregate_cuda(theta: torch.Tensor, deltas: torch.Tensor,
     theta's dtype, summed in f32 (the one-leaf case)."""
     _check_flat(theta, deltas)
     return _launch_leaves([theta], [deltas], coeffs, "fl_aggregate")[0]
+
+
+def fl_delta_reduce_leaves_cuda(deltas: Sequence[torch.Tensor],
+                                coeffs: torch.Tensor,
+                                outs: Sequence[torch.Tensor]
+                                ) -> List[torch.Tensor]:
+    """The partial eq.-(4) reduce over a model's leaves where they lie:
+    deltas[i] ``(K,) + shape_i`` (f32 or bf16), coeffs [K] f32 -> per
+    leaf f32 ``sum_k coeffs[k] * deltas[i][k]`` (no theta), written into
+    ``outs`` (f32 contiguous tensors, e.g. views of one flat buffer that
+    a collective then sums); one launch per table of leaves of one delta
+    dtype, counted as ``fl_delta_reduce``."""
+    return _launch_leaves(None, list(deltas), coeffs, "fl_delta_reduce",
+                          outs=outs)
 
 
 def fl_delta_reduce_cuda(deltas: torch.Tensor, coeffs: torch.Tensor

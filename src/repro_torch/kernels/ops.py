@@ -1,7 +1,7 @@
 """Public wrappers around the port's kernels (``fl_aggregate``,
 ``fl_aggregate_pytree``, ``fl_aggregate_leaves``, ``fl_aggregate_lanes``,
-``fl_delta_reduce``, ``flash_attention``, ``ssd_chunk``), with one
-dispatch rule.
+``fl_delta_reduce``, ``fl_delta_reduce_leaves``, ``flash_attention``,
+``ssd_chunk``), with one dispatch rule.
 
 ``impl`` mirrors ``repro.kernels.ops.use_pallas_kernel``:
 
@@ -104,6 +104,24 @@ def fl_delta_reduce(deltas: torch.Tensor, coeffs: torch.Tensor,
         from repro_torch.kernels.fl_aggregate import fl_delta_reduce_cuda
         return fl_delta_reduce_cuda(deltas, coeffs)
     return ref.delta_reduce_reference(deltas, coeffs)
+
+
+def fl_delta_reduce_leaves(deltas: Sequence[torch.Tensor],
+                           coeffs: torch.Tensor,
+                           outs: Sequence[torch.Tensor],
+                           impl: str = "auto") -> List[torch.Tensor]:
+    """Partial eq.-(4) reduce over a model's leaves: per leaf f32
+    ``sum_k coeffs[k] * deltas[i][k]`` (deltas[i] of shape ``(K,) +
+    shape_i``), written into ``outs``; one kernel launch per table of
+    leaves on a CUDA device."""
+    if use_cuda_kernel(impl, deltas[0].device):
+        from repro_torch.kernels.fl_aggregate import (
+            fl_delta_reduce_leaves_cuda)
+        return fl_delta_reduce_leaves_cuda(deltas, coeffs, outs=outs)
+    parts = ref.delta_reduce_leaves_reference(deltas, coeffs)
+    for out, part in zip(outs, parts):
+        out.copy_(part)
+    return list(outs)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

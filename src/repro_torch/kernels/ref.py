@@ -29,6 +29,22 @@ def delta_reduce_reference(deltas: torch.Tensor, coeffs: torch.Tensor
                            deltas.to(torch.float32), dims=1)
 
 
+def delta_reduce_leaves_reference(deltas: Sequence[torch.Tensor],
+                                  coeffs: torch.Tensor) -> List[torch.Tensor]:
+    """Per leaf f32 ``sum_k coeffs_k deltas[i][k]`` as a broadcast-multiply
+    and a sum over the client axis: the partial term of
+    :func:`aggregate_leaves_reference` (the JAX package's off-TPU
+    ``aggregate_fused_psum``), so ``theta + partial`` is its result bit
+    for bit."""
+    c32 = coeffs.to(torch.float32)
+    outs = []
+    for d in deltas:
+        d = d.to(torch.float32)
+        c = c32.reshape((d.shape[0],) + (1,) * (d.dim() - 1))
+        outs.append(torch.sum(c * d, dim=0))
+    return outs
+
+
 def aggregate_leaves_reference(thetas: Sequence[torch.Tensor],
                                deltas: Sequence[torch.Tensor],
                                coeffs: torch.Tensor) -> List[torch.Tensor]:

@@ -42,6 +42,17 @@ ladder ``TieredClientBank``, a ``BankPool``, fp32 or int8:
   resumes where it stopped, bitwise.
 * **``batch='map'``**: each lane's data plane on its own, as ``run_scan``
   runs it (one-lane ``fl_aggregate`` launches).
+* **Lane-axis sharding** (``mesh=``, a ``launch.mesh`` mesh; one
+  ``torch.distributed`` rank per shard): the strong-scaling axis for
+  sweep grids.  Each bucket's lanes split into contiguous blocks, whole
+  rollouts per rank (the bucket's lane count must divide, else
+  ``ValueError``); no collective runs inside a rollout; each bucket's
+  params, queues and metric columns (the eval columns too) are gathered
+  at its end, so every rank returns the unsharded run's report.  The
+  engine must be mesh-free (client- and lane-axis sharding do not nest).
+  A chunked run keeps one store: rank 0 saves the gathered carry, every
+  rank resumes from its own slice, and the chunk tag holds the shard
+  count.
 
 The reproducibility contract: lane s of :meth:`Arena.run` reproduces ::
 
@@ -60,8 +71,8 @@ batched SGD computes each client as the per-rollout SGD does (the CPU
 tests pin where it does) and within float32 resolution otherwise; under
 ``batch='map'`` it is bitwise wherever the device repeats itself.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``mesh=`` (A8), ``warmup`` with its watchdog (A7).
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+item: ``warmup`` with its watchdog (A7).
 """
 
 from __future__ import annotations
@@ -86,6 +97,7 @@ from repro_torch.fl.environment import (CHANNEL_MODE_IDS, CHANNEL_MODES,
                                         sample_dropout_mask)
 from repro_torch.fl.client_bank import TieredClientBank
 from repro_torch.fl.round_engine import _Lane, bank_layout_key
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.sim.cost_model import CostModel
@@ -428,6 +440,16 @@ def _system_params_digest(sp: sm.SystemParams) -> str:
         for f in dataclasses.fields(sp)})
 
 
+def _lane_slice(value, lo: int, hi: int):
+    """Lanes ``[lo, hi)`` (axis 0) of a tensor, an array, or a dict or
+    tuple of them."""
+    if isinstance(value, dict):
+        return {name: _lane_slice(v, lo, hi) for name, v in value.items()}
+    if isinstance(value, tuple):
+        return tuple(_lane_slice(v, lo, hi) for v in value)
+    return value[lo:hi]
+
+
 def _to_host(tree):
     """A nested dict of tensors as numpy copies (never views of the
     tensors, which a later chunk may overwrite)."""
@@ -475,8 +497,9 @@ class Arena:
     while-loops), so there is no queue of device work to overlap, and
     each chunk's columns are read back when it ends.
 
-    ``mesh=`` raises ``NotImplementedError`` (ROADMAP A8), and so does
-    :meth:`warmup` (ROADMAP A7).
+    ``mesh=`` splits every bucket's lanes over the mesh axis
+    ``mesh_axis`` (see the module docstring; the engine must have no
+    mesh).  :meth:`warmup` raises ``NotImplementedError`` (ROADMAP A7).
 
     ``metrics`` is the arena's :class:`~repro_torch.obs.metrics.
     MetricsRegistry`: ``arena.runs``, ``arena.dispatches``, the
@@ -502,10 +525,15 @@ class Arena:
         if max_executables < 1:
             raise ValueError(f"max_executables must be >= 1, "
                              f"got {max_executables}")
+        if engine.mesh is not None:
+            raise ValueError(
+                "ScenarioArena shards the scenario axis; build the "
+                "RoundEngine without a mesh (client-axis sharding does not "
+                "nest under the arena's lane split)")
         if mesh is not None:
-            raise NotImplementedError(
-                "Arena(mesh=) (the lane axis over several cards) is not "
-                "ported yet (ROADMAP A8, sharding)")
+            mesh_lib.check_mesh(mesh, mesh_axis)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.engine = engine
         self.device = engine.device
         self.batch = batch
@@ -531,6 +559,25 @@ class Arena:
     @property
     def input_cache_misses(self) -> int:
         return self.metrics.counter("arena.input_cache.misses").value
+
+    def _shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        return mesh_lib.axis_size(self.mesh, self.mesh_axis)
+
+    def _gather_lanes(self, value):
+        """This rank's ``[S/shards, ...]`` lanes of a tensor, a numpy
+        array or a dict of them -> every rank's, ``[S, ...]`` in rank
+        order (numpy stays numpy)."""
+        if isinstance(value, dict):
+            return {name: self._gather_lanes(v) for name, v in value.items()}
+        if isinstance(value, tuple):
+            return tuple(self._gather_lanes(v) for v in value)
+        if isinstance(value, np.ndarray):
+            return mesh_lib.all_gather_cat(
+                torch.as_tensor(value, device=self.device), self.mesh,
+                self.mesh_axis).cpu().numpy()
+        return mesh_lib.all_gather_cat(value, self.mesh, self.mesh_axis)
 
     # -- device inputs -------------------------------------------------------
 
@@ -714,7 +761,8 @@ class Arena:
         and other inputs never meet its checkpoint.  The JAX package's
         tag hashes the grid, K_max, the tier subset, ``eval_every``, T,
         the chunk, the batch mode and the energy budget, and a caller's
-        ``h_all``; this one adds the learning rates and, in ``digests``
+        ``h_all`` (and its executable key the shard count, which this tag
+        holds); this one adds the learning rates and, in ``digests``
         (:meth:`_run_impl`), every field of the SystemParams, the bank's
         content, the engine's client config and eq.-(4) path, a caller's
         ``drop_all`` and replayed draws, the initial params and the
@@ -722,8 +770,8 @@ class Arena:
         hasher = hashlib.sha1()
         hasher.update(self._grid_digest(grid, (
             "chunk", int(k_max), tier_subset, int(eval_every or 0),
-            int(num_rounds), int(chunk), self.batch, digests,
-            np.asarray(lr_seq, np.float32).tobytes())))
+            int(num_rounds), int(chunk), self.batch, self._shards(),
+            digests, np.asarray(lr_seq, np.float32).tobytes())))
         return "chunk_" + hasher.hexdigest()[:20]
 
     def _run_group(self, global_params: Params, sp: sm.SystemParams, bank,
@@ -733,7 +781,9 @@ class Arena:
                    drop_all: Optional[torch.Tensor] = None,
                    replay: Tuple[Any, Any] = (None, None),
                    tier_subset=None, chunk_size: Optional[int] = None,
-                   chunk_store=None, digests: tuple = ()):
+                   chunk_store=None, digests: tuple = (),
+                   bucket_grid: Optional[ScenarioGrid] = None,
+                   span: Optional[Tuple[int, int]] = None):
         """One bucket: every lane of ``grid`` at ``k_max`` slots, in one
         call of the lane body or, with ``chunk_size`` / ``chunk_store``,
         in segments that resume from each other's carry.  Returns ``([S,
@@ -745,7 +795,13 @@ class Arena:
         from its checkpoint at the round it holds, and is handed the
         columns so far and a host copy of the carry at every
         ``every``-th boundary but the last, before the next chunk runs;
-        ``finish`` at the end."""
+        ``finish`` at the end.
+
+        With a mesh, ``grid`` (and every per-lane input) is this rank's
+        lanes ``span`` of the bucket ``bucket_grid``: the tag is the
+        bucket's, a resume takes this rank's slice of the stored carry
+        and columns, and a save gathers them (a collective) for rank 0
+        to write."""
         engine = self.engine
         round_fn = (engine._map_plan(bank) if self.batch == "map"
                     else engine._lanes_plan(bank))
@@ -758,12 +814,18 @@ class Arena:
         chunk = (num_rounds if chunk_size is None
                  else max(1, int(chunk_size)))
         tag, t_start, carry, reduced = None, 0, None, []
+        writer = (self.mesh is None or
+                  mesh_lib.axis_rank(self.mesh, self.mesh_axis) == 0)
         if chunk_store is not None:
-            tag = self._chunk_tag(grid, k_max, tier_subset, eval_every,
-                                  num_rounds, chunk, lr_seq, digests)
+            tag = self._chunk_tag(grid if bucket_grid is None
+                                  else bucket_grid, k_max, tier_subset,
+                                  eval_every, num_rounds, chunk, lr_seq,
+                                  digests)
             hit = chunk_store.load(tag)
             if hit is not None:
                 t_start, tree, prefix = hit
+                if span is not None:
+                    tree, prefix = _lane_slice((tree, prefix), *span)
                 carry = self._carry_from_tree(tree)
                 reduced.append(dict(prefix))
         segments = [(t0, min(chunk, num_rounds - t0))
@@ -789,12 +851,15 @@ class Arena:
                     time.perf_counter() - t_red)
             if (chunk_store is not None and i < len(segments) - 1
                     and (i + 1) % every == 0):
-                # metrics first, carry second (the store's commit order)
-                chunk_store.save(tag, t0 + ln,
-                                 _to_host(self._carry_tree(carry)),
-                                 concat_chunk_metrics(reduced))
+                tree = self._carry_tree(carry)
+                columns = concat_chunk_metrics(reduced)
+                if span is not None:
+                    tree, columns = self._gather_lanes((tree, columns))
+                if writer:
+                    # metrics first, carry second (the store's commit order)
+                    chunk_store.save(tag, t0 + ln, _to_host(tree), columns)
         metrics = concat_chunk_metrics(reduced)
-        if chunk_store is not None:
+        if chunk_store is not None and writer:
             chunk_store.finish(tag)
         params, queues, _ = carry
         return params, queues, metrics, len(segments)
@@ -825,11 +890,22 @@ class Arena:
         tiers_all = (list(range(bank.num_tiers))
                      if getattr(bank, "num_tiers", 1) > 1 else None)
         rep_sel, rep_keys = replay
-        whole = plan.num_buckets == 1
+        shards = self._shards()
+        whole = plan.num_buckets == 1 and self.mesh is None
         parts, bucket_meta = [], []
         for b in plan.buckets:
             idx = np.asarray(b.lanes, np.int64)
-            idx_t = torch.as_tensor(idx, device=dev)
+            span = None
+            if self.mesh is not None:
+                if idx.size % shards:
+                    raise ValueError(
+                        f"scenario count {idx.size} not divisible by mesh "
+                        f"axis {self.mesh_axis!r} size {shards} (per-K "
+                        f"group sizes must split evenly across shards)")
+                span = mesh_lib.contiguous_block(idx.size, self.mesh,
+                                                 self.mesh_axis)
+            mine = idx if span is None else idx[span[0]:span[1]]
+            idx_t = torch.as_tensor(mine, device=dev)
 
             def pick(x, slots: bool = False):
                 if x is None:
@@ -838,12 +914,18 @@ class Arena:
                 return x[:, :, :b.k_pad] if slots else x
 
             p_g, q_g, m_g, nd = self._run_group(
-                global_params, sp, bank, grid if whole else grid.take(idx),
+                global_params, sp, bank, grid if whole else grid.take(mine),
                 pick(h_all), lr_seq, b.k_pad, eval_bank=eval_bank,
                 eval_every=eval_every, drop_all=pick(drop_all),
                 replay=(pick(rep_sel, True), pick(rep_keys, True)),
                 tier_subset=b.tiers, chunk_size=chunk_size,
-                chunk_store=chunk_store, digests=digests)
+                chunk_store=chunk_store, digests=digests,
+                bucket_grid=None if span is None else grid.take(idx),
+                span=span)
+            if span is not None:
+                with obs.span("arena.gather", lanes=int(idx.size),
+                              shards=shards):
+                    p_g, q_g, m_g = self._gather_lanes((p_g, q_g, m_g))
             bucket_meta.append(dict(
                 lanes=[int(i) for i in idx], k_pad=int(b.k_pad),
                 tiers=tiers_all if b.tiers is None else list(b.tiers),
@@ -989,7 +1071,7 @@ class Arena:
                 ("test_set", None if not eval_every else _content_digest(
                     {"x": eval_bank.x, "y": eval_bank.y})))
         meta = dict(k_mode=self.k_mode, k_groups=[int(k) for k in ks],
-                    k_max=k_max, batch=self.batch,
+                    k_max=k_max, batch=self.batch, shards=self._shards(),
                     chunk_size=(None if chunk_size is None
                                 else int(chunk_size)),
                     bank_storage=bank.storage, bank_nbytes=int(bank.nbytes),

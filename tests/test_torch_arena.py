@@ -11,8 +11,8 @@ port's own contracts: pad against group bitwise on the CPU, every lane
 against the port's ``run_scan`` under the arena's contract, the
 ``eval_every`` columns and final evaluation against the JAX
 ``EvalBank``, the grid constructors and their validation against the
-JAX package's, and the options that are not ported yet (``mesh=``,
-``warmup``); the chunked, planned and mapped modes are held in
+JAX package's, a ``mesh=`` that is no ``DeviceMesh`` and the option
+that is not ported yet (``warmup``); the chunked, planned and mapped modes are held in
 ``tests/test_torch_streaming.py``."""
 
 import dataclasses
@@ -437,7 +437,7 @@ def test_grid_validation_matches_reference(case):
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object())], ids=["mesh"])
 def test_unported_modes_raise(bed, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsim.Arena(bed["teng"], **kwargs)
 
 

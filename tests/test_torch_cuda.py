@@ -14,6 +14,7 @@ are held against the same runs on the CPU.
 
 import importlib.util
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -631,9 +632,14 @@ def test_lm_kernels_reject_bad_inputs(cuda):
 
 
 def _smoke_module():
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    # the sharded phases' spawned ranks import the module by its name
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = smoke
     spec.loader.exec_module(smoke)
     return smoke
 
@@ -819,3 +825,58 @@ def test_training_steps_on_the_card_match_the_cpu(cuda):
     against the CPU, every leaf's gradient present, finite and nonzero:
     the check ``chip_smoke.py``'s ``reference.train`` runs."""
     _smoke_module().phase_reference_train()
+
+
+@pytest.mark.cuda
+def test_delta_reduce_leaves_writes_views_bitwise_its_fma_order(cuda):
+    """The client-sharded round's partial: the zero-theta leaf table
+    writing f32 partials into views of one flat buffer, one launch,
+    bitwise the kernel's order of arithmetic; bad outputs raise."""
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    shapes = [(16, 3, 3, 3), (16,), (33, 7), (), (5,)]
+    deltas = [torch.randn((4,) + s, device=cuda, generator=gen)
+              for s in shapes]
+    deltas[1] = deltas[1].bfloat16()
+    coeffs = torch.softmax(torch.randn(4, device=cuda, generator=gen), 0)
+    total = sum(int(np.prod(s)) for s in shapes)
+    flat = torch.full((total,), float("nan"), device=cuda)
+    views, off = [], 0
+    for s in shapes:
+        views.append(flat[off:off + int(np.prod(s))].view(s))
+        off += int(np.prod(s))
+    before = fk.LAUNCHES["fl_delta_reduce"]
+    got = ops.fl_delta_reduce_leaves(deltas, coeffs, outs=views)
+    torch.cuda.synchronize()
+    # one launch per delta dtype
+    assert fk.LAUNCHES["fl_delta_reduce"] == before + 2
+    assert all(g.data_ptr() == v.data_ptr() for g, v in zip(got, views))
+    for g, w in zip(got, ref.aggregate_leaves_fma_reference(None, deltas,
+                                                            coeffs)):
+        assert torch.equal(g, w)
+    for g, w in zip(got, ref.delta_reduce_leaves_reference(deltas, coeffs)):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+    for bad in ([torch.empty(3, device=cuda)] + views[1:],
+                [views[0].bfloat16()] + views[1:],
+                [torch.empty(shapes[0])] + views[1:]):
+        with pytest.raises(ValueError):
+            fk.fl_delta_reduce_leaves_cuda(deltas, coeffs, outs=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_world_on_the_card_matches_unsharded(cuda, tmp_path, ranks,
+                                                     backend):
+    """``chip_smoke.py``'s reference.shard: the sharded round (single
+    bucket, ladder, hierarchical), run_scan and arena on the card against
+    the unsharded port, params bitwise across ranks, each partial bitwise
+    its fma order; with one NCCL rank every round is bitwise the
+    unsharded one (the same order of arithmetic)."""
+    smoke = _smoke_module()
+    out = smoke._run_shard_world(ranks, backend, None, str(tmp_path / "w"),
+                                 str(tmp_path))
+    smoke._check_shard_reference(f"reference.shard.{backend}", out)
+    if ranks == 1:
+        rounds = out[0]["reference"]["rounds"]
+        assert all(r["bitwise"] for r in rounds.values()), rounds

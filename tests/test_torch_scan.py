@@ -209,7 +209,7 @@ def test_run_scan_rejects_what_it_cannot_run(bed):
         eng.run_scan(bed["tp0"], bed["tp"], tiered, bed["h"], bed["lr"],
                      gen, replay_sort_keys=np.zeros(
                          (T, K, E, tiered.tier_buckets[0])))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tfl.RoundEngine(eng.task, eng.cfg, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="k_max"):
         eng.run_scan(*args, gen, k_max=K - 1)

@@ -203,8 +203,9 @@ def test_bank_layout_matches_reference_bank():
 
 
 def test_unported_bank_modes_raise():
-    """Only client-axis sharding (A8) is left unported in the bank
-    layer: the ladder, int8 storage and cluster routing build."""
+    """The bank layer's modes build (the ladder, int8 storage, cluster
+    routing); a ``mesh=`` that is no ``DeviceMesh`` raises (the sharded
+    banks are held in ``tests/test_torch_sharding.py``)."""
     clients, _ = _testbed(seed=0, num_devices=12, examples=900)
     cfg = tfl.ClientConfig(local_epochs=E, batch_size=BS)
     engine = tfl.RoundEngine(tm.MLPTask(input_dim=64, num_classes=4), cfg,
@@ -218,7 +219,7 @@ def test_unported_bank_modes_raise():
     assert tfl.ClientBank(clients, cfg, device="cpu",
                           clusters=2).num_clusters == 2
     for build in (tfl.ClientBank, tfl.TieredClientBank):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             build(clients, cfg, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="bank mode"):
         engine.make_bank(clients, tiered="ladder")
