@@ -175,6 +175,14 @@ error is caught):
    120-slot ``BankPool`` after 8 evictions and re-admissions (within
    1e-6 of the single bucket's round, storage unmoved) and a clustered
    bucket flat and hierarchical (losses bitwise, params within 1e-5);
+   warmup.arena — ``Arena.warmup`` on the ladder (3 lanes, K = 8, 2
+   rounds) under a strict ``obs.Watchdog``: a fresh arena's cold run,
+   the warmed arena's runs of that grid and another (no violation, no
+   kernel library loaded after warmup, within the arena bounds of the
+   cold run), a K = 12 grid raising ``RetraceError``, warmup's seconds
+   and the first round warm against cold; warmup.sweep —
+   ``SweepService.warmup`` then two submissions, no violation;
+   warmup.pool — ``BankPool.warmup`` then churn, one cold write;
    the paper's Sec.-VII experiments at paper scale on the default bank:
    paper.cifar (50,000 synthetic 32x32x3 images, Dirichlet 0.5 over 120
    clients, ``ResNetTask()``, lr 0.05) and paper.femnist (28x28x1, 62
@@ -239,7 +247,14 @@ error is caught):
    tokens), 4 steps with checkpoints, then resumed to step 6: the SSD
    launches of each run, and the resumed run bitwise two fresh-momentum
    steps from the step-4 checkpoint;
-10. the ``kernels`` JSON line (with ``flash_attention_lse`` and
+10. roofline — ``python -m repro_torch.launch.dryrun --all``, started in
+   a background process on the host's CPU (no card visible) when the
+   script starts: every (arch x covered shape) step counted on the
+   ``meta`` device, its roofline table at the H100's peaks; then
+   train.gemma2b, fl_round.gemma2b and the gemma2 and mamba2 prefills
+   counted at the shapes timed above, each one's compute and memory
+   terms beside its measured seconds;
+11. the ``kernels`` JSON line (with ``flash_attention_lse`` and
    ``fl_delta_reduce``), then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -2268,6 +2283,379 @@ def phase_sweep(trainer, cfg: dict = PAPER_SCALE,
                                  f"within 1e-6 of pad's ({latency_rel})")
     require(all(bool(torch.isfinite(v).all()) for r in whole
                 for v in r.params.values()), "sweep: finite params")
+    return summary
+
+
+# warmup.*: the scenario layer's warmup under a strict retrace watchdog,
+# on the paper-scale ladder (3 lanes, 2 rounds; chunks of one round, so
+# each round's seconds are a chunk's dispatch span)
+WARMUP_CONTROLLERS = ("lroa", "uni_d", "round_robin")
+WARMUP_ROUNDS = 2
+WARMUP_SWEEP_ROUNDS = 3
+
+
+def _warm_grid(hp, cfg: dict, seed: int, scale: float = 1.0,
+               k: int = None):
+    from repro_torch.sim import ScenarioGrid
+
+    return ScenarioGrid.create(
+        list(WARMUP_CONTROLLERS), seeds=seed, V=hp.V * scale,
+        lam=hp.lam * scale,
+        sample_count=cfg["sample_count"] if k is None else k,
+        num_devices=cfg["num_devices"])
+
+
+def _timed_run(arena, init, sp, bank, grid, rounds: int, lr_seq) -> tuple:
+    """``(report, seconds, each round's seconds)`` of one chunked run
+    (one round a chunk: the rounds' ``arena.dispatch`` spans)."""
+    from repro_torch.obs import trace
+
+    with trace.installed(trace.MemorySink(capacity=65536)) as sink:
+        _sync(bank)
+        t0 = time.perf_counter()
+        rep = arena.run(init, sp, bank, grid, rounds, lr_seq, chunk_size=1)
+        _sync(bank)
+        seconds = time.perf_counter() - t0
+    spans = sorted(sink.by_name("arena.dispatch"),
+                   key=lambda r: r["attrs"]["chunk"])
+    return rep, seconds, [r["dur"] for r in spans]
+
+
+def _reports_within(a, b) -> dict:
+    """The batched-lane bounds of the ``arena`` phases, between two arena
+    reports of one grid: selections equal, latency sums within 1e-6
+    relative, params within :data:`ARENA_PARAM_TOL`, losses within
+    :data:`ARENA_LOSS_TOL` relative."""
+    sel = bool(np.array_equal(a.metrics["selected"], b.metrics["selected"]))
+    lat_a = a.metrics["wall_time"].sum(axis=1)
+    lat_b = b.metrics["wall_time"].sum(axis=1)
+    lat = float(np.max(np.abs(lat_a - lat_b) / np.abs(lat_b)))
+    param = max(float((a.params[n].float() - b.params[n].float()).abs()
+                      .max()) for n in a.params)
+    loss = _rel_err(a.metrics["loss"], b.metrics["loss"])
+    return dict(selections_equal=sel, latency_max_rel_err=lat,
+                param_max_abs_err=param, loss_max_rel_err=loss,
+                bitwise=_reports_bitwise(a, b),
+                ok=sel and lat <= 1e-6 and param <= ARENA_PARAM_TOL
+                and loss <= ARENA_LOSS_TOL)
+
+
+def phase_warmup_arena(trainer, cfg: dict = PAPER_SCALE,
+                       rounds: int = WARMUP_ROUNDS) -> dict:
+    """``warmup.arena``: ``Arena.warmup`` on the main path's engine and
+    4-rung ladder (:data:`WARMUP_CONTROLLERS`, K = 8, T = 2, cuDNN
+    deterministic), with a strict ``obs.Watchdog`` attached.  A fresh
+    arena's run of a grid (cold), then the warmed arena's runs of that
+    grid and of another (other V, lam and seeds): zero violations and
+    zero kernel libraries loaded after warmup; the warmed run of the cold
+    grid within the ``arena`` phases' bounds of the cold run
+    (:func:`_reports_within`); a grid at K + 4 raises ``RetraceError``.
+    Logs warmup's seconds and result, and the first round's seconds warm
+    against cold (a fresh arena in this process: every kernel is built
+    and cuDNN has run these shapes in the phases before, so "cold" is
+    the arena's first run of the signature).  One lane launch per round
+    of every run and of warmup's rounds."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.obs import RetraceError, Watchdog
+    from repro_torch.sim import Arena
+
+    engine, bank, sp = trainer.engine, trainer.bank, trainer.params
+    dev = trainer.device
+    on_card = dev.type == "cuda"
+    hp = trainer.controller.hp
+    lr_seq = [trainer.lr_schedule(t) for t in range(rounds)]
+    init = trainer.task.init(torch.Generator(device=dev).manual_seed(
+        cfg["seed"] + 1))
+    grids = [_warm_grid(hp, cfg, 1, 2.0), _warm_grid(hp, cfg, 2, 0.5)]
+    _reset_launch_counts()
+    with cudnn_deterministic():
+        cold, cold_s, cold_rounds = _timed_run(
+            Arena(engine, chunk_size=1), init, sp, bank, grids[0], rounds,
+            lr_seq)
+        arena = Arena(engine, chunk_size=1)
+        dog = Watchdog(strict=True).attach(arena)
+        loaded = len(_build.LOADED)
+        _sync(bank)
+        t0 = time.perf_counter()
+        warm = arena.warmup(init, sp, bank, _warm_grid(hp, cfg, 0), rounds,
+                            lr_seq)
+        _sync(bank)
+        warmup_s = time.perf_counter() - t0
+        runs = [_timed_run(arena, init, sp, bank, g, rounds, lr_seq)
+                for g in grids]
+        builds = _build.LOADED[loaded:]
+        violations = list(dog.violations)
+        try:
+            arena.run(init, sp, bank,
+                      _warm_grid(hp, cfg, 3, k=cfg["sample_count"] + 4),
+                      rounds, lr_seq)
+            drift_raised = False
+        except RetraceError:
+            drift_raised = True
+    launches = dict(fk.LAUNCHES)
+    agree = _reports_within(runs[0][0], cold)
+    summary = dict(
+        lanes=len(WARMUP_CONTROLLERS), rounds=rounds, warmup=warm,
+        warmup_s=warmup_s, cold_s=cold_s, cold_round_s=cold_rounds,
+        warm_s=[r[1] for r in runs], warm_round_s=[r[2] for r in runs],
+        first_round_warm_over_cold=runs[0][2][0] / cold_rounds[0],
+        executables_built=[r[0].meta["executables_built"] for r in runs],
+        violations=violations, kernels_loaded_after_warmup=builds,
+        drift_violation=dog.violations[-1] if dog.violations else None,
+        drift_raised=drift_raised, warm_vs_cold=agree,
+        cudnn_deterministic=True,
+        launches={"fl_aggregate_lanes": launches["fl_aggregate_lanes"]})
+    log("warmup.arena", **summary)
+    require(violations == [] and not builds,
+            "warmup.arena: no violation and no kernel build after warmup")
+    require(all(r[0].meta["executables_built"] == 0 for r in runs),
+            "warmup.arena: the warmed runs run no new signature")
+    require(drift_raised, "warmup.arena: a K_max drift raises RetraceError")
+    require(agree["ok"], f"warmup.arena: the warmed run within the arena "
+                         f"bounds of the cold run ({agree})")
+    # cold, warmup, two warm runs, the drifted run: one launch a round
+    want = 5 * rounds if on_card else 0
+    require(launches["fl_aggregate_lanes"] == want,
+            f"warmup.arena: {want} lane launches, got "
+            f"{launches['fl_aggregate_lanes']}")
+    return summary
+
+
+def phase_warmup_sweep(trainer, cfg: dict = PAPER_SCALE,
+                       rounds: int = WARMUP_SWEEP_ROUNDS) -> dict:
+    """``warmup.sweep``: ``SweepService.warmup`` over ``Arena(engine,
+    k_mode='auto', chunk_size=2)`` on the ladder (T = 3: a chunk and its
+    continuation), then two submissions of other V, lam and seeds, each
+    run on its own, under a strict watchdog: zero violations, zero kernel
+    builds, one lane launch per bucket round."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fl_aggregate as fk
+    from repro_torch.obs import Watchdog
+    from repro_torch.sim import Arena, SweepService
+
+    engine, bank, sp = trainer.engine, trainer.bank, trainer.params
+    dev = trainer.device
+    on_card = dev.type == "cuda"
+    hp = trainer.controller.hp
+    lr_seq = [trainer.lr_schedule(t) for t in range(rounds)]
+    init = trainer.task.init(torch.Generator(device=dev).manual_seed(
+        cfg["seed"] + 1))
+    arena = Arena(engine, k_mode="auto", chunk_size=SWEEP_CHUNK)
+    svc = SweepService(arena, init, sp, bank)
+    dog = Watchdog(strict=True).attach(arena)
+    _reset_launch_counts()
+    with cudnn_deterministic():
+        _sync(bank)
+        t0 = time.perf_counter()
+        warm = svc.warmup(_warm_grid(hp, cfg, 0), rounds, lr_seq)
+        _sync(bank)
+        warmup_s = time.perf_counter() - t0
+        loaded = len(_build.LOADED)
+        seconds, reports = [], []
+        for seed, scale in ((4, 2.0), (5, 0.5)):
+            ticket = svc.submit(_warm_grid(hp, cfg, seed, scale), rounds,
+                                lr_seq)
+            t0 = time.perf_counter()
+            require(svc.run_pending() == [ticket],
+                    "warmup.sweep: the submission ran")
+            _sync(bank)
+            seconds.append(time.perf_counter() - t0)
+            reports.append(svc.result(ticket))
+    launches = dict(fk.LAUNCHES)
+    builds = _build.LOADED[loaded:]
+    summary = dict(lanes=len(WARMUP_CONTROLLERS), rounds=rounds,
+                   chunk=SWEEP_CHUNK, warmup=warm, warmup_s=warmup_s,
+                   submission_s=seconds, violations=list(dog.violations),
+                   kernels_loaded_after_warmup=builds,
+                   executables_built=[r.meta["executables_built"]
+                                      for r in reports],
+                   stall=Watchdog.stall_report(arena.metrics),
+                   launches={"fl_aggregate_lanes":
+                             launches["fl_aggregate_lanes"]})
+    log("warmup.sweep", **summary)
+    require(dog.violations == [] and not builds,
+            "warmup.sweep: no violation and no kernel build after warmup")
+    # warmup runs each bucket for a one-round chunk and its one-round
+    # continuation; each submission for its T rounds
+    want = len(warm["plan"]) * (2 + 2 * rounds) if on_card else 0
+    require(launches["fl_aggregate_lanes"] == want,
+            f"warmup.sweep: {want} lane launches, got "
+            f"{launches['fl_aggregate_lanes']}")
+    return summary
+
+
+def phase_warmup_pool(trainer, data: dict, cfg: dict = PAPER_SCALE
+                      ) -> dict:
+    """``warmup.pool``: an empty ``BankPool`` of the paper-scale clients'
+    shape (capacity 16), ``warmup`` (a sentinel admitted and evicted),
+    then churn: 15 clients admitted, 6 of them evicted as they go.
+    ``traces`` stays 1, every tensor keeps its ``data_ptr()``, the
+    counters add up."""
+    from repro_torch.fl import BankPool
+
+    clients = data["clients"]
+    cap = 16
+    pool = BankPool(trainer.engine.cfg, capacity=cap,
+                    max_examples=max(len(c[1]) for c in clients),
+                    feature_shape=clients[0][0].shape[1:],
+                    feature_dtype=clients[0][0].dtype,
+                    label_dtype=clients[0][1].dtype,
+                    device=trainer.device,
+                    x_layout=trainer.task.device_layout)
+    ptrs = pool.data_ptrs()
+    t0 = time.perf_counter()
+    pool.warmup()
+    warmup_s = time.perf_counter() - t0
+    traces_warm = pool.traces
+    t0 = time.perf_counter()
+    for i in range(15):
+        pool.admit(i, *clients[i % len(clients)])
+        if i < 12 and i % 2 == 0:
+            pool.evict(i)
+    _sync(pool)
+    churn_s = time.perf_counter() - t0
+    summary = dict(capacity=cap, bucket_examples=pool.bucket_examples,
+                   nbytes=pool.nbytes, warmup_s=warmup_s, churn_s=churn_s,
+                   traces_after_warmup=traces_warm, traces=pool.traces,
+                   admits=pool.admits, evicts=pool.evicts,
+                   uploads=pool.uploads, resident=pool.num_resident,
+                   data_ptrs_unchanged=pool.data_ptrs() == ptrs)
+    log("warmup.pool", **summary)
+    require(traces_warm == 1 and pool.traces == 1,
+            "warmup.pool: one cold write shape, at warmup")
+    require(summary["data_ptrs_unchanged"],
+            "warmup.pool: churn moved no tensor")
+    require((pool.admits, pool.evicts, pool.num_resident) == (16, 7, 9),
+            "warmup.pool: the counters add up (the sentinel included)")
+    return summary
+
+
+def start_dryrun(root: str) -> dict:
+    """Start ``python -m repro_torch.launch.dryrun --all`` on the
+    ``meta`` device in a background process (one thread, no card
+    visible), so it counts every (arch x shape) while the card runs the
+    other phases; :func:`phase_roofline` waits for it."""
+    out, log_path = os.path.join(root, "dryrun.json"), \
+        os.path.join(root, "dryrun.log")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    logf = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", out], env=env, stdout=logf, stderr=subprocess.STDOUT)
+    return dict(proc=proc, out=out, log=log_path, logf=logf,
+                t0=time.perf_counter())
+
+
+def stop_dryrun(run: dict) -> None:
+    """Kill the dry run if it is still running (on any exit of main)."""
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+    run["logf"].close()
+
+
+def _timed_step_counts() -> dict:
+    """The steps the script times, counted on ``meta`` at the shapes it
+    times them: ``train.gemma2b`` (:data:`GEMMA_TRAIN`, remat, 2
+    microbatches), the gemma2-27b and mamba2-130m prefills
+    (:data:`GEMMA_SERVE`, :data:`MAMBA_SERVE`) and one
+    ``fl_round.gemma2b`` round (:data:`FL_ROUND`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.steps import (dryrun_config, make_fl_round_step,
+                                          make_prefill_step,
+                                          make_train_step, param_specs)
+    from repro_torch.optim import SGD
+
+    def tokens(*shape):
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+
+    out = {}
+    gemma2b = dryrun_config(get_config("gemma-2b"))
+    p = param_specs(gemma2b)
+    spec = GEMMA_TRAIN
+    _, c = op_cost.count(
+        make_train_step(gemma2b, remat=True, microbatch=spec["microbatch"],
+                        device="meta"), p, SGD(momentum=0.9).init(p),
+        {"tokens": tokens(spec["batch"], spec["seq"]),
+         "labels": tokens(spec["batch"], spec["seq"])})
+    out["train.gemma2b"] = c
+    spec = FL_ROUND
+    k = spec["clients"]
+    _, c = op_cost.count(
+        make_fl_round_step(gemma2b, k, lr=spec["lr"],
+                           local_steps=spec["local_steps"], device="meta"),
+        p, {"tokens": tokens(k, spec["local_batch"], spec["seq"]),
+            "labels": tokens(k, spec["local_batch"], spec["seq"]),
+            "coeffs": torch.empty(k, device="meta")})
+    out["fl_round.gemma2b"] = c
+    for label, cfg, spec in (
+            ("serve.gemma2", dryrun_config(get_config("gemma2-27b")),
+             GEMMA_SERVE),
+            ("serve.mamba2", get_config("mamba2-130m"), MAMBA_SERVE)):
+        _, c = op_cost.count(
+            make_prefill_step(cfg, device="meta"), param_specs(cfg),
+            {"tokens": tokens(spec["batch"], spec["prompt_len"])})
+        out[label] = c
+    return out
+
+
+def phase_roofline(run: dict, timed: dict, smi: str) -> dict:
+    """``roofline``: wait for the background dry run (:func:`start_dryrun`),
+    require it to have counted every (arch x covered shape) on ``meta``,
+    and print its roofline table (H100 constants, ``launch.mesh``).  Then
+    the steps this script timed, counted on ``meta`` at their shapes
+    (:func:`_timed_step_counts`): each one's counted compute and memory
+    terms beside the measured seconds (``timed``: label -> seconds) and
+    the share of the roofline the card reached, ``max(compute_s,
+    memory_s) / measured``, on the card named by ``smi``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.shapes import covered_shapes
+    from repro_torch.launch import roofline as rf
+
+    rc = run["proc"].wait(timeout=max(
+        60.0, 1100.0 - (time.perf_counter() - run["t0"])))
+    waited_at = time.perf_counter() - run["t0"]
+    require(rc == 0, f"roofline: the dry run exited {rc} (its output: "
+                     f"{open(run['log']).read()[-3000:]})")
+    with open(run["out"]) as f:
+        doc = json.load(f)
+    require(doc["failures"] == [], f"roofline: combinations the dry run "
+                                   f"could not count: {doc['failures']}")
+    print(rf.format_table(doc["results"]), flush=True)
+    rows = []
+    for res in doc["results"]:
+        t = res["terms"]
+        rows.append(dict(arch=res["arch"], shape=res["shape"],
+                         compute_s=t["compute_s"], memory_s=t["memory_s"],
+                         dominant=t["dominant"],
+                         useful=t.get("model_flops_ratio"),
+                         count_s=res["count_s"],
+                         argument_bytes=res["argument_bytes"]["total"]))
+    t0 = time.perf_counter()
+    counters = _timed_step_counts()
+    count_s = time.perf_counter() - t0
+    steps = {}
+    for label, counter in counters.items():
+        terms = rf.roofline_terms(counter.analyze(), chips=1)
+        measured = timed[label]
+        steps[label] = dict(
+            measured_s=measured, compute_s=terms["compute_s"],
+            memory_s=terms["memory_s"], dominant=terms["dominant"],
+            flops=terms["hlo_flops_per_device"],
+            bytes=terms["hlo_bytes_per_device"],
+            roofline_share=max(terms["compute_s"], terms["memory_s"])
+            / measured,
+            kernels={k: v["calls"] for k, v in counter.kernels.items()})
+    summary = dict(card=smi, combinations=len(rows),
+                   dryrun_wall_s=waited_at, timed_count_s=count_s,
+                   table=rows, steps=steps)
+    log("roofline", **summary)
+    require(len(rows) == sum(len(covered_shapes(spec))
+                             for spec in ARCHS.values()),
+            "roofline: every (arch x covered shape) counted")
     return summary
 
 
@@ -4794,7 +5182,7 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
                  sweep_summary: dict, paper: dict, flash: list, ssd: list,
                  gemma: dict, mamba: dict, families: dict, smi: str,
                  sass: dict, flash_lse: list, training: dict,
-                 reduce_leaves: list, shard: dict) -> dict:
+                 reduce_leaves: list, shard: dict, warmups: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
     paths (the LROA rounds on the ladder and on the single bucket, the
     seven controllers' rollouts, the mapped arena's lane rounds and the
@@ -4944,12 +5332,16 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
               "src/repro/kernels/fl_aggregate.py:35",
               arena_summary["launches"]["fl_aggregate_lanes"]
               + sweep_summary["launches"]["fl_aggregate_lanes"]
-              + sum(shard["launches"]["fl_aggregate_lanes"].values()),
+              + sum(shard["launches"]["fl_aggregate_lanes"].values())
+              + sum(w["launches"]["fl_aggregate_lanes"]
+                    for w in warmups.values() if "launches" in w),
               dict(la, library_ms=None),
               launches_by_path={
                   "arena": arena_summary["launches"]["fl_aggregate_lanes"],
                   "sweep": sweep_summary["launches"]["fl_aggregate_lanes"],
-                  **shard["launches"]["fl_aggregate_lanes"]},
+                  **shard["launches"]["fl_aggregate_lanes"],
+                  **{path: w["launches"]["fl_aggregate_lanes"]
+                     for path, w in warmups.items() if "launches" in w}},
               design="the header comment of src/repro_torch/kernels/csrc/"
                      "fl_aggregate.cu (segments on coefficient rows)",
               point="the arena's round at paper scale: 7 lanes x the CNN's "
@@ -5116,6 +5508,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory() as dry_root:
+        dry = start_dryrun(dry_root)
+        try:
+            return run_phases(dry)
+        finally:
+            stop_dryrun(dry)
+
+
+def run_phases(dry: dict) -> int:
+    """Every phase, in order (``main``), with the background dry run
+    ``dry`` (:func:`start_dryrun`) read by the ``roofline`` phase."""
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5185,6 +5588,9 @@ def main() -> int:
     phase_arena_round(ladder, scan_summary, label="arena.tiered")
     sweep_summary = phase_sweep(ladder)
     phase_scale(ladder, single, data)
+    warmups = {"warmup.arena": phase_warmup_arena(ladder),
+               "warmup.sweep": phase_warmup_sweep(ladder),
+               "warmup.pool": phase_warmup_pool(ladder, data)}
     for key in ("h_seq", "lr_seq", "init", "results", "queues"):
         del scan_summary[key]
     del ladder, single, test, data
@@ -5221,6 +5627,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     training = {"train.gemma2b": gemma_train, "fl_round.gemma2b": fl_round,
                 "train.mamba2": phase_train_mamba2()}
+    phase_roofline(dry, {
+        "train.gemma2b": gemma_train["step_s_median"],
+        "fl_round.gemma2b": statistics.median(fl_round["round_s"]),
+        "serve.gemma2": gemma["prefill_s"],
+        "serve.mamba2": mamba["prefill_s"]}, smi)
 
     print(json.dumps(kernels_line(points, leaves, lanes, resnet_agg,
                                   main_summary, single_summary, scan_summary,
@@ -5229,7 +5640,7 @@ def main() -> int:
                                    "paper.femnist": femnist},
                                   flash, ssd, gemma, mamba, families, smi,
                                   sass, flash_lse, training, reduce_leaves,
-                                  shard)),
+                                  shard, warmups)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -338,8 +338,9 @@ class BankPool:
     SLOTS (:meth:`sample_slots`, :meth:`slots_for`), and an empty slot
     holds inert rows (one step over zeros).  Tallies (``pool.admits``,
     ``pool.evicts``, ``pool.uploads``, ``pool.resident``,
-    ``pool.quant.abs_err``) live in its :class:`MetricsRegistry`,
-    ``registry``.
+    ``pool.traces``, ``pool.quant.abs_err``) live in its
+    :class:`MetricsRegistry`, ``registry``.  :meth:`warmup` makes the
+    first row write ahead of churn (``traces``).
     """
 
     def __init__(self, client_cfg: ClientConfig, capacity: int,
@@ -489,6 +490,10 @@ class BankPool:
             if name == "xs":
                 row = self._laid_out(row)[0]
             getattr(self, name)[slot].copy_(row)
+        if not self.traces:
+            # the pool's cold write (the JAX package's scatter trace):
+            # every admit writes rows of the same shapes
+            self.registry.counter("pool.traces").inc()
         self.slot_of[client_id] = slot
         self._host[client_id] = (x.copy(), y.copy())
         self._sizes[slot] = n
@@ -509,6 +514,23 @@ class BankPool:
         self.registry.counter("pool.evicts").inc()
         self.registry.gauge("pool.resident").set(len(self.slot_of))
         return slot
+
+    def warmup(self) -> None:
+        """Make the pool's first row write (admit and evict a sentinel
+        client of zeros) so a strict watchdog can arm over a pool whose
+        churn path is warm; a no-op when any admit already ran (a full
+        pool has no slot for a sentinel).  The free list and the slots
+        are as before (the sentinel's slot returns to the end it was
+        taken from); ``pool.admits``, ``evicts`` and ``uploads`` count it,
+        as in the JAX package.  Synchronizes the device either way."""
+        if not self.uploads:
+            sentinel = object()
+            self.admit(sentinel,
+                       np.zeros((1,) + self.feature_shape, self.feature_dtype),
+                       np.zeros((1,) + self.label_shape, self.label_dtype))
+            self.evict(sentinel)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def data_ptrs(self) -> Dict[str, int]:
         """Each device tensor's storage address: unchanged by any churn."""
@@ -584,3 +606,10 @@ class BankPool:
     @property
     def uploads(self) -> int:
         return int(self.registry.get("pool.uploads"))
+
+    @property
+    def traces(self) -> int:
+        """Cold row writes: 1 after the first admit (or :meth:`warmup`)
+        for the pool's whole life, since every admit writes rows of the
+        same shapes."""
+        return int(self.registry.get("pool.traces"))

@@ -15,6 +15,10 @@ and so does asking for a library on a machine without CUDA.
 :func:`refuse_grad` is the one check every kernel wrapper makes before it
 launches: a kernel writes into fresh tensors that autograd cannot see, so
 it never runs where its output would be expected to carry a gradient.
+
+:data:`LOADED` lists, in order, every library this process has loaded:
+the port's counterpart of a cold compile, which the retrace watchdog
+(``repro_torch.obs.watchdog``) counts after an arena's warmup.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: build/torch_ext/ at the checkout root (src/repro_torch/kernels -> root)
@@ -41,6 +45,9 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: the compiler's output of each verbose build (``-Xptxas -v``)
 BUILD_LOG: Dict[str, str] = {}
+#: every kernel library this process loaded, in load order (one entry per
+#: library, built here or found built on disk)
+LOADED: List[str] = []
 
 
 def nvcc_path() -> str:
@@ -114,6 +121,7 @@ def build_all(names: Iterable[str] = KERNELS, verbose: bool = False
             time.sleep(0.02)
         for name in todo:
             _LIBS[name] = ctypes.CDLL(os.fspath(library_path(name)))
+            LOADED.append(name)
         return seconds
 
 

@@ -1,5 +1,5 @@
-"""The FL mesh over ``torch.distributed`` — the port of
-``repro.launch.mesh.make_fl_mesh`` and ``make_host_mesh``.
+"""The meshes over ``torch.distributed`` and the card's roofline
+constants — the port of ``repro.launch.mesh``.
 
 A JAX ``shard_map`` over a 1-D ``("data",)`` mesh becomes SPMD
 processes, one rank per shard.  :func:`make_fl_mesh` returns a 1-D
@@ -27,8 +27,22 @@ this module.  Nothing here turns a mesh into ``None`` or moves work to
 the CPU: a missing group, a size that differs from it, or a mesh
 without the axis raises.
 
-The production pod mesh and the TPU roofline constants of the
-reference's module are not ported here (ROADMAP A9).
+Each collective records a ``launch.roofline.CollectiveOp`` with an
+active ``launch.op_cost.OpCounter`` (the reference reads its collectives
+off the HLO).  :func:`make_production_mesh` is the reference's pod mesh,
+``(16, 16)`` over ``("data", "model")`` or ``(2, 16, 16)`` over
+``("pod", "data", "model")``, over a world of that many ranks that
+exists (the reference forces 512 placeholder host devices; the port's
+dry run counts one device's step and needs no mesh).
+
+The roofline constants are the H100 SXM's, from NVIDIA's H100 Tensor
+Core GPU data sheet (dense rates, without sparsity): 989 TFLOP/s bf16 on
+the tensor cores, 67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s of HBM3,
+and NVLink's 900 GB/s as 450 GB/s per direction (the counterpart of the
+reference's per-link ``ICI_BW``).  The card every chip run of this repo
+measured on is an NVIDIA H100 80GB HBM3 with a 700 W power limit
+(``nvidia-smi``); ``chip_smoke.py``'s ``PEAKS`` row for it holds the same
+numbers.
 """
 
 from __future__ import annotations
@@ -41,6 +55,12 @@ import torch.distributed as dist
 
 #: the axis name both consumers shard over
 AXIS = "data"
+
+# Roofline hardware constants (H100 SXM, per card; module docstring)
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, tensor cores, dense
+PEAK_FLOPS_F32 = 67e12          # FLOP/s, CUDA cores
+HBM_BW = 3.35e12                # bytes/s
+LINK_BW = 450e9                 # bytes/s, NVLink per direction
 
 
 def _device_mesh_cls():
@@ -75,6 +95,30 @@ def make_fl_mesh(num_shards: int | None = None, device_type: str = "cuda",
         torch.cuda.set_device(dev)
     return _device_mesh_cls()(device_type, list(range(shards)),
                               mesh_dim_names=(AXIS,))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's pod mesh: ``(16, 16)`` over ``("data",
+    "model")``, or ``(2, 16, 16)`` over ``("pod", "data", "model")``
+    with ``multi_pod``, as a ``DeviceMesh`` over the initialised process
+    group, whose world size must be 256 (512).  Raises without a group
+    or when its size differs."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_production_mesh needs an initialised "
+                           "process group of one rank per device")
+    size = 1
+    for d in shape:
+        size *= d
+    if dist.get_world_size() != size:
+        raise ValueError(f"the {'x'.join(map(str, shape))} mesh needs "
+                         f"{size} ranks; the process group has "
+                         f"{dist.get_world_size()}")
+    return _device_mesh_cls()(device_type,
+                              torch.arange(size).reshape(shape),
+                              mesh_dim_names=axes)
 
 
 def make_host_mesh():
@@ -127,6 +171,7 @@ def all_reduce_sum_(t: torch.Tensor, mesh, axis: str = AXIS
     """Sum ``t`` over ``axis`` in place (every rank receives the same
     bits); returns ``t``."""
     dist.all_reduce(t, group=axis_group(mesh, axis))
+    _record("all-reduce", t, mesh, axis)
     return t
 
 
@@ -136,7 +181,9 @@ def all_gather_cat(t: torch.Tensor, mesh, axis: str = AXIS) -> torch.Tensor:
     t = t.contiguous()
     outs = [torch.empty_like(t) for _ in range(axis_size(mesh, axis))]
     dist.all_gather(outs, t, group=axis_group(mesh, axis))
-    return torch.cat(outs)
+    out = torch.cat(outs)
+    _record("all-gather", out, mesh, axis)
+    return out
 
 
 def all_to_all_rows(send: torch.Tensor, send_counts: Sequence[int],
@@ -151,7 +198,16 @@ def all_to_all_rows(send: torch.Tensor, send_counts: Sequence[int],
     dist.all_to_all_single(recv, send, [int(c) for c in recv_counts],
                            [int(c) for c in send_counts],
                            group=axis_group(mesh, axis))
+    _record("all-to-all", recv, mesh, axis)
     return recv
+
+
+def _record(kind: str, result: torch.Tensor, mesh, axis: str) -> None:
+    """Tell an active op counter of one collective (its result's bytes
+    over the axis's group)."""
+    from repro_torch.launch import op_cost
+    op_cost.record_collective(kind, result.numel() * result.element_size(),
+                              axis_size(mesh, axis))
 
 
 def contiguous_block(count: int, mesh, axis: str = AXIS) -> Tuple[int, int]:

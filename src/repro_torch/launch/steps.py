@@ -11,6 +11,11 @@ serve steps for every family, and the training steps:
   one ``ops.fl_aggregate_leaves`` launch per table of leaves (the
   hand-written ``fl_aggregate`` kernel on the card).
 
+and the dry run's stand-ins, :func:`param_specs`, :func:`input_specs`
+and :func:`cache_specs`: ``meta`` tensors of the reference's shapes and
+dtypes, built without drawing anything (the counterpart of
+``jax.eval_shape`` and ``jax.ShapeDtypeStruct``).
+
 Gradients come from ``torch.autograd`` through the model, whose two
 kernels are ``autograd.Function``s on this path (flash attention with a
 blockwise plain backward, the SSD chunk with the plain version's
@@ -22,15 +27,18 @@ arrays, which saves a copy of the parameters and of the f32 momentum
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.overrides import TorchFunctionMode
 
+from repro_torch.configs import get_spec
+from repro_torch.configs.shapes import InputShape
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import EncoderDecoderLM
 from repro_torch.models.layers import token_nll
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import TransformerLM, torch_dtype
 from repro_torch.models.vlm import mrope_decode_positions, mrope_positions
 from repro_torch.optim import SGD
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -60,6 +68,78 @@ def dryrun_config(cfg: ModelConfig) -> ModelConfig:
         batch_axes=(),
         moe_groups=16 if cfg.family == "moe" else cfg.moe_groups,
         vocab_pad_multiple=0)
+
+
+# --------------------------------------------------------------------------
+# the dry run's stand-ins (meta tensors)
+# --------------------------------------------------------------------------
+
+#: factories whose ``device=`` :class:`_FactoriesOnMeta` moves to meta
+_FACTORIES = (torch.empty, torch.zeros, torch.ones, torch.full, torch.randn,
+              torch.rand, torch.randint, torch.arange, torch.tensor,
+              torch.as_tensor, torch.linspace, torch.eye)
+
+
+class _FactoriesOnMeta(TorchFunctionMode):
+    """Every factory call that names a device makes a ``meta`` tensor
+    instead, so a model's ``init`` builds its tree of the right shapes
+    and dtypes and draws nothing (random ops on meta tensors are
+    no-ops)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _FACTORIES and "device" in kwargs:
+            kwargs = dict(kwargs, device="meta")
+        return func(*args, **kwargs)
+
+
+def param_specs(cfg: ModelConfig) -> PyTree:
+    """The parameter tree of ``cfg``'s model as ``meta`` tensors (the
+    reference's ``jax.eval_shape(model.init, key)``)."""
+    with _FactoriesOnMeta():
+        return build_model(cfg, "cpu").init(torch.Generator())
+
+
+def input_specs(arch: str, shape: InputShape,
+                cfg: Optional[ModelConfig] = None
+                ) -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins for the data inputs of one step of ``shape``,
+    the reference's ``ShapeDtypeStruct`` s: ``tokens`` (and ``labels``
+    for train) int32 ``[B, S]``, the audio family's ``frame_embeds`` and
+    the VLM family's ``vision_embeds`` in ``cfg.dtype``; for decode
+    ``tokens`` ``[B, 1]``, a 0-d int32 ``cache_index`` and the audio
+    family's ``enc_states``."""
+    cfg = cfg or get_spec(arch).config
+    b, s = shape.global_batch, shape.seq_len
+    act, i32 = torch_dtype(cfg.dtype), torch.int32
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": spec((b, s), i32)}
+        if shape.kind == "train":
+            out["labels"] = spec((b, s), i32)
+        if cfg.family == "audio":
+            out["frame_embeds"] = spec((b, cfg.encoder_seq_len,
+                                        cfg.d_model), act)
+        if cfg.family == "vlm":
+            out["vision_embeds"] = spec((b, cfg.vision_patches,
+                                         cfg.d_model), act)
+        return out
+    out = {"tokens": spec((b, 1), i32), "cache_index": spec((), i32)}
+    if cfg.family == "audio":
+        out["enc_states"] = spec((b, cfg.encoder_seq_len, cfg.d_model), act)
+    return out
+
+
+def cache_specs(arch: str, shape: InputShape,
+                cfg: Optional[ModelConfig] = None) -> PyTree:
+    """The decode cache of ``shape`` (batch, length) as ``meta``
+    tensors, in ``cfg.dtype``."""
+    cfg = cfg or get_spec(arch).config
+    return build_model(cfg, "meta").init_cache(
+        shape.global_batch, shape.seq_len, torch_dtype(cfg.dtype))
 
 
 def make_prefill_step(cfg: ModelConfig, device="cuda") -> Callable:

@@ -33,6 +33,7 @@ import torch
 import torch.profiler
 
 from repro_torch.kernels import ops
+from repro_torch.launch import op_cost
 
 NEG_INF = -2.0e38
 #: the ``torch.profiler`` range around :class:`FlashAttention`'s backward
@@ -133,13 +134,14 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 = torch.float32
     b, sq, nq, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
-    group = nq // nkv
     bq, bkv = cfg.block_q, cfg.block_kv
     delta = (out.to(f32) * dout.to(f32)).sum(dim=-1)          # [B, Sq, nq]
     dq = torch.zeros((b, sq, nq, d), dtype=f32, device=q.device)
     dk = torch.zeros((b, sk, nkv, d), dtype=f32, device=q.device)
     dv = torch.zeros((b, sk, nkv, d), dtype=f32, device=q.device)
     pos = torch.arange(max(sq, sk), device=q.device)
+    call = (tuple(q.shape), tuple(k.shape), q.dtype, k.dtype, dout.dtype,
+            cfg)
     for k0 in range(0, sk, bkv):
         k1 = min(k0 + bkv, sk)
         kb, vb = k[:, k0:k1].to(f32), v[:, k0:k1].to(f32)
@@ -147,33 +149,47 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q1 = min(q0 + bq, sq)
             if not _block_visible(q0, q1, k0, k1, cfg):
                 continue
-            qpos, kpos = pos[q0:q1, None], pos[None, k0:k1]
-            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
-                              device=q.device)
-            if cfg.causal:
-                mask &= kpos <= qpos
-            if cfg.window > 0:
-                mask &= kpos > qpos - cfg.window
-            qg = q[:, q0:q1].to(f32).reshape(b, q1 - q0, nkv, group, d)
-            dog = dout[:, q0:q1].to(f32).reshape(b, q1 - q0, nkv, group, d)
-            raw = torch.einsum("bsngd,btnd->bngst", qg, kb) * cfg.scale
-            capped = (cfg.softcap * torch.tanh(raw / cfg.softcap)
-                      if cfg.softcap > 0 else raw)
-            capped = torch.where(mask, capped, NEG_INF)
-            lse_b = lse[:, :, q0:q1].reshape(b, nkv, group, q1 - q0)
-            p = torch.exp(capped - lse_b[..., None])         # [B,n,g,bq,bkv]
-            dp = torch.einsum("bsngd,btnd->bngst", dog, vb)
-            delta_b = delta[:, q0:q1].permute(0, 2, 1).reshape(
-                b, nkv, group, q1 - q0)
-            ds = p * (dp - delta_b[..., None])
-            if cfg.softcap > 0:
-                ds = ds * (1.0 - torch.square(capped / cfg.softcap))
-            ds = torch.where(mask, ds, 0.0) * cfg.scale
-            dv[:, k0:k1] += torch.einsum("bngst,bsngd->btnd", p, dog)
-            dk[:, k0:k1] += torch.einsum("bngst,bsngd->btnd", ds, qg)
-            dq[:, q0:q1] += torch.einsum("bngst,btnd->bsngd", ds, kb
-                                         ).reshape(b, q1 - q0, nq, d)
+            with op_cost.trip(call + (q1 - q0, k1 - k0), q.device) as done:
+                if not done:
+                    _backward_block(q, k0, k1, q0, q1, kb, vb, pos, lse,
+                                    delta, dout, dq, dk, dv, cfg)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _backward_block(q, k0, k1, q0, q1, kb, vb, pos, lse, delta, dout, dq,
+                    dk, dv, cfg: FlashConfig) -> None:
+    """One (query block, kv block) of :func:`flash_backward`: adds its
+    terms to dq, dk and dv."""
+    f32 = torch.float32
+    b, _, nq, d = q.shape
+    nkv = kb.shape[2]
+    group = nq // nkv
+    qpos, kpos = pos[q0:q1, None], pos[None, k0:k1]
+    mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                      device=q.device)
+    if cfg.causal:
+        mask &= kpos <= qpos
+    if cfg.window > 0:
+        mask &= kpos > qpos - cfg.window
+    qg = q[:, q0:q1].to(f32).reshape(b, q1 - q0, nkv, group, d)
+    dog = dout[:, q0:q1].to(f32).reshape(b, q1 - q0, nkv, group, d)
+    raw = torch.einsum("bsngd,btnd->bngst", qg, kb) * cfg.scale
+    capped = (cfg.softcap * torch.tanh(raw / cfg.softcap)
+              if cfg.softcap > 0 else raw)
+    capped = torch.where(mask, capped, NEG_INF)
+    lse_b = lse[:, :, q0:q1].reshape(b, nkv, group, q1 - q0)
+    p = torch.exp(capped - lse_b[..., None])         # [B,n,g,bq,bkv]
+    dp = torch.einsum("bsngd,btnd->bngst", dog, vb)
+    delta_b = delta[:, q0:q1].permute(0, 2, 1).reshape(
+        b, nkv, group, q1 - q0)
+    ds = p * (dp - delta_b[..., None])
+    if cfg.softcap > 0:
+        ds = ds * (1.0 - torch.square(capped / cfg.softcap))
+    ds = torch.where(mask, ds, 0.0) * cfg.scale
+    dv[:, k0:k1] += torch.einsum("bngst,bsngd->btnd", p, dog)
+    dk[:, k0:k1] += torch.einsum("bngst,bsngd->btnd", ds, qg)
+    dq[:, q0:q1] += torch.einsum("bngst,btnd->bsngd", ds, kb
+                                 ).reshape(b, q1 - q0, nq, d)
 
 
 def _scores(q: torch.Tensor, kb: torch.Tensor, scale: float) -> torch.Tensor:
@@ -213,27 +229,42 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     m = torch.full((b, nq, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, nq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, 1, nq, d), dtype=torch.float32, device=q.device)
+    call = (tuple(q.shape), tuple(k_cache.shape), q.dtype, k_cache.dtype,
+            k_scale is not None, window, softcap)
     for start in range(0, sk, block_kv):
-        kb = k_cache[:, start:start + block_kv]
-        vb = v_cache[:, start:start + block_kv]
-        if k_scale is not None:
-            kb = kb.to(torch.float32) * \
-                k_scale[:, start:start + block_kv, :, None]
-            vb = vb.to(torch.float32) * \
-                v_scale[:, start:start + block_kv, :, None]
-        kpos = kpos_all[start:start + block_kv]
-        logits = _scores(q, kb, scale)                    # [B, nq, 1, bkv]
-        if softcap > 0:
-            logits = softcap * torch.tanh(logits / softcap)
-        mask = kpos <= cache_index
-        if window > 0:
-            mask &= kpos > cache_index - window
-        logits = torch.where(mask, logits, NEG_INF)
-        m_new = torch.maximum(m, logits.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(logits - m_new[..., None])
-        l = alpha * l + p.sum(dim=-1)
-        acc = acc * alpha.transpose(1, 2)[..., None] + _pv(p, vb)
-        m = m_new
+        with op_cost.trip(call + (min(block_kv, sk - start),),
+                          q.device) as done:
+            if not done:
+                m, l, acc = _decode_block(q, k_cache, v_cache, k_scale,
+                                          v_scale, kpos_all, start,
+                                          block_kv, scale, cache_index,
+                                          window, softcap, m, l, acc)
     out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
     return out.to(q.dtype)
+
+
+def _decode_block(q, k_cache, v_cache, k_scale, v_scale, kpos_all, start,
+                  block_kv, scale, cache_index, window, softcap, m, l, acc):
+    """One cache block of :func:`flash_decode`'s online softmax: the
+    updated (m, l, acc)."""
+    kb = k_cache[:, start:start + block_kv]
+    vb = v_cache[:, start:start + block_kv]
+    if k_scale is not None:
+        kb = kb.to(torch.float32) * \
+            k_scale[:, start:start + block_kv, :, None]
+        vb = vb.to(torch.float32) * \
+            v_scale[:, start:start + block_kv, :, None]
+    kpos = kpos_all[start:start + block_kv]
+    logits = _scores(q, kb, scale)                    # [B, nq, 1, bkv]
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = kpos <= cache_index
+    if window > 0:
+        mask &= kpos > cache_index - window
+    logits = torch.where(mask, logits, NEG_INF)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(logits - m_new[..., None])
+    l = alpha * l + p.sum(dim=-1)
+    acc = acc * alpha.transpose(1, 2)[..., None] + _pv(p, vb)
+    return m_new, l, acc

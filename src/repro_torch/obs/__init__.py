@@ -1,7 +1,10 @@
 """repro_torch.obs — host-side span tracing with the flight recorder
 (``JsonlSink``, ``load_jsonl``, the Chrome-trace export and the
-``torch.profiler`` bridge; the port of ``repro.obs.trace``) and the
-metrics registry (a copy of ``repro.obs.metrics``)."""
+``torch.profiler`` bridge; the port of ``repro.obs.trace``), the
+metrics registry (a copy of ``repro.obs.metrics``) and the retrace
+watchdog (``repro.obs.watchdog``: armed by ``Arena.warmup``, it turns a
+new bucket signature or a kernel build after warmup into a
+``watchdog.retrace`` event, or a raise in strict mode)."""
 
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
@@ -10,3 +13,4 @@ from repro_torch.obs.trace import (JsonlSink, MemorySink, clear_sinks,
                                    event, export_chrome_trace, install_sink,
                                    installed, load_jsonl, profiler_bridge,
                                    remove_sink, span, to_chrome_trace)
+from repro_torch.obs.watchdog import RetraceError, Watchdog

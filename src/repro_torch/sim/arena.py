@@ -71,15 +71,30 @@ batched SGD computes each client as the per-rollout SGD does (the CPU
 tests pin where it does) and within float32 resolution otherwise; under
 ``batch='map'`` it is bitwise wherever the device repeats itself.
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-item: ``warmup`` with its watchdog (A7).
+**Warmup and the executable cache.**  The JAX package caches one
+compiled executable per bucket signature, ``(bank layout, K_max, shards,
+eval config, dropout)`` (and ``+ ("resume",)`` for a chunked
+continuation), in ``Arena._fns``.  Eager PyTorch compiles nothing, but a
+bucket signature's first run does cold work a steady state must not
+repeat: the ``nvcc`` build of a kernel at its first launch, cuDNN's and
+cuBLAS's set-up for a new SGD shape, the caching allocator's growth.
+So the port keys ``_fns`` the same way and holds, per signature, the
+record of that first run (its seconds); a new
+signature increments ``traces`` and runs under an ``arena.compile``
+span.  :meth:`Arena.warmup` runs every bucket of the plan a same-shape
+:meth:`Arena.run` will take for a few rounds, discards the results and
+arms an attached ``obs.Watchdog``.  T and a chunk's length shape no
+per-round tensor here, so neither is part of the signature: a run at
+another T does not retrace, where the JAX package's does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import itertools
+import math
 import time
 import weakref
 from typing import Any, Dict, List, Optional, Tuple
@@ -121,6 +136,14 @@ CHANNEL_STREAM = 0x43484E4C
 #: so mixed-K grids of that size run as one bucket.
 DEFAULT_COST_MODEL = CostModel(unit_cost=2e-6, compile_cost=0.0,
                                round_cost=0.95)
+
+
+def aot_cache_warmup_supported() -> bool:
+    """Whether :meth:`Arena.warmup` can warm ahead of time, without
+    running: the JAX package probes whether its jit call cache is filled
+    by ``lower().compile()``.  Eager PyTorch builds nothing ahead (the
+    cold work is the first run itself), so never."""
+    return False
 
 
 def _as_f32(value, s: int) -> np.ndarray:
@@ -499,10 +522,18 @@ class Arena:
 
     ``mesh=`` splits every bucket's lanes over the mesh axis
     ``mesh_axis`` (see the module docstring; the engine must have no
-    mesh).  :meth:`warmup` raises ``NotImplementedError`` (ROADMAP A7).
+    mesh).
+
+    ``_fns`` holds one record per bucket signature run so far (see the
+    module docstring); :meth:`warmup` fills it for a grid's shape, and
+    ``traces`` counts the signatures' first runs.  ``watchdog`` (an
+    ``obs.Watchdog``, set by its ``attach``) is armed by :meth:`warmup`
+    and told of every :meth:`run`.
 
     ``metrics`` is the arena's :class:`~repro_torch.obs.metrics.
-    MetricsRegistry`: ``arena.runs``, ``arena.dispatches``, the
+    MetricsRegistry`: ``arena.runs``, ``arena.dispatches``,
+    ``arena.traces``, ``arena.executables_built`` (signatures first run
+    by :meth:`run`), the ``arena.executables_cached`` gauge, the
     ``arena.chunk.dispatch_s`` / ``reduce_s`` and ``arena.bank_digest_s``
     (the chunk tag's hash of the bank) histograms, and the device-input
     caches' ``arena.input_cache.hits`` / ``.misses`` (lane constants,
@@ -543,6 +574,10 @@ class Arena:
         self.max_executables = int(max_executables)
         self.chunk_size = chunk_size
         self.metrics = MetricsRegistry()
+        #: bucket signature -> {"first_run_s"} (module docstring)
+        self._fns: Dict[tuple, dict] = {}
+        #: an ``obs.Watchdog``: armed by :meth:`warmup`, told of each run
+        self.watchdog = None
         # bank -> ((admits, evicts), content digest), for the chunk tag
         self._bank_digests = weakref.WeakKeyDictionary()
         self._input_cache_cap = 16
@@ -551,6 +586,13 @@ class Arena:
         self._chan_cache: Dict[bytes, torch.Tensor] = {}
 
     # -- registry views ------------------------------------------------------
+
+    @property
+    def traces(self) -> int:
+        """Bucket signatures first run by this arena (``warmup`` included):
+        a warmed arena keeps it constant across same-shape runs.  A view
+        over ``metrics['arena.traces']``."""
+        return self.metrics.counter("arena.traces").value
 
     @property
     def input_cache_hits(self) -> int:
@@ -787,7 +829,11 @@ class Arena:
         """One bucket: every lane of ``grid`` at ``k_max`` slots, in one
         call of the lane body or, with ``chunk_size`` / ``chunk_store``,
         in segments that resume from each other's carry.  Returns ``([S,
-        ...] params, [S, N] queues, metrics as numpy, dispatches)``.
+        ...] params, [S, N] queues, metrics as numpy, dispatches,
+        executables_built)``: the last counts the bucket's signatures
+        (the start and, for a continued chunk, the resume signature) run
+        here for the first time, each of whose first segment runs under
+        an ``arena.compile`` span.
 
         The chunked pipeline: ceil(T / chunk) dispatches, the ragged
         tail included.  ``chunk_store`` (``.load(tag)``, ``.save(tag,
@@ -832,13 +878,28 @@ class Arena:
                     for t0 in range(t_start, num_rounds, chunk)]
         every = max(1, int(getattr(chunk_store, "every", 1)))
         s = len(grid)
+        start_key = (bank_layout_key(bank, tier_subset), int(k_max),
+                     self._shards(),
+                     self._eval_key(eval_bank, eval_every),
+                     drop_all is not None)
+        built = 0
         for i, (t0, ln) in enumerate(segments):
+            key = start_key if carry is None else start_key + ("resume",)
+            cold = key not in self._fns
             t_disp = time.perf_counter()
-            with obs.span("arena.dispatch", chunk=i, t0=t0, rounds=ln,
-                          k_max=int(k_max), lanes=s):
-                params, queues, outs, last_ev = body(
-                    global_params, lanes, lr_dev, t0, carry, ln)
+            with (obs.span("arena.compile", stage="first_run",
+                           resume=carry is not None, k_max=int(k_max),
+                           key=repr(key))
+                  if cold else contextlib.nullcontext()):
+                with obs.span("arena.dispatch", chunk=i, t0=t0, rounds=ln,
+                              k_max=int(k_max), lanes=s):
+                    params, queues, outs, last_ev = body(
+                        global_params, lanes, lr_dev, t0, carry, ln)
             t_red = time.perf_counter()
+            if cold:
+                self.metrics.counter("arena.traces").inc()
+                self._fns[key] = {"first_run_s": t_red - t_disp}
+                built += 1
             carry = (params, queues, last_ev)
             with obs.span("arena.reduce", chunk=i, rounds=ln,
                           k_max=int(k_max), lanes=s):
@@ -862,18 +923,34 @@ class Arena:
         if chunk_store is not None and writer:
             chunk_store.finish(tag)
         params, queues, _ = carry
-        return params, queues, metrics, len(segments)
+        return params, queues, metrics, len(segments), built
 
     # -- shape-adaptive dispatch planning ------------------------------------
 
+    def _eval_key(self, eval_bank, eval_every):
+        """The eval component of a bucket signature: ``(id(task),
+        eval_every)``, or None without in-rollout evaluation."""
+        if eval_bank is None or not eval_every:
+            return None
+        return (id(eval_bank.task), int(eval_every))
+
     def _plan(self, bank, grid: ScenarioGrid, num_rounds: int, *,
-              runs: float = 1.0) -> DispatchPlan:
+              runs: float = 1.0, eval_key=None,
+              use_dropout: bool = False) -> DispatchPlan:
         """The ``k_mode='auto'`` plan for this grid at the reuse horizon
-        ``runs``: by K alone, every bucket on every tier of the bank."""
+        ``runs`` (1 for a cold :meth:`run`, ``math.inf`` for
+        :meth:`warmup`'s steady state): by K alone, every bucket on every
+        tier of the bank.  The cost model sees the signatures already run
+        through ``is_cached``, so a warmed arena's plans snap to them."""
+        def is_cached(bucket) -> bool:
+            return (bank_layout_key(bank, bucket.tiers), int(bucket.k_pad),
+                    self._shards(), eval_key, use_dropout) in self._fns
+
         return plan_dispatch(
             grid.sample_count, rounds=num_rounds,
             tier_work=self._tier_work(bank), cost_model=self.cost_model,
-            max_executables=self.max_executables, runs=runs)
+            max_executables=self.max_executables, is_cached=is_cached,
+            runs=runs)
 
     def _run_plan(self, global_params: Params, sp: sm.SystemParams, bank,
                   grid: ScenarioGrid, h_all: torch.Tensor,
@@ -884,7 +961,7 @@ class Arena:
         the lanes back to grid order: params with one ``index_select``
         per leaf over the inverse permutation, queues and metrics on the
         host, ``selected`` padded with -1 to ``K_max``.  Returns
-        ``(params, queues, metrics, bucket_meta)``."""
+        ``(params, queues, metrics, executables_built, bucket_meta)``."""
         dev = self.device
         k_max = int(grid.sample_count.max())
         tiers_all = (list(range(bank.num_tiers))
@@ -892,7 +969,7 @@ class Arena:
         rep_sel, rep_keys = replay
         shards = self._shards()
         whole = plan.num_buckets == 1 and self.mesh is None
-        parts, bucket_meta = [], []
+        parts, bucket_meta, built_total = [], [], 0
         for b in plan.buckets:
             idx = np.asarray(b.lanes, np.int64)
             span = None
@@ -913,7 +990,7 @@ class Arena:
                 x = x if whole else x.index_select(0, idx_t)
                 return x[:, :, :b.k_pad] if slots else x
 
-            p_g, q_g, m_g, nd = self._run_group(
+            p_g, q_g, m_g, nd, built = self._run_group(
                 global_params, sp, bank, grid if whole else grid.take(mine),
                 pick(h_all), lr_seq, b.k_pad, eval_bank=eval_bank,
                 eval_every=eval_every, drop_all=pick(drop_all),
@@ -926,14 +1003,16 @@ class Arena:
                 with obs.span("arena.gather", lanes=int(idx.size),
                               shards=shards):
                     p_g, q_g, m_g = self._gather_lanes((p_g, q_g, m_g))
+            built_total += built
             bucket_meta.append(dict(
                 lanes=[int(i) for i in idx], k_pad=int(b.k_pad),
                 tiers=tiers_all if b.tiers is None else list(b.tiers),
-                dispatches=int(nd)))
+                dispatches=int(nd), executables_built=int(built)))
             parts.append((p_g, q_g, m_g))
         if whole:
             params, queues, metrics = parts[0]
-            return params, queues.cpu().numpy(), metrics, bucket_meta
+            return (params, queues.cpu().numpy(), metrics, built_total,
+                    bucket_meta)
         inv = plan.inverse_permutation()
         inv_t = torch.as_tensor(inv, device=dev)
         params = {name: torch.cat([p[name] for p, _, _ in parts])
@@ -950,7 +1029,7 @@ class Arena:
                         v.dtype)], axis=-1)
                 cols.append(v)
             metrics[name] = np.concatenate(cols)[inv]
-        return params, queues, metrics, bucket_meta
+        return params, queues, metrics, built_total, bucket_meta
 
     # -- entry point ----------------------------------------------------------
 
@@ -983,20 +1062,32 @@ class Arena:
 
         Lane s reproduces ``run_scan`` under the contract of the module
         docstring.  Returns a :class:`RolloutReport` whose ``meta`` holds
-        the plan, each bucket's lanes, ``k_pad``, tiers and
-        ``dispatches``, and the run's ``chunk_size``.
+        the plan, each bucket's lanes, ``k_pad``, tiers, ``dispatches``
+        and ``executables_built``, the run's ``chunk_size``,
+        ``executables_built``, ``executables_cached`` and ``traces``.
+        The run's counts are folded into ``metrics`` and an attached
+        watchdog is told of it.
         """
-        with obs.span("arena.run", k_mode=self.k_mode, lanes=len(grid),
-                      rounds=int(num_rounds)):
+        run_span = obs.span("arena.run", k_mode=self.k_mode,
+                            lanes=len(grid), rounds=int(num_rounds))
+        with run_span:
             report = self._run_impl(
                 global_params, sp, bank, grid, num_rounds, lr_seq,
                 h_all=h_all, drop_all=drop_all, eval_bank=eval_bank,
                 eval_every=eval_every, chunk_size=chunk_size,
                 chunk_store=chunk_store, replay_selected=replay_selected,
                 replay_sort_keys=replay_sort_keys)
+            run_span.set(dispatches=int(report.meta["dispatches"]),
+                         executables_built=int(
+                             report.meta["executables_built"]))
         m = self.metrics
         m.counter("arena.runs").inc()
         m.counter("arena.dispatches").inc(int(report.meta["dispatches"]))
+        m.counter("arena.executables_built").inc(
+            int(report.meta["executables_built"]))
+        m.gauge("arena.executables_cached").set(len(self._fns))
+        if self.watchdog is not None:
+            self.watchdog.observe_run(self, report.meta)
         return report
 
     def _run_impl(self, global_params: Params, sp: sm.SystemParams, bank,
@@ -1080,24 +1171,39 @@ class Arena:
                     tier_work=self._tier_work(bank))
         with obs.span("arena.plan", k_mode=self.k_mode, lanes=s,
                       k_max=k_max):
-            if self.k_mode == "auto":
-                plan = self._plan(bank, grid, num_rounds)
-            elif self.k_mode == "pad" or ks.size == 1:
-                plan = DispatchPlan.padded(grid.sample_count)
-            else:
-                plan = DispatchPlan.grouped(grid.sample_count)
-        params, queues, metrics, buckets = self._run_plan(
+            plan = self._mode_plan(bank, grid, num_rounds, runs=1.0,
+                                   eval_key=self._eval_key(eval_bank,
+                                                           eval_every),
+                                   use_dropout=drop_all is not None)
+        traces = self.traces
+        params, queues, metrics, built, buckets = self._run_plan(
             global_params, sp, bank, grid, h_all, lr_seq, plan,
             eval_bank=eval_bank, eval_every=eval_every, drop_all=drop_all,
             replay=(rep_sel, rep_keys), chunk_size=chunk_size,
             chunk_store=chunk_store, digests=digests)
         meta.update(dispatches=sum(b["dispatches"] for b in buckets),
+                    executables_built=int(built),
+                    executables_cached=len(self._fns),
+                    traces=self.traces - traces,
                     plan=plan.describe(), buckets=buckets)
         return RolloutReport(grid=grid, num_rounds=num_rounds,
                              params=params, queues=queues, metrics=metrics,
                              meta=meta,
                              final_metrics=self._final_eval(eval_bank,
                                                             params))
+
+    def _mode_plan(self, bank, grid: ScenarioGrid, num_rounds: int, *,
+                   runs: float, eval_key, use_dropout: bool
+                   ) -> DispatchPlan:
+        """The plan of the arena's ``k_mode`` for ``grid``: the padded
+        single bucket, one bucket per distinct K, or (``'auto'``)
+        :meth:`_plan` at the horizon ``runs``."""
+        if self.k_mode == "auto":
+            return self._plan(bank, grid, num_rounds, runs=runs,
+                              eval_key=eval_key, use_dropout=use_dropout)
+        if self.k_mode == "pad" or np.unique(grid.sample_count).size == 1:
+            return DispatchPlan.padded(grid.sample_count)
+        return DispatchPlan.grouped(grid.sample_count)
 
     def _tier_work(self, bank) -> Dict[int, float]:
         """``{tier: rows trained per slot per round}`` (local epochs x
@@ -1118,9 +1224,89 @@ class Arena:
             return {"test_" + name: v for name, v in
                     eval_bank.evaluate_stacked(params_stacked).items()}
 
-    def warmup(self, *args, **kwargs):
-        """Eager PyTorch compiles nothing ahead; the JAX package's AOT
-        warmup and its retrace watchdog wait."""
-        raise NotImplementedError(
-            "Arena.warmup (AOT warmup and the watchdog) is not ported yet "
-            "(ROADMAP A7, the scenario layer)")
+    def warmup(self, global_params: Params, sp: sm.SystemParams, bank,
+               grid: ScenarioGrid, num_rounds: int, lr_seq=None, *,
+               h_all=None, eval_bank=None, eval_every: Optional[int] = None,
+               aot: Optional[bool] = None,
+               chunk_size: Optional[int] = None) -> dict:
+        """Run every bucket signature a same-shape :meth:`run` will hit,
+        so iterating on grid VALUES (V, lam, seeds, channels; shapes
+        fixed) does no cold work again.  The plan is the arena's
+        ``k_mode``'s: the padded single bucket, every per-K group, or
+        (``'auto'``) the steady-state plan at ``runs=math.inf``.
+
+        Each bucket runs ``min(T, max(1, eval_every or 1))`` rounds, so
+        an in-rollout evaluation runs once, then one final batched
+        evaluation.  With ``chunk_size`` (default the arena's) and
+        ``T > chunk_size`` the bucket runs as a chunk and its
+        continuation, so the resume signature is warm too.  On a ladder
+        the warm rounds replay selections that cycle every lane's slots
+        through every tier (one client of each), as
+        ``FederatedTrainer.warmup`` reaches every tier's SGD.
+
+        ``aot``: eager PyTorch has no ahead-of-time path
+        (:func:`aot_cache_warmup_supported` is False), so ``None`` and
+        ``False`` run the buckets and ``True`` raises ``ValueError``.
+
+        Nothing observable changes: the results are discarded, no chunk
+        store is written, ``arena.runs`` does not move, the bank and the
+        params are read only.  Returns ``{'executables_built',
+        'executables_cached', 'traces', 'aot', 'plan'}``; an attached
+        watchdog arms at the end."""
+        if aot:
+            raise ValueError(
+                "Arena.warmup(aot=True): eager PyTorch compiles nothing "
+                "ahead of a run (aot_cache_warmup_supported() is False); "
+                "warmup runs each bucket instead (aot=None)")
+        warm_span = obs.span("arena.warmup", k_mode=self.k_mode,
+                             lanes=len(grid), rounds=int(num_rounds))
+        warm_span.__enter__()
+        before = self.traces
+        s, n, dev = len(grid), sp.num_devices, self.device
+        if lr_seq is None:
+            lr_seq = np.zeros(num_rounds, np.float32)
+        lr_seq = np.asarray(lr_seq, np.float32)
+        if h_all is None:
+            h_all = self.sample_channels(grid, num_rounds, n)
+        h_all = torch.as_tensor(h_all, dtype=torch.float32, device=dev)
+        drop_all = None
+        if np.any(np.asarray(grid.dropout) > 0.0):
+            drop_all = self.sample_dropout(grid, num_rounds, n)
+        if chunk_size is None:
+            chunk_size = self.chunk_size
+        ek = self._eval_key(eval_bank, eval_every)
+        plan = self._mode_plan(bank, grid, num_rounds, runs=math.inf,
+                               eval_key=ek, use_dropout=drop_all is not None)
+        warm = min(num_rounds, max(1, int(eval_every or 1)))
+        chunk = None
+        if chunk_size is not None and num_rounds > chunk_size:
+            # a first chunk and one continuation reach both signatures
+            chunk = min(warm, max(1, int(chunk_size)))
+            warm = max(warm, chunk + 1)
+        rep_sel = None
+        if getattr(bank, "num_tiers", 1) > 1:
+            reps = [int(m[0]) for m in bank.tier_members]
+            k_max = int(grid.sample_count.max())
+            slot = (np.arange(s)[:, None, None] * k_max
+                    + np.arange(warm)[None, :, None]
+                    + np.arange(k_max)[None, None, :])
+            rep_sel = torch.as_tensor(np.asarray(reps)[slot % len(reps)],
+                                      device=dev)
+        params, _, _, built, _ = self._run_plan(
+            global_params, sp, bank, grid, h_all[:, :warm], lr_seq[:warm],
+            plan, eval_bank=eval_bank, eval_every=eval_every,
+            drop_all=None if drop_all is None else drop_all[:, :warm],
+            replay=(rep_sel, None), chunk_size=chunk, chunk_store=None,
+            digests=())
+        self._final_eval(eval_bank, params)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        result = {"executables_built": int(built),
+                  "executables_cached": len(self._fns),
+                  "traces": self.traces - before,
+                  "aot": False, "plan": plan.describe()}
+        warm_span.set(executables_built=int(built), aot=False)
+        warm_span.__exit__(None, None, None)
+        if self.watchdog is not None:
+            self.watchdog.arm(self)
+        return result

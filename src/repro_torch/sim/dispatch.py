@@ -1,9 +1,10 @@
 """Shape-adaptive dispatch planning for the ScenarioArena — a copy of
 ``repro.sim.dispatch`` (numpy only; its trace calls go to the port's
 ``obs.trace``).  The port's arena builds :meth:`DispatchPlan.padded` and
-:meth:`DispatchPlan.grouped` for ``RolloutReport.meta['plan']``;
-:func:`plan_dispatch` and :func:`lane_footprints` wait for its
-``k_mode='auto'`` (ROADMAP A7).
+:meth:`DispatchPlan.grouped` for ``k_mode='pad'`` / ``'group'`` and
+:func:`plan_dispatch` for ``'auto'`` (by K alone, so
+:func:`lane_footprints` has no caller there; ``Arena.warmup`` plans at
+``runs=math.inf`` and passes ``is_cached``).
 
 ``Arena.run`` used to offer exactly two executions of an S-lane grid:
 ``k_mode='pad'`` (ONE executable, every lane padded to ``K_max`` slots

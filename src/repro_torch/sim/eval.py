@@ -18,8 +18,8 @@ call, at least one.  Two consumers:
 
 Evaluation runs under ``torch.no_grad``.  :meth:`carry_struct` gives
 the shapes and dtypes of the in-rollout evaluation's carry (the sweep
-service rebuilds a checkpointed carry from it); ``aot_warm`` of the JAX
-package waits with the arena's warmup (ROADMAP A7).
+service rebuilds a checkpointed carry from it); :meth:`aot_warm` runs
+one discarded stacked evaluation (the JAX package compiles it ahead).
 """
 
 from __future__ import annotations
@@ -95,6 +95,20 @@ class EvalBank:
     def evaluate_one(self, params: Params) -> Dict[str, Any]:
         """Single-model evaluation (host convenience / reference)."""
         return {name: float(v) for name, v in self.metrics_one(params).items()}
+
+    def aot_warm(self, s: int, params_example: Params) -> bool:
+        """Warm the stacked evaluation for an ``[s, ...]`` params stack:
+        one discarded :meth:`metrics_stacked` call on ``s`` copies of
+        ``params_example`` (one unstacked model) on the bank's device, so
+        its first real call pays no cold set-up.  The JAX package
+        compiles the evaluator ahead from shapes alone; eager PyTorch has
+        nothing to compile, so the warm call runs.  Returns True."""
+        stack = {name: v.to(self.device).unsqueeze(0).expand(
+            (s,) + tuple(v.shape)) for name, v in params_example.items()}
+        self.metrics_stacked(stack)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return True
 
     def carry_struct(self, params_example: Params, s: int
                      ) -> Dict[str, torch.Tensor]:

@@ -10,21 +10,24 @@ axis: params ``[S, ...]`` (torch, on the engine's device), final queues
 / ``test_loss``, ``[S]``), and ``eval_every`` adds ``test_*`` per-round
 columns to ``metrics`` (a step curve holding the latest evaluation).
 
-``meta`` records the execution shape.  The JAX package's keys that mean
-something in eager PyTorch are kept: ``k_mode``, ``k_groups`` (the
-distinct K of the grid), ``k_max``, ``batch``, ``dispatches`` (the
-lane-batched rollouts the run executed: 1 for ``k_mode='pad'``, one per
-distinct K for ``'group'``), ``plan`` (the
-``repro_torch.sim.dispatch.DispatchPlan`` it executed, JSON-shaped) and
-``buckets`` (one entry per lane-batched rollout: its ``lanes``,
-``k_pad``, ``tiers`` — the ladder's rungs, None for one bucket — and
-``dispatches``); and the bank's ``bank_storage``, ``bank_nbytes``,
-``bank_bytes_per_client``, ``bank_layout`` (``round_engine.
-bank_layout_key``) and ``tier_work`` (rows trained per slot per round,
-per tier).  The compile-cache keys (``executables_built``,
-``executables_cached``, ``traces``) have no meaning without a compiler
-and are absent.  :meth:`RolloutReport.dispatch_accounting` cross-checks
-that the per-bucket counters add up to the run's.  The reducers turn all
+``meta`` records the execution shape, in the JAX package's keys:
+``k_mode``, ``k_groups`` (the distinct K of the grid), ``k_max``,
+``batch``, ``dispatches`` (the lane-batched segments the run executed:
+1 for an unchunked ``k_mode='pad'`` run, one per distinct K for
+``'group'``), ``plan`` (the ``repro_torch.sim.dispatch.DispatchPlan`` it
+executed, JSON-shaped) and ``buckets`` (one entry per lane-batched
+rollout: its ``lanes``, ``k_pad``, ``tiers`` — the ladder's rungs, None
+for one bucket — ``dispatches`` and ``executables_built``); the
+executable cache's ``executables_built`` (bucket signatures this run
+ran for the first time: eager PyTorch compiles nothing, but a new
+signature's first run pays the cold work, ``sim.arena``'s docstring),
+``executables_cached`` (signatures run so far) and ``traces`` (this
+run's new signatures); and the bank's ``bank_storage``,
+``bank_nbytes``, ``bank_bytes_per_client``, ``bank_layout``
+(``round_engine.bank_layout_key``) and ``tier_work`` (rows trained per
+slot per round, per tier).  :meth:`RolloutReport.dispatch_accounting`
+cross-checks that the per-bucket counters add up to the run's.  The
+reducers turn all
 of it into the curves the paper plots — cumulative latency,
 loss/accuracy-vs-time, time-averaged energy against the budget,
 queue-norm stability — and :meth:`tradeoff_table` aggregates seeds so a
@@ -173,8 +176,9 @@ class RolloutReport:
         """Summed per-bucket execution counters, cross-checked against
         the run totals: ``meta['buckets']`` entries are per lane-batched
         rollout and ADDITIVE, so ``sum(bucket dispatches) ==
-        meta['dispatches']`` in every k_mode, and the buckets' lanes
-        partition the grid.  Raises ``ValueError`` when a mode breaks the
+        meta['dispatches']`` and ``sum(bucket executables_built) ==
+        meta['executables_built']`` in every k_mode, and the buckets'
+        lanes partition the grid.  Raises ``ValueError`` when a mode breaks the
         sum (a bucket counted twice or dropped), returns the sums plus
         lane coverage otherwise."""
         buckets = self.meta.get("buckets")
@@ -183,9 +187,11 @@ class RolloutReport:
                            "this report produced by Arena.run?")
         sums = dict(
             dispatches=sum(int(b["dispatches"]) for b in buckets),
+            executables_built=sum(int(b["executables_built"])
+                                  for b in buckets),
             buckets=len(buckets),
             lanes_covered=sum(len(b["lanes"]) for b in buckets))
-        for field in ("dispatches",):
+        for field in ("dispatches", "executables_built"):
             if sums[field] != int(self.meta[field]):
                 raise ValueError(
                     f"per-bucket {field} sum to {sums[field]} but "

@@ -28,7 +28,8 @@ that loop:
 
 The service holds no training state of its own (the initial params and
 the bank are shared, read-only), so one instance serves any number of
-grids.  ``warmup`` waits with the arena's (ROADMAP A7).
+grids.  :meth:`SweepService.warmup` warms the arena for a submission
+shape (``Arena.warmup``).
 """
 
 from __future__ import annotations
@@ -302,12 +303,17 @@ class SweepService:
 
     # -- execution ----------------------------------------------------------
 
-    def warmup(self, *args, **kwargs):
-        """The JAX package's warmup compiles the arena's executables
-        ahead; it waits with the arena's."""
-        raise NotImplementedError(
-            "SweepService.warmup (the arena's AOT warmup and the "
-            "watchdog) is not ported yet (ROADMAP A7, the scenario layer)")
+    def warmup(self, grid: ScenarioGrid, num_rounds: int,
+               lr_seq=None) -> dict:
+        """Warm the arena for this submission shape (the chunked
+        continuation included): ``Arena.warmup`` with the service's
+        ``eval_bank``, ``eval_every`` and ``chunk_size``.  Steady-state
+        submissions of that shape then do no cold work."""
+        return self.arena.warmup(self.params0, self.sp, self.bank, grid,
+                                 num_rounds, lr_seq,
+                                 eval_bank=self.eval_bank,
+                                 eval_every=self.eval_every,
+                                 chunk_size=self.chunk_size)
 
     def process_once(self) -> List[int]:
         """Run ONE coalesced batch through the arena; returns the

@@ -11,8 +11,8 @@ port's own contracts: pad against group bitwise on the CPU, every lane
 against the port's ``run_scan`` under the arena's contract, the
 ``eval_every`` columns and final evaluation against the JAX
 ``EvalBank``, the grid constructors and their validation against the
-JAX package's, a ``mesh=`` that is no ``DeviceMesh`` and the option
-that is not ported yet (``warmup``); the chunked, planned and mapped modes are held in
+JAX package's, a ``mesh=`` that is no ``DeviceMesh`` and warmup's
+``aot=True``, which eager PyTorch has no path for; the chunked, planned and mapped modes are held in
 ``tests/test_torch_streaming.py``."""
 
 import dataclasses
@@ -443,8 +443,11 @@ def test_unported_modes_raise(bed, kwargs):
 
 def test_unported_run_options_raise(bed):
     arena = tsim.Arena(bed["teng"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        arena.warmup(bed["tp0"], bed["tp"], bed["tbank"], bed["tgrid"], T)
+    # eager PyTorch builds nothing ahead of a run: warmup runs each bucket
+    with pytest.raises(ValueError, match="compiles nothing ahead"):
+        arena.warmup(bed["tp0"], bed["tp"], bed["tbank"], bed["tgrid"], T,
+                     aot=True)
+    assert not tsim.aot_cache_warmup_supported()
     with pytest.raises(ValueError):
         tsim.Arena(bed["teng"], k_mode="bogus")
     with pytest.raises(ValueError, match="eval_every requires"):

@@ -880,3 +880,65 @@ def test_sharded_world_on_the_card_matches_unsharded(cuda, tmp_path, ranks,
     if ranks == 1:
         rounds = out[0]["reference"]["rounds"]
         assert all(r["bitwise"] for r in rounds.values()), rounds
+
+
+@pytest.mark.cuda
+def test_no_kernel_builds_after_warmup(cuda):
+    """``Arena.warmup`` on the card under a strict watchdog
+    (``chip_smoke.py``'s ``warmup.arena`` on the tiered testbed): zero
+    violations and no kernel library loaded after warmup, a K_max drift
+    raises, one lane launch per round."""
+    smoke = _chip_smoke()
+    cfg = dict(smoke.TIERED, rounds=20)
+    trainer = smoke.build_trainer("cuda", cfg, smoke.make_data(cfg))
+    out = smoke.phase_warmup_arena(trainer, cfg)
+    assert out["violations"] == [] and out["kernels_loaded_after_warmup"] == []
+
+
+def _counted_calls(device):
+    """Each kernel wrapper once on ``device`` under an op counter, on the
+    same inputs: the counter's ``kernels`` record."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import op_cost
+
+    g = torch.Generator().manual_seed(3)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(device, dtype)
+    deltas = [r(3, 6, 5), r(3, 7)]
+    inputs = dict(thetas=[r(6, 5), r(7)], deltas=deltas, coeffs=r(3),
+                  lane_thetas=[r(2, 6, 5), r(2, 7)],
+                  lane_deltas=[r(2, 3, 6, 5), r(2, 3, 7)],
+                  lane_coeffs=r(2, 3),
+                  outs=[torch.empty(d.shape[1:], device=device)
+                        for d in deltas],
+                  q=r(1, 4, 80, 64, dtype=torch.bfloat16),
+                  k=r(1, 2, 80, 64, dtype=torch.bfloat16),
+                  v=r(1, 2, 80, 64, dtype=torch.bfloat16),
+                  x=r(1, 64, 2, 16), dt=r(1, 64, 2).abs(), a_log=r(2),
+                  b_in=r(1, 64, 8), c_in=r(1, 64, 8))
+    t = inputs
+    with op_cost.OpCounter() as c:
+        ops.fl_aggregate_leaves(t["thetas"], t["deltas"], t["coeffs"])
+        ops.fl_aggregate_lanes(t["lane_thetas"], t["lane_deltas"],
+                               t["lane_coeffs"])
+        ops.fl_delta_reduce_leaves(t["deltas"], t["coeffs"], t["outs"])
+        ops.flash_attention(t["q"], t["k"], t["v"], causal=True, window=48,
+                            softcap=30.0, return_lse=True)
+        ops.ssd_chunk(t["x"], t["dt"], t["a_log"], t["b_in"], t["c_in"],
+                      chunk=32)
+    return c.kernels, dict(c.rows)
+
+
+@pytest.mark.cuda
+def test_op_counter_attribution_on_the_card_equals_the_cpu(cuda):
+    """Every kernel wrapper reports the same work to an op counter on the
+    card (where it launches its kernel) as on the CPU (where the plain
+    version runs uncounted)."""
+    card, card_rows = _counted_calls("cuda")
+    torch.cuda.synchronize()
+    cpu, cpu_rows = _counted_calls("cpu")
+    assert card == cpu
+    assert card_rows == cpu_rows
+    assert set(card) == {"fl_aggregate", "fl_aggregate_lanes",
+                         "fl_delta_reduce", "flash_attention", "ssd_chunk"}

@@ -472,8 +472,16 @@ def test_service_coalesces_and_splits_back(single):
     assert svc.stats["batches"] == 2 and svc.stats["scenarios"] == 6
     with pytest.raises(KeyError):
         svc.result(tc_)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        svc.warmup(grid, t, _lr(t))
+    # warmup runs the arena's bucket at its first chunk and its
+    # continuation, both run by the batches above already: nothing new,
+    # and a same-shape submission then runs no new signature either
+    warm = svc.warmup(grid.take(np.array([0, 1])), t, _lr(t))
+    assert warm["aot"] is False and warm["traces"] == 0
+    assert warm["executables_built"] == 0
+    assert warm["executables_cached"] == 2
+    td = svc.submit(grid.take(np.array([2, 3])), t, _lr(t))
+    assert svc.run_pending() == [td]
+    assert svc.result(td).meta["executables_built"] == 0
 
 
 def test_service_batch_is_the_arena_run_of_the_concatenated_grid(single):
@@ -645,7 +653,8 @@ def test_repeated_auto_grid_plans_and_runs_the_same(ladder):
     second = _run(ladder, grid, t, arena=arena)
     assert len(first.meta["buckets"]) > 1
     assert second.meta["plan"] == first.meta["plan"]
-    assert "executables_built" not in first.meta
+    assert first.meta["executables_built"] == len(first.meta["buckets"])
+    assert second.meta["executables_built"] == 0
     _assert_bitwise(first, second, "repeat")
 
 
