@@ -247,20 +247,34 @@ error is caught):
    tokens), 4 steps with checkpoints, then resumed to step 6: the SSD
    launches of each run, and the resumed run bitwise two fresh-momentum
    steps from the step-4 checkpoint;
-10. roofline — ``python -m repro_torch.launch.dryrun --all``, started in
+10. examples — the repo's drivers through the functions their commands
+   call: ``examples/quickstart_torch.py``'s ``run`` for 21 of its 400
+   rounds (LROA's ``decide``, ``expected_energy`` and ``step_queues``;
+   no kernel) on the card against the same run on the CPU: every
+   printed number within 1e-4 relative;
+   ``examples/fl_simulation_torch.py`` at its defaults (LROA, Uni-D and
+   Uni-S over 24 devices, 40 rounds, one arena grid: the table, seconds,
+   lane-rounds/s, one ``fl_aggregate_lanes`` launch a round), then its
+   grid at 4 rounds, 8 devices and LROA, Uni-D, Uni-S and DivFL on the
+   card against the CPU from one initial model (accuracy and total
+   latency within reference.arena's 1e-6); ``examples/
+   serve_decode_torch.py`` at its defaults for the gemma2-27b and
+   mamba2-130m smoke models, the card's tokens equal to the CPU's, the
+   flash and SSD launches of :func:`expected_launches`;
+11. roofline — ``python -m repro_torch.launch.dryrun --all``, started in
    a background process on the host's CPU (no card visible) when the
    script starts: every (arch x covered shape) step counted on the
    ``meta`` device, its roofline table at the H100's peaks; then
    train.gemma2b, fl_round.gemma2b and the gemma2 and mamba2 prefills
    counted at the shapes timed above, each one's compute and memory
    terms beside its measured seconds;
-11. the ``kernels`` JSON line (with ``flash_attention_lse`` and
+12. the ``kernels`` JSON line (with ``flash_attention_lse`` and
    ``fl_delta_reduce``), then the last line ``{"ok": true, "device":
    {...}}``.
 
 Float32 matmuls and convolutions run in full f32 (TF32 off), so the card
-computes what the CPU reference computes.  Imports ``torch``, ``numpy``
-and ``repro_torch`` only.
+computes what the CPU reference computes.  Imports ``torch``, ``numpy``,
+``repro_torch`` and the port's drivers (``examples/*_torch.py``) only.
 """
 
 from __future__ import annotations
@@ -280,6 +294,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
@@ -373,6 +388,22 @@ SEQUENTIAL_ROUNDS = 2
 # reference's 150 to keep the script's time (PERF.md section 4)
 HET_SPREADS = (1.0, 2.0, 4.0)
 HET_ROUNDS = 50
+# the drivers' phase (examples/*_torch.py): rounds of the quickstart on
+# each device, of its 400, and the bound on each of its printed numbers,
+# card against CPU, relative.  The solver's loops stop on tolerances at
+# float32's rounding, so two devices run other trip counts and their
+# rollouts drift apart with the rounds, and the card's 400 rounds take
+# about 440 s (tests/quickstart_drift.py; ROADMAP section C, PERF.md
+# section 6)
+QUICKSTART_ROUNDS = 21
+QUICKSTART_RTOL = 1e-4
+# fl_simulation_torch's grid run card against CPU (its --rounds 4
+# --devices 8 --controllers lroa,uni_d,uni_s,divfl) and reference.arena's
+# bound on it; the arches served by serve_decode_torch
+EXAMPLES_FL = dict(rounds=4, devices=8,
+                   controllers=("lroa", "uni_d", "uni_s", "divfl"))
+EXAMPLES_FL_TOL = 1e-6
+EXAMPLES_SERVE = ("gemma2-27b", "mamba2-130m")
 
 
 @contextlib.contextmanager
@@ -387,6 +418,9 @@ def cudnn_deterministic(on: bool = True):
 
 
 def log(phase: str, **fields) -> None:
+    """One result line, with ``at_s``: the seconds since the script
+    started, which show where its time goes."""
+    fields["at_s"] = time.perf_counter() - T0
     print(f"[{phase}] " + json.dumps(fields, default=float), flush=True)
 
 
@@ -906,13 +940,6 @@ def phase_aggregate_lanes(flush, hbm: float, f32_peak: float) -> list:
     return rows
 
 
-# the controllers of the paper's comparison, by name, in repro_torch.core
-CONTROLLER_CLASSES = {"lroa": "LROAController",
-                      "uni_d": "UniformDynamicController",
-                      "uni_s": "UniformStaticController",
-                      "divfl": "DivFLController"}
-
-
 def make_task(cfg: dict):
     """``cfg``'s task: the ResNet (``task='resnet'``) or the CNN."""
     from repro_torch.models import CNNTask, ResNetTask
@@ -927,14 +954,16 @@ def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None,
                   controller: str = "lroa", use_engine: bool = True,
                   client_keys_fn=None, mesh=None):
     """A ``FederatedTrainer`` on ``cfg``'s testbed under ``controller``
-    (a key of :data:`CONTROLLER_CLASSES`), on the bank ``bank_mode`` builds
-    (the trainer's default 'auto': the tier ladder when the partition
-    spans several tiers); ``use_engine=False`` takes the sequential
-    reference path; ``mesh`` shards the client axis over its ranks."""
+    (a key of ``repro_torch.sim.testbed.CONTROLLERS``), on the bank
+    ``bank_mode`` builds (the trainer's default 'auto': the tier ladder
+    when the partition spans several tiers); ``use_engine=False`` takes
+    the sequential reference path; ``mesh`` shards the client axis over
+    its ranks."""
     import repro_torch.core as core
     from repro_torch.fl import (ChannelConfig, ChannelProcess, ClientConfig,
                                 FederatedTrainer)
     from repro_torch.optim import paper_step_decay
+    from repro_torch.sim.testbed import CONTROLLERS
 
     params = core.paper_default_params(
         num_devices=cfg["num_devices"], sample_count=cfg["sample_count"],
@@ -942,9 +971,8 @@ def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None,
         dataset=cfg.get("dataset", "cifar10"), device=device)
     hp = core.estimate_hyperparams(params, 0.1, loss_scale=1.5, mu=1.0,
                                    nu=1e5)
-    cls = getattr(core, CONTROLLER_CLASSES[controller])
     return FederatedTrainer(
-        make_task(cfg), params, cls(params, hp),
+        make_task(cfg), params, CONTROLLERS[controller](params, hp),
         ChannelProcess(cfg["num_devices"], ChannelConfig(seed=cfg["seed"])),
         data["clients"],
         ClientConfig(local_epochs=cfg["local_epochs"],
@@ -957,14 +985,23 @@ def build_trainer(device: str, cfg: dict, data: dict, sort_keys_fn=None,
 
 
 def make_data(cfg: dict) -> dict:
-    """The benchmark testbed (``benchmarks/common.build_testbed``), from
-    the port's numpy copies of the data layer; ``cfg['partition'] ==
-    'writer'`` takes the FEMNIST-like writer partition instead of the
-    Dirichlet one, and with ``cfg['sizes']``, the training split is cut
-    into clients of those sizes."""
-    from repro_torch.data import (dirichlet_partition, make_client_datasets,
+    """The benchmark testbed's data (``repro_torch.sim.testbed.
+    build_testbed``, the port's numpy copies of the data layer);
+    ``cfg['partition'] == 'writer'`` takes the FEMNIST-like writer
+    partition instead of the Dirichlet one, and with ``cfg['sizes']``,
+    the training split is cut into clients of those sizes."""
+    from repro_torch.data import (make_client_datasets,
                                   synthetic_image_classification,
                                   train_test_split, writer_partition)
+    from repro_torch.sim.testbed import BenchConfig, build_testbed
+
+    if "sizes" not in cfg and cfg.get("partition") != "writer":
+        params, _, clients, test = build_testbed(BenchConfig(
+            num_devices=cfg["num_devices"], num_classes=cfg["num_classes"],
+            image_shape=cfg["image_shape"], examples=cfg["examples"],
+            seed=cfg["seed"]), device="cpu")
+        return dict(clients=clients, test=test,
+                    sizes=params.data_sizes.numpy())
     x, y = synthetic_image_classification(
         cfg["examples"], cfg["image_shape"], cfg["num_classes"], noise=0.3,
         seed=cfg["seed"])
@@ -973,12 +1010,9 @@ def make_data(cfg: dict) -> dict:
         offs = np.cumsum((0,) + tuple(cfg["sizes"]))
         parts = [np.arange(offs[i], offs[i + 1])
                  for i in range(len(cfg["sizes"]))]
-    elif cfg.get("partition") == "writer":
+    else:
         parts = writer_partition(ytr, cfg["num_devices"],
                                  seed=cfg["seed"] + 2)
-    else:
-        parts = dirichlet_partition(ytr, cfg["num_devices"], 0.5,
-                                    seed=cfg["seed"] + 2)
     return dict(clients=make_client_datasets(xtr, ytr, parts), test=test,
                 sizes=np.asarray([len(p) for p in parts], np.float32))
 
@@ -3179,6 +3213,7 @@ def phase_heterogeneity(device: str = "cuda", rounds: int = HET_ROUNDS,
                                 HeterogeneityConfig, heterogeneous_params,
                                 sample_clients)
     from repro_torch.core.system_model import ARRAY_FIELDS
+    from repro_torch.sim.testbed import CONTROLLERS
 
     n, k = 120, 2
     sizes = np.random.default_rng(seed).integers(200, 600, n).astype(
@@ -3197,7 +3232,7 @@ def phase_heterogeneity(device: str = "cuda", rounds: int = HET_ROUNDS,
                                        nu=1e5)
         totals, seconds = {}, {}
         for name in ("lroa", "uni_s"):
-            ctrl = getattr(core, CONTROLLER_CLASSES[name])(params, hp)
+            ctrl = CONTROLLERS[name](params, hp)
             chan = ChannelProcess(n, ChannelConfig(seed=seed))
             rng = np.random.default_rng(seed + 1)
             total = 0.0
@@ -5176,20 +5211,164 @@ def phase_delta_reduce_leaves(flush, hbm: float, f32_peak: float) -> list:
     return rows
 
 
+def _import_examples() -> tuple:
+    """The drivers ``examples/{quickstart,fl_simulation,serve_decode}
+    _torch.py`` as modules."""
+    import importlib
+
+    path = os.path.join(ROOT, "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return tuple(importlib.import_module(f"{name}_torch") for name in (
+        "quickstart", "fl_simulation", "serve_decode"))
+
+
+def quickstart_run(rounds: int, device: str) -> dict:
+    """``quickstart_torch.run(rounds=rounds, device=device)`` with its
+    seconds."""
+    quickstart = _import_examples()[0]
+    _device_sync()
+    t0 = time.perf_counter()
+    out = quickstart.run(rounds=rounds, device=device)
+    _device_sync()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _rel_errs(card: dict, cpu: dict) -> dict:
+    """{number: largest |card - cpu| / |cpu|} over two quickstart runs'
+    printed numbers (lambda, V and each printed round's)."""
+    errs = {key: max(abs(a[key] - b[key]) / abs(b[key])
+                     for a, b in zip(card["rounds"], cpu["rounds"]))
+            for key in cpu["rounds"][0] if key != "round"}
+    errs.update({key: abs(card[key] - cpu[key]) / abs(cpu[key])
+                 for key in ("lam", "V")})
+    return errs
+
+
+def phase_examples(device: str = "cuda") -> dict:
+    """The repo's drivers on the card, through the functions a user's
+    command calls: ``quickstart_torch.run`` for :data:`QUICKSTART_ROUNDS`
+    rounds against the same on the CPU, every printed number within :data:`QUICKSTART_RTOL` relative, no
+    kernel launched; ``fl_simulation_torch.main`` at its defaults (the
+    table, seconds, lane-rounds/s, one ``fl_aggregate_lanes`` launch a
+    round); its ``run_arena_grid`` at :data:`EXAMPLES_FL` on the card and
+    the CPU from one initial model drawn on the CPU (the port's own draws
+    otherwise, the same bits on both), accuracy and total latency within
+    :data:`EXAMPLES_FL_TOL`; ``serve_decode_torch.main`` of each of
+    :data:`EXAMPLES_SERVE`'s smoke models at its defaults, the card's
+    tokens equal to the CPU's, the flash and SSD launches of
+    :func:`expected_launches`.  Returns the launches by path.  With
+    ``device='cpu'`` (a rehearsal) it runs the same code against itself,
+    and no launch is counted."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.sim.testbed import BenchConfig, build_testbed
+    from repro_torch.tree import tree_map
+
+    _, fl_sim, serve_demo = _import_examples()
+    on_card = device != "cpu"
+    t_phase = time.perf_counter()
+
+    _reset_launch_counts()
+    card = quickstart_run(QUICKSTART_ROUNDS, device)
+    launched = sum(_launch_counts().values())
+    cpu = quickstart_run(QUICKSTART_ROUNDS, "cpu")
+    errs = _rel_errs(card, cpu)
+    log("examples.quickstart", rounds=QUICKSTART_ROUNDS,
+        printed_rounds=[r["round"] for r in card["rounds"]],
+        card_s=card["seconds"], cpu_s=cpu["seconds"],
+        card_rounds_per_s=QUICKSTART_ROUNDS / card["seconds"],
+        max_rel_err=errs, rtol=QUICKSTART_RTOL, launches=launched,
+        card=card["rounds"], cpu=cpu["rounds"])
+    require(all(e <= QUICKSTART_RTOL for e in errs.values()),
+            f"quickstart card against CPU within {QUICKSTART_RTOL}: {errs}")
+    require(launched == 0, "the quickstart launches no kernel")
+
+    _reset_launch_counts()
+    _device_sync()
+    t0 = time.perf_counter()
+    table = fl_sim.main(["--device", device])
+    _device_sync()
+    seconds = time.perf_counter() - t0
+    full = _launch_counts()
+    defaults = BenchConfig(num_devices=24, rounds=40)
+    lanes = len(table)
+    log("examples.fl_simulation", seconds=seconds,
+        lane_rounds_per_s=lanes * defaults.rounds / seconds, lanes=lanes,
+        rounds=defaults.rounds, devices=defaults.num_devices, table=table,
+        launches=full)
+    require(full["fl_aggregate_lanes"] == defaults.rounds * on_card,
+            "one fl_aggregate_lanes launch a round")
+    require(all(np.isfinite(v).all() for v in table.values()),
+            "a finite table")
+
+    cfg = BenchConfig(num_devices=EXAMPLES_FL["devices"],
+                      rounds=EXAMPLES_FL["rounds"])
+    names = list(EXAMPLES_FL["controllers"])
+    init = build_testbed(cfg, device="cpu")[1].init(
+        torch.Generator().manual_seed(cfg.seed + 1))
+    _reset_launch_counts()
+    card_table = fl_sim.run_arena_grid(
+        names, cfg, 1, device=device,
+        params0=tree_map(lambda t: t.to(device, copy=True), init))
+    small = _launch_counts()
+    cpu_table = fl_sim.run_arena_grid(names, cfg, 1, device="cpu",
+                                      params0=init)
+    err = max(abs(a - b) - EXAMPLES_FL_TOL * abs(b)
+              for name in names
+              for a, b in zip(card_table[name], cpu_table[name]))
+    log("examples.fl_simulation.reference", rounds=cfg.rounds,
+        devices=cfg.num_devices, card=card_table, cpu=cpu_table,
+        excess_over_rtol=err, tol=EXAMPLES_FL_TOL, launches=small)
+    require(err <= EXAMPLES_FL_TOL, "fl_simulation card against CPU within "
+            f"{EXAMPLES_FL_TOL}: {card_table} against {cpu_table}")
+    require(small["fl_aggregate_lanes"] == cfg.rounds * on_card,
+            "one fl_aggregate_lanes launch a round")
+
+    served = {}
+    for arch in EXAMPLES_SERVE:
+        tokens_cpu = serve_demo.main(["--device", "cpu", "--arch", arch])
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = serve_demo.main(["--device", device, "--arch", arch])
+        _device_sync()
+        seconds = time.perf_counter() - t0
+        got = _launch_counts()
+        lm = dataclasses.replace(get_smoke_config(arch), attn_impl="flash")
+        want = {k: (pre + 15 * dec) * on_card for k, (pre, dec) in
+                expected_launches(lm, 24).items()}
+        label = "examples.serve." + arch.split("-")[0]
+        log(label, seconds=seconds, tokens_equal=bool(
+            np.array_equal(tokens, tokens_cpu)), launches=got,
+            expected=want)
+        require(np.array_equal(tokens, tokens_cpu),
+                f"{arch} card tokens equal the CPU's")
+        require(got == want, f"{arch} launches {got}, expected {want}")
+        served[label] = got
+    seconds = time.perf_counter() - t_phase
+    log("examples", seconds=seconds)
+    return {"seconds": seconds, "examples.fl_simulation":
+            full["fl_aggregate_lanes"],
+            "examples.fl_simulation.reference": small["fl_aggregate_lanes"],
+            **served}
+
+
 def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
                  main_summary: dict, single_summary: dict,
                  scan_summary: dict, arena_summary: dict, map_summary: dict,
                  sweep_summary: dict, paper: dict, flash: list, ssd: list,
                  gemma: dict, mamba: dict, families: dict, smi: str,
                  sass: dict, flash_lse: list, training: dict,
-                 reduce_leaves: list, shard: dict, warmups: dict) -> dict:
+                 reduce_leaves: list, shard: dict, warmups: dict,
+                 examples: dict) -> dict:
     """The ``kernels`` record: each kernel with its launches on its main
     paths (the LROA rounds on the ladder and on the single bucket, the
     seven controllers' rollouts, the mapped arena's lane rounds and the
     paper testbeds' trainer rounds; the arena's and the sweep's
     lane-batched rounds; the gemma2, mamba2 and the other families'
     generations; the LM training phases; the sharded trainer's and arena's
-    rounds, per rank) and its numbers at that path's shapes;
+    rounds, per rank; the drivers' runs of the ``examples`` phase) and its
+    numbers at that path's shapes;
     ``flash_attention_lse`` is the flash kernel writing its lse output,
     the training forward's form; ``fl_delta_reduce`` is ``fl_aggregate``'s
     zero-theta form, a rank's partial eq.-(4) term."""
@@ -5218,6 +5397,7 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
     rc = next(r for r in reduce_leaves if r["label"] == "cnn")
     rr = next(r for r in reduce_leaves if r["label"] == "resnet")
     lse_main = next(r for r in flash_lse if r["label"] == "gemma2b.train")
+    demo_ssd = examples["examples.serve.mamba2"]
 
     def trained(kernel):
         return {path: run["launches"].get(kernel, 0)
@@ -5334,14 +5514,19 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
               + sweep_summary["launches"]["fl_aggregate_lanes"]
               + sum(shard["launches"]["fl_aggregate_lanes"].values())
               + sum(w["launches"]["fl_aggregate_lanes"]
-                    for w in warmups.values() if "launches" in w),
+                    for w in warmups.values() if "launches" in w)
+              + examples["examples.fl_simulation"]
+              + examples["examples.fl_simulation.reference"],
               dict(la, library_ms=None),
               launches_by_path={
                   "arena": arena_summary["launches"]["fl_aggregate_lanes"],
                   "sweep": sweep_summary["launches"]["fl_aggregate_lanes"],
                   **shard["launches"]["fl_aggregate_lanes"],
                   **{path: w["launches"]["fl_aggregate_lanes"]
-                     for path, w in warmups.items() if "launches" in w}},
+                     for path, w in warmups.items() if "launches" in w},
+                  **{path: examples[path] for path in (
+                      "examples.fl_simulation",
+                      "examples.fl_simulation.reference")}},
               design="the header comment of src/repro_torch/kernels/csrc/"
                      "fl_aggregate.cu (segments on coefficient rows)",
               point="the arena's round at paper scale: 7 lanes x the CNN's "
@@ -5366,13 +5551,16 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
               total(gemma, "flash_attention")
               + sum(total(run, "flash_attention")
                     for run in families.values())
-              + sum(trained("flash_attention").values()),
+              + sum(trained("flash_attention").values())
+              + examples["examples.serve.gemma2"]["flash_attention"],
               dict(fg, library_ms=fp["library_ms"]),
               launches_by_path={
                   "serve.gemma2": total(gemma, "flash_attention"),
                   **{f"serve.{phase}": total(run, "flash_attention")
                      for phase, run in families.items()},
-                  **trained("flash_attention")},
+                  **trained("flash_attention"),
+                  "examples.serve.gemma2": examples[
+                      "examples.serve.gemma2"]["flash_attention"]},
               design=DESIGNS["flash_attention"],
               sass=sass.get("flash_attention"),
               max_abs_err_all_points=max(r["max_abs_err"] for r in flash),
@@ -5418,14 +5606,17 @@ def kernels_line(points: list, leaves: dict, lanes: list, resnet: dict,
               "src/repro/kernels/ssd_scan.py:65",
               total(mamba, "ssd_scores") + total(mamba, "ssd_chunk")
               + sum(trained("ssd_scores").values())
-              + sum(trained("ssd_chunk").values()), sm,
+              + sum(trained("ssd_chunk").values())
+              + demo_ssd["ssd_scores"] + demo_ssd["ssd_chunk"], sm,
               launches_by_path={
                   "serve.mamba2": total(mamba, "ssd_scores")
                   + total(mamba, "ssd_chunk"),
                   **{path: n + trained("ssd_chunk")[path]
-                     for path, n in trained("ssd_scores").items()}},
+                     for path, n in trained("ssd_scores").items()},
+                  "examples.serve.mamba2": demo_ssd["ssd_scores"]
+                  + demo_ssd["ssd_chunk"]},
               launches_by_kernel={k: total(mamba, k)
-                                  + sum(trained(k).values())
+                                  + sum(trained(k).values()) + demo_ssd[k]
                                   for k in ("ssd_scores", "ssd_chunk")},
               design=DESIGNS["ssd_chunk"],
               max_abs_err_all_points=max(r["max_abs_err"] for r in ssd),
@@ -5627,6 +5818,9 @@ def run_phases(dry: dict) -> int:
     torch.cuda.empty_cache()
     training = {"train.gemma2b": gemma_train, "fl_round.gemma2b": fl_round,
                 "train.mamba2": phase_train_mamba2()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = phase_examples()
     phase_roofline(dry, {
         "train.gemma2b": gemma_train["step_s_median"],
         "fl_round.gemma2b": statistics.median(fl_round["round_s"]),
@@ -5640,7 +5834,7 @@ def run_phases(dry: dict) -> int:
                                    "paper.femnist": femnist},
                                   flash, ssd, gemma, mamba, families, smi,
                                   sass, flash_lse, training, reduce_leaves,
-                                  shard, warmups)),
+                                  shard, warmups, examples)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,7 +7,9 @@ the JAX package's dispatch planner and cost model), chunked checkpointed
 runs and the ``SweepService`` over them (queued, coalesced submissions,
 kill and resume through ``NpzChunkStore``); ``Arena.warmup`` and
 ``SweepService.warmup`` run a grid's bucket signatures ahead, for the
-retrace watchdog (``repro_torch.obs.Watchdog``)."""
+retrace watchdog (``repro_torch.obs.Watchdog``); the drivers' testbed
+(``testbed``: ``BenchConfig``, ``build_testbed``, ``make_trainer``,
+``run_controller``)."""
 
 from repro_torch.sim.arena import (CHANNEL_STREAM, Arena, ScenarioGrid,
                                    aot_cache_warmup_supported,
@@ -19,3 +21,6 @@ from repro_torch.sim.eval import EvalBank
 from repro_torch.sim.report import RolloutReport, concat_chunk_metrics
 from repro_torch.sim.service import (CHUNK_STORE_SCHEMA_VERSION,
                                      NpzChunkStore, SweepService)
+from repro_torch.sim.testbed import (CONTROLLERS, BenchConfig,
+                                     build_testbed, make_trainer,
+                                     run_controller)

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's drivers (``examples/*_torch.py``) import neither ``jax`` nor
+anything of the JAX package ``repro``."""
 
 import ast
 import os
@@ -44,7 +45,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py"]
+    + [str(p.relative_to(REPO))
+       for p in (REPO / "examples").glob("*_torch.py")]))
 def test_source_imports_no_jax_and_no_repro(path):
     tree = ast.parse((REPO / path).read_text(), filename=path)
     for node in ast.walk(tree):
