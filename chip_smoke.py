@@ -96,7 +96,10 @@ error is caught):
    tiers it hits (queues card against CPU within 1e-4 there, the
    control plane's spread at N = 12); reference.pool — a ``BankPool``
    after churn (every tensor's storage unmoved) and a hierarchical
-   round, card against CPU; reference.sweep — the sweep layer on the
+   round, card against CPU, then float16 clients through a single
+   bucket, a ladder and a pool (``f16.*``: ``nbytes`` equal to
+   ``estimate_bank_nbytes``, features half the f32 bank's bytes, one
+   round card against CPU); reference.sweep — the sweep layer on the
    tiered testbed: a ``SweepService`` over ``Arena(k_mode='auto',
    chunk_size=2)`` with in-rollout evaluation, two submissions (the
    seven controllers at K = 4; LROA and Uni-D at K = 2 and 6 with
@@ -1583,7 +1586,8 @@ def phase_reference_pool(devices=("cpu", "cuda"), cfg: dict = TIERED
     k-means clusters: ``round_step(hierarchical=True)`` within 1e-4 of
     the CPU's, its losses bitwise the flat round's and its params within
     1e-5 of them on each device, no ``fl_aggregate`` launch (the cluster
-    reduce is plain ``index_add_``).  Also run by
+    reduce is plain ``index_add_``); then the float16 banks
+    (:func:`phase_reference_pool_f16`).  Also run by
     ``tests/test_torch_cuda.py``."""
     from repro_torch.fl import BankPool, ClientBank
     from repro_torch.kernels import fl_aggregate as fk
@@ -1653,6 +1657,101 @@ def phase_reference_pool(devices=("cpu", "cuda"), cfg: dict = TIERED
             tol=1e-4)
         require(param_err <= 1e-4 and loss_err <= 1e-4,
                 f"{name} round: card and CPU agree within 1e-4")
+    phase_reference_pool_f16(devices, cfg)
+
+
+def phase_reference_pool_f16(devices=("cpu", "cuda"), cfg: dict = TIERED
+                             ) -> None:
+    """The banks in their data's dtypes, on the card against the CPU: the
+    tiered testbed's 12 clients with float16 features (int32 labels)
+    through a single ``ClientBank``, a ``TieredClientBank`` and a full
+    ``BankPool``.  Each bank's ``nbytes`` equals ``estimate_bank_nbytes(...,
+    feature_dtype=np.float16, label_dtype=np.int32)`` (of each rung's
+    members on the ladder, of ``capacity`` full-bucket clients for the
+    pool), its feature stack holds half the bytes of the f32 bank of the
+    same clients, and one round from the same params, selection,
+    coefficients and epoch keys agrees card against CPU within 1e-4, with
+    one ``fl_aggregate`` launch on the card.  Also run by
+    ``tests/test_torch_cuda.py``."""
+    from repro_torch.fl import BankPool, RoundEngine, estimate_bank_nbytes
+    from repro_torch.fl.client import ClientConfig
+    from repro_torch.kernels import fl_aggregate as fk
+
+    clients = make_data(cfg)["clients"]
+    half = [(x.astype(np.float16), y) for x, y in clients]
+    sizes = [len(x) for x, _ in half]
+    shape = half[0][0].shape[1:]
+    est = dict(feature_dtype=np.float16, label_dtype=half[0][1].dtype)
+    require(est["label_dtype"] == np.int32, "the testbed's labels are int32")
+    k, epochs = cfg["sample_count"], cfg["local_epochs"]
+    rng = np.random.default_rng(5)
+    sel = rng.choice(len(half), k)
+    coeffs = rng.dirichlet(np.ones(k)).astype(np.float32)
+    task = make_task(cfg)
+    runs = {}
+    for device in devices:
+        engine = RoundEngine(task, ClientConfig(
+            local_epochs=epochs, batch_size=cfg["batch_size"]), device=device)
+        init = {n: p.to(device) for n, p in task.init(
+            torch.Generator().manual_seed(7)).items()}
+
+        def banks(data):
+            return {"single": engine.make_bank(data, tiered="single"),
+                    "tiered": engine.make_bank(data, tiered="tiered"),
+                    "pool": BankPool(engine.cfg, capacity=len(data),
+                                     initial_clients=dict(enumerate(data)),
+                                     device=device,
+                                     x_layout=task.device_layout)}
+
+        def xs_bytes(bank):
+            return sum(r.xs.numel() * r.xs.element_size()
+                       for r in getattr(bank, "tiers", [bank]))
+
+        wide = {name: xs_bytes(b) for name, b in banks(clients).items()}
+        out = {}
+        for name, bank in banks(half).items():
+            if name == "tiered":
+                want = sum(estimate_bank_nbytes(
+                    [sizes[i] for i in m], cfg["batch_size"], shape, **est)
+                    for m in bank.tier_members)
+            else:
+                want = estimate_bank_nbytes(
+                    [bank.bucket_examples] * len(sizes) if name == "pool"
+                    else sizes, cfg["batch_size"], shape, **est)
+            dtypes = sorted({str(r.xs.dtype) for r in
+                             getattr(bank, "tiers", [bank])})
+            require(bank.nbytes == want and dtypes == ["torch.float16"],
+                    f"{device} {name}: the float16 bank holds {bank.nbytes} "
+                    f"bytes in {dtypes}, the estimate {want}")
+            require(2 * xs_bytes(bank) == wide[name],
+                    f"{device} {name}: float16 features {xs_bytes(bank)} B "
+                    f"against f32 {wide[name]} B")
+            keys = torch.as_tensor(np.random.default_rng(4).random(
+                (k, epochs, bank.bucket_examples), np.float32))
+            slots = bank.slots_for(sel) if name == "pool" else sel
+            before = fk.LAUNCHES["fl_aggregate"]
+            p, l = engine.round_step(init, bank, slots, coeffs, cfg["lr"],
+                                     keys)
+            launches = fk.LAUNCHES["fl_aggregate"] - before
+            require(launches == (1 if device == "cuda" else 0),
+                    f"{device} {name}: fl_aggregate launches {launches}")
+            out[name] = ({n: v.cpu() for n, v in p.items()}, l.cpu(),
+                         dict(nbytes=bank.nbytes, estimate=want,
+                              xs_bytes=xs_bytes(bank),
+                              xs_bytes_f32=wide[name],
+                              fl_aggregate_launches=launches))
+        runs[device] = out
+    cpu, card = devices
+    for name in runs[cpu]:
+        (pc, lc, _), (pg, lg, nb) = runs[cpu][name], runs[card][name]
+        param_err = max(float((pc[n] - pg[n]).abs().max()) for n in pc)
+        loss_err = float((lc - lg).abs().max())
+        log("reference.pool", round=f"f16.{name}", selected=sel.tolist(),
+            feature_dtype="float16", label_dtype="int32", **nb,
+            param_max_abs_err=param_err, loss_max_abs_err=loss_err,
+            tol=1e-4)
+        require(param_err <= 1e-4 and loss_err <= 1e-4,
+                f"f16 {name} round: card and CPU agree within 1e-4")
 
 
 def phase_arena(trainer, scan: dict, test: tuple, cfg: dict = PAPER_SCALE,

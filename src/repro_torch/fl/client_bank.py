@@ -9,8 +9,13 @@ transfer of client data.
 * The inputs are stored in the layout the task reads (``x_layout``,
   e.g. ``CNNTask.device_layout``: NHWC -> NCHW), applied once at upload
   so no SGD step permutes its batch.
-* Labels are stored int64 (what ``F.cross_entropy`` takes), the
-  ``num_steps`` / ``num_examples`` masks as int64 ``[N]``.
+* The stacks keep the data's dtypes, as the JAX package's banks do
+  (:func:`stored_dtype`: a 64-bit dtype at 32 bits, as JAX stores it
+  with x64 off): features as given (f16, f32, uint8 ...), labels as
+  given (int32 for ``data.synthetic``), the ``num_steps`` /
+  ``num_examples`` masks as int32 ``[N]``.  The round engine widens the
+  K gathered rows, at ``[K, B, ...]``: features to f32, integer labels
+  to int64 (what ``F.cross_entropy`` takes), masks to int64.
 * One GLOBAL bucket ``B = bucket_num_batches(max_i ceil(n_i / bs)) * bs``
   covers every client (see ``repro_torch.data.pipeline``); the masks
   keep padded clients at their true step counts and examples.
@@ -23,7 +28,7 @@ The scale plane behind the same interface:
 * ``storage='int8'``: the xs stack holds per-client affine int8 codes
   (``data.pipeline.quantize_stack``, in the task's layout) and ``[N]``
   f32 ``x_scale`` / ``x_zero``; the round engine dequantizes the K
-  selected rows right after the gather (``quant_args``), so fp32 rows
+  selected rows right after the gather (``quant_args``), so f32 rows
   exist only at ``[K, B, ...]``.
 * ``clusters=k``: host k-means over per-client features
   (``data.pipeline.kmeans_clusters``), ``cluster_of`` on the host and on
@@ -84,24 +89,66 @@ def _nbytes(tensors) -> int:
     return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
+#: 64-bit dtypes and the 32-bit ones the JAX package (x64 off) stores
+_NARROW = {np.dtype(np.float64): np.dtype(np.float32),
+           np.dtype(np.int64): np.dtype(np.int32),
+           np.dtype(np.uint64): np.dtype(np.uint32)}
+
+
+def stored_dtype(dtype) -> np.dtype:
+    """The numpy dtype a bank stores data of ``dtype`` in: the data's
+    own, a 64-bit one at 32 bits (the JAX package's device arrays)."""
+    dtype = np.dtype(dtype)
+    return _NARROW.get(dtype, dtype)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of :func:`stored_dtype` of numpy ``dtype``."""
+    return torch.from_numpy(np.empty(0, stored_dtype(dtype))).dtype
+
+
+def upload(arr, device, layout: Layout = None,
+           copy: bool = True) -> torch.Tensor:
+    """Host ``arr`` on ``device`` in :func:`stored_dtype`, through
+    ``layout`` when given: a private copy that never aliases ``arr``'s
+    memory, on the CPU too, unless ``copy=False`` (``arr`` a stack the
+    caller built for the upload)."""
+    arr = np.asarray(arr)
+    dt = stored_dtype(arr.dtype)
+    arr = np.array(arr, dt) if copy else arr.astype(dt, copy=False)
+    t = torch.as_tensor(arr, device=device)
+    return (layout(t) if layout is not None else t).contiguous()
+
+
+def widen(x: torch.Tensor, y: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stored rows as a task reads them, exactly: features in f32,
+    integer labels in int64 (what ``F.cross_entropy`` takes); a no-op on
+    f32 features and on int64 or float labels."""
+    return x.to(torch.float32), (y if y.is_floating_point()
+                                 else y.to(torch.int64))
+
+
 def estimate_bank_nbytes(sizes: Sequence[int], batch_size: int,
                          feature_shape: Tuple[int, ...],
                          label_shape: Tuple[int, ...] = (),
+                         feature_dtype=np.float32,
+                         label_dtype=np.int32,
                          storage: str = "fp32") -> int:
     """Device bytes a single-bucket :class:`ClientBank` WOULD hold, with
-    no allocation: the ``[N, B, ...]`` xs stack (f32, or int8 codes), the
-    int64 labels, the two int64 ``[N]`` masks and (int8) the f32
-    ``[N]`` scale and zero — :attr:`ClientBank.nbytes` of the port (its
-    labels and masks are int64, so this is not the JAX package's
-    number)."""
+    no allocation, the JAX package's formula: the ``[N, B, ...]`` xs
+    stack (``feature_dtype``, or int8 codes), the ``label_dtype`` labels,
+    the two int32 ``[N]`` masks and (int8) the f32 ``[N]`` scale and
+    zero — :attr:`ClientBank.nbytes` for data of those dtypes."""
     _check_storage(storage)
     n = len(sizes)
     b = max(client_bucket_examples(int(s), batch_size) for s in sizes)
     feat = int(np.prod(feature_shape, dtype=np.int64)) if feature_shape else 1
     lab = int(np.prod(label_shape, dtype=np.int64)) if label_shape else 1
-    total = n * b * feat * (1 if storage == "int8" else 4)
-    total += n * b * lab * 8
-    total += 2 * n * 8                       # num_steps / num_examples
+    x_item = 1 if storage == "int8" else np.dtype(feature_dtype).itemsize
+    total = n * b * feat * x_item
+    total += n * b * lab * np.dtype(label_dtype).itemsize
+    total += 2 * n * 4                       # num_steps / num_examples
     if storage == "int8":
         total += 2 * n * 4                   # x_scale / x_zero
     return int(total)
@@ -136,26 +183,20 @@ class ClientBank:
         rows = slice(self.row_start, self.row_start + self.rows_held)
         if self.storage == "int8":
             host_x, scale, zero = quantize_stack(host_x)
-            self.x_scale = torch.as_tensor(scale[rows], device=self.device)
-            self.x_zero = torch.as_tensor(zero[rows], device=self.device)
+            self.x_scale = upload(scale[rows], self.device)
+            self.x_zero = upload(zero[rows], self.device)
         else:
-            host_x = host_x.astype(np.float32, copy=False)
             self.x_scale = self.x_zero = None
-        xs = torch.as_tensor(host_x[rows], device=self.device)
-        self.xs = (x_layout(xs) if x_layout is not None else xs).contiguous()
-        self.ys = torch.as_tensor(host_y[rows].astype(np.int64),
-                                  device=self.device)
-        self.num_steps = torch.as_tensor(num_steps[rows].astype(np.int64),
-                                         device=self.device)
-        self.num_examples = torch.as_tensor(
-            num_examples[rows].astype(np.int64), device=self.device)
+        self.xs = upload(host_x[rows], self.device, x_layout, copy=False)
+        self.ys = upload(host_y[rows], self.device, copy=False)
+        self.num_steps = upload(num_steps[rows], self.device)
+        self.num_examples = upload(num_examples[rows], self.device)
         if clusters is not None:
             feats = client_cluster_features(self._clients)
             self.cluster_of, self.cluster_centroids = kmeans_clusters(
                 feats, clusters)
             self.num_clusters = int(self.cluster_centroids.shape[0])
-            self.cluster_of_device = torch.as_tensor(
-                self.cluster_of.astype(np.int64), device=self.device)
+            self.cluster_of_device = upload(self.cluster_of, self.device)
         else:
             self.cluster_of = self.cluster_centroids = None
             self.num_clusters = 0
@@ -339,8 +380,12 @@ class BankPool:
     holds inert rows (one step over zeros).  Tallies (``pool.admits``,
     ``pool.evicts``, ``pool.uploads``, ``pool.resident``,
     ``pool.traces``, ``pool.quant.abs_err``) live in its
-    :class:`MetricsRegistry`, ``registry``.  :meth:`warmup` makes the
-    first row write ahead of churn (``traces``).
+    :class:`MetricsRegistry`, ``registry`` (the caller's when given, so
+    several pools and the arena can share one).  The stacks are
+    allocated in ``feature_dtype`` (or int8) and ``label_dtype``
+    (:func:`stored_dtype`), the masks in int32, as in the JAX package.
+    :meth:`warmup` makes the first row write ahead of churn
+    (``traces``).
     """
 
     def __init__(self, client_cfg: ClientConfig, capacity: int,
@@ -350,10 +395,12 @@ class BankPool:
                  feature_dtype=np.float32, label_dtype=np.int32,
                  storage: str = "fp32", clusters: Optional[int] = None,
                  initial_clients: Optional[Dict[object, tuple]] = None,
+                 registry: Optional[MetricsRegistry] = None,
                  device="cuda", x_layout: Layout = None):
         self.batch_size = client_cfg.batch_size
         self.storage = _check_storage(storage)
-        self.registry = MetricsRegistry()
+        self.registry = registry if registry is not None else \
+            MetricsRegistry()
         self.device = torch.device(device)
         self._layout = x_layout
         if capacity < 1:
@@ -391,14 +438,16 @@ class BankPool:
         # identity codes
         xs = torch.zeros((self.capacity, b) + self.feature_shape,
                          dtype=torch.int8 if self.storage == "int8"
-                         else torch.float32, device=dev)
-        self.xs = self._laid_out(xs)
+                         else _torch_dtype(self.feature_dtype), device=dev)
+        self.xs = (self._layout(xs) if self._layout is not None
+                   else xs).contiguous()
         self.ys = torch.zeros((self.capacity, b) + self.label_shape,
-                              dtype=torch.int64, device=dev)
-        self.num_steps = torch.ones(self.capacity, dtype=torch.int64,
+                              dtype=_torch_dtype(self.label_dtype),
+                              device=dev)
+        self.num_steps = torch.ones(self.capacity, dtype=torch.int32,
                                     device=dev)
         self.num_examples = torch.full((self.capacity,), b,
-                                       dtype=torch.int64, device=dev)
+                                       dtype=torch.int32, device=dev)
         if self.storage == "int8":
             self.x_scale = torch.ones(self.capacity, dtype=torch.float32,
                                       device=dev)
@@ -417,7 +466,7 @@ class BankPool:
             self.num_clusters = int(self.cluster_centroids.shape[0])
             self.cluster_of = np.zeros(self.capacity, np.int32)
             self.cluster_of_device = torch.zeros(self.capacity,
-                                                 dtype=torch.int64,
+                                                 dtype=torch.int32,
                                                  device=dev)
         else:
             self.cluster_centroids = self.cluster_of = None
@@ -434,10 +483,6 @@ class BankPool:
         self._sizes = np.zeros(self.capacity, np.int32)
         for cid, (x, y) in init_items:
             self.admit(cid, x, y)
-
-    def _laid_out(self, xs: torch.Tensor) -> torch.Tensor:
-        return (self._layout(xs) if self._layout is not None
-                else xs).contiguous()
 
     # -- churn --------------------------------------------------------------
 
@@ -467,9 +512,8 @@ class BankPool:
                 f"bucket B={self.bucket_examples} — size the pool's "
                 f"max_examples for the largest admissible client")
         px, py = pad_client_data(x, y, self.bucket_examples)
-        rows = {"ys": py.astype(np.int64),
-                "num_steps": np.int64(max(n // self.batch_size, 1)),
-                "num_examples": np.int64(n)}
+        rows = {"ys": py, "num_steps": np.int32(max(n // self.batch_size, 1)),
+                "num_examples": np.int32(n)}
         if self.storage == "int8":
             q, scale, zero = quantize_stack(px[None])
             err = float(np.abs(dequantize_stack(q, scale, zero)
@@ -478,18 +522,17 @@ class BankPool:
             rows["xs"] = q
             rows["x_scale"], rows["x_zero"] = scale[0], zero[0]
         else:
-            rows["xs"] = px[None].astype(np.float32)
+            rows["xs"] = px[None]
         slot = self._free.pop()
         if self.cluster_of_device is not None:
             cid = assign_clusters(client_cluster_features([(x, y)]),
                                   self.cluster_centroids)[0]
             self.cluster_of[slot] = cid
-            rows["cluster_of_device"] = np.int64(cid)
+            rows["cluster_of_device"] = np.int32(cid)
         for name in self._buffer_names:
-            row = torch.as_tensor(rows[name], device=self.device)
-            if name == "xs":
-                row = self._laid_out(row)[0]
-            getattr(self, name)[slot].copy_(row)
+            row = upload(rows[name], self.device,
+                         self._layout if name == "xs" else None, copy=False)
+            getattr(self, name)[slot].copy_(row[0] if name == "xs" else row)
         if not self.traces:
             # the pool's cold write (the JAX package's scatter trace):
             # every admit writes rows of the same shapes

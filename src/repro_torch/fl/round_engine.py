@@ -88,7 +88,7 @@ from repro_torch.core import system_model as sm
 from repro_torch.data.pipeline import assign_tiers, validate_client_data
 from repro_torch.fl import client as fl_client
 from repro_torch.fl import server as fl_server
-from repro_torch.fl.client_bank import ClientBank, TieredClientBank
+from repro_torch.fl.client_bank import ClientBank, TieredClientBank, widen
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.launch import mesh as mesh_lib
@@ -129,18 +129,22 @@ def _take(bank, idx: torch.Tensor) -> tuple:
 
 
 def _finish(rows: tuple):
-    """Taken rows -> ``(xs, ys, num_steps, num_examples)``.  An int8
-    bank's rows are dequantized here, right after the gather, at ``[K,
-    B, ...]``: ``q * scale + zero`` rounded once per element
-    (``ref.fma_f32``), the fused multiply-add XLA gives the JAX
-    package's gather (``data.pipeline.dequantize_stack``, a product then
-    a sum, may differ from it in the last bit)."""
+    """Taken rows -> ``(xs, ys, num_steps, num_examples)`` as the SGD
+    reads them, widened here, right after the gather, at ``[K, B,
+    ...]``: the banks keep their data's dtypes, and the rows become f32
+    features, int64 labels (``client_bank.widen``) and int64 masks,
+    exactly.  An int8 bank's rows are dequantized here:
+    ``q * scale + zero`` rounded once per element (``ref.fma_f32``), the
+    fused multiply-add XLA gives the JAX package's gather
+    (``data.pipeline.dequantize_stack``, a product then a sum, may
+    differ from it in the last bit)."""
     xs, ys, ns, ne, scale, zero = rows
+    xs, ys = widen(xs, ys)
     if scale is not None:
         shape = (-1,) + (1,) * (xs.dim() - 1)
-        xs = ref.fma_f32(xs.to(torch.float32), scale.reshape(shape),
-                         zero.reshape(shape))
-    return xs, ys, ns, ne
+        xs = ref.fma_f32(xs, scale.reshape(shape), zero.reshape(shape))
+    return (xs, ys,
+            *(None if m is None else m.to(torch.int64) for m in (ns, ne)))
 
 
 def _gather(bank, idx: torch.Tensor):

@@ -61,7 +61,7 @@ from repro_torch.core.baselines import DivFLController
 from repro_torch.core.controller import realized_round_time
 from repro_torch.fl import client as fl_client
 from repro_torch.fl import server as fl_server
-from repro_torch.fl.client_bank import TieredClientBank
+from repro_torch.fl.client_bank import TieredClientBank, upload, widen
 from repro_torch.fl.environment import ChannelProcess
 from repro_torch.fl.round_engine import RoundEngine
 from repro_torch.obs import trace as obs_trace
@@ -137,11 +137,11 @@ class FederatedTrainer:
                                           storage=bank_storage)
         self.test_data = None
         if test_data is not None:
-            x = torch.as_tensor(np.asarray(test_data[0], np.float32),
-                                device=self.device)
-            self.test_data = (task.device_layout(x), torch.as_tensor(
-                np.asarray(test_data[1]).astype(np.int64),
-                device=self.device))
+            # in the data's dtypes, as the JAX package holds it; widened
+            # where evaluate reads it
+            self.test_data = (upload(test_data[0], self.device,
+                                     task.device_layout),
+                              upload(test_data[1], self.device))
         self._np_rng = np.random.default_rng(seed)
         self._key_gen = torch.Generator(device=self.device)
         self._key_gen.manual_seed(seed)
@@ -216,7 +216,7 @@ class FederatedTrainer:
     def evaluate(self) -> float:
         if self.test_data is None:
             return float("nan")
-        x, y = self.test_data
+        x, y = widen(*self.test_data)
         with torch.no_grad():
             m = self.task.metrics(self.global_params, {"x": x, "y": y})
         return float(m["accuracy"])

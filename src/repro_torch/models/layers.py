@@ -3,18 +3,17 @@ norms, rotary embeddings, gated MLPs, soft-capping and the token NLL.
 
 Plain functions on tensors over explicit parameter dicts, in the JAX
 package's layouts (dense weights ``[in, out]``, activations
-``[B, S, ...]``).  M-RoPE (qwen2-vl) enters through its tables
-(:func:`mrope_tables`) and :func:`apply_rotary`, as the JAX package's
-attention applies it; Whisper's encoder adds
-:func:`sinusoidal_positions`.  Initialisers draw from an explicit
-``torch.Generator`` in float32 and cast to the parameter dtype; they do
-not reproduce the JAX package's threefry draws (the parity tests convert
-the reference's parameters with
-``repro_torch.convert.lm_params_from_jax``).
+``[B, S, ...]``).  The models rotate through tables computed once per
+step (:func:`rope_tables`, :func:`mrope_tables`) and
+:func:`apply_rotary`, as the JAX package's attention does;
+:func:`apply_rope` and :func:`apply_mrope` are the one-call forms of its
+public API.  Whisper's encoder adds :func:`sinusoidal_positions`.
+Initialisers draw from an explicit ``torch.Generator`` in float32 and
+cast to the parameter dtype; they do not reproduce the JAX package's
+threefry draws (the parity tests convert the reference's parameters
+with ``repro_torch.convert.lm_params_from_jax``).
 
-Left out (no caller in the port): ``apply_rope`` / ``apply_mrope``
-(the models rotate through the tables) and the mesh's sharding
-constraints.
+Left out: the mesh's sharding constraints (a JAX placement hint).
 """
 
 from __future__ import annotations
@@ -151,6 +150,24 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: ``[B, S, H, D]``; positions: ``[B, S]`` (int).  Split-half RoPE
+    in f32, returned in x's dtype."""
+    return apply_rotary(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: ``[B, S, H, D]``; positions_thw:
+    ``[3, B, S]`` temporal / height / width ids; ``sections`` split the
+    D/2 rotary pairs (t, h, w), each rotated by its own id stream (text
+    tokens carry t = h = w, which is plain RoPE).  In f32, returned in
+    x's dtype."""
+    return apply_rotary(x, *mrope_tables(positions_thw, x.shape[-1], theta,
+                                         sections))
 
 
 def sinusoidal_positions(seq_len: int, dim: int,

@@ -2,13 +2,16 @@
 port of ``repro.sim.eval.EvalBank``.
 
 The test set is uploaded once, at construction (a copy, in the task's
-device layout), and a whole ``[S, ...]`` lane stack is evaluated by
-``torch.func.vmap`` of ``task.metrics`` over the lane axis of the params,
-the test set shared, in calls of at most ``lanes_per_call`` lanes.  Each
-lane's activations over the whole test set are alive at once (about 6 GB
-a lane for the CNN over 7,500 CIFAR-10 images), so the chunk is derived
-from the test set's size: ``EVAL_LANE_EXAMPLES // num_examples`` lanes a
-call, at least one.  Two consumers:
+device layout and in its own dtypes, as the JAX package holds it;
+``fl.client_bank.stored_dtype``), and widened to f32 features and int64
+labels where ``task.metrics`` reads it.  A whole ``[S, ...]`` lane stack
+is evaluated by ``torch.func.vmap`` of ``task.metrics`` over the lane
+axis of the params, the test set shared, in calls of at most
+``lanes_per_call`` lanes.  Each lane's activations over the whole test
+set are alive at once (about 6 GB a lane for the CNN over 7,500
+CIFAR-10 images), so the chunk is derived from the test set's size:
+``EVAL_LANE_EXAMPLES // num_examples`` lanes a call, at least one.  Two
+consumers:
 
 * :meth:`evaluate_stacked` — the arena's final evaluation
   (``RolloutReport.final_metrics``);
@@ -30,6 +33,8 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch.fl.client_bank import upload, widen
+
 Params = Dict[str, torch.Tensor]
 
 #: lane-examples evaluated in one vmapped call (2 lanes of a 7,500-image
@@ -47,10 +52,8 @@ class EvalBank:
                  lanes_per_call: Optional[int] = None):
         self.task = task
         self.device = torch.device(device)
-        x = torch.as_tensor(np.array(x, np.float32), device=self.device)
-        self.x = task.device_layout(x).contiguous()
-        self.y = torch.as_tensor(np.asarray(y).astype(np.int64),
-                                 device=self.device)
+        self.x = upload(x, self.device, task.device_layout)
+        self.y = upload(y, self.device)
         self.num_examples = int(self.x.shape[0])
         if lanes_per_call is None:
             lanes_per_call = EVAL_LANE_EXAMPLES // self.num_examples
@@ -62,9 +65,9 @@ class EvalBank:
     @staticmethod
     def make_eval_fn(task):
         """``eval_fn(params, data) -> {metric: scalar}`` over an ``(x,
-        y)`` test set."""
+        y)`` test set in its stored dtypes (widened here)."""
         def eval_fn(params: Params, data) -> Dict[str, torch.Tensor]:
-            x, y = data
+            x, y = widen(*data)
             return task.metrics(params, {"x": x, "y": y})
         return eval_fn
 

@@ -410,6 +410,18 @@ def test_pool_and_hierarchical_round_on_the_card_match_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_f16_banks_on_the_card_hold_the_reference_bytes_and_match_the_cpu(
+        cuda):
+    """Float16 clients through a ``ClientBank``, a ``TieredClientBank``
+    and a ``BankPool`` on the card: ``nbytes`` equal to
+    ``estimate_bank_nbytes(..., feature_dtype=np.float16,
+    label_dtype=np.int32)``, features half the f32 bank's bytes, one
+    round within 1e-4 of the CPU's with one ``fl_aggregate`` launch
+    (``reference.pool``'s ``f16.*`` rounds)."""
+    _chip_smoke().phase_reference_pool_f16()
+
+
+@pytest.mark.cuda
 def test_sweep_on_the_card_matches_the_cpu(cuda):
     """The sweep service on the tiered testbed (``reference.sweep``):
     killed and resumed bitwise on each device, another lr schedule

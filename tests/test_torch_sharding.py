@@ -12,8 +12,10 @@ run inside the ranks:
 * ``round_step`` on the single bucket, on the 4-rung ladder (slots whose
   rows the other rank holds) and hierarchical over 2 clusters: params and
   losses within 1e-6 of the reference's round (its own sharded contract,
-  ``tests/test_client_bank.py``); int8 rows against the port's unsharded
-  int8 round;
+  ``tests/test_client_bank.py``); int8 rows, and a float16 ladder (its
+  rows exchanged as float16), against the port's unsharded round; the
+  float16 ladder's round bitwise the sharded round of an f32 ladder of
+  the same values;
 * a 2-round LROA ``run_scan`` with the reference's selections and epoch
   keys, and a ladder rollout against the port's own;
 * a 4-lane ``Arena.run`` in 'vmap' and 'map': params within 1e-6,
@@ -66,7 +68,8 @@ WORLD_TIMEOUT = 240.0
 ROUND_CASES = {"single": dict(tiered="single"),
                "tiered": dict(tiered="tiered"),
                "hier": dict(tiered="single", clusters=2),
-               "int8": dict(tiered="single", storage="int8")}
+               "int8": dict(tiered="single", storage="int8"),
+               "f16": dict(tiered="tiered")}
 
 
 def _task():
@@ -94,11 +97,17 @@ def _report(rep):
 # -- the ranks' side (torch and repro_torch only) ----------------------------
 
 
+def _half(clients):
+    """The clients' features in float16."""
+    return [(x.astype(np.float16), y) for x, y in clients]
+
+
 def _rounds(p, eng, one, clients, p0):
     out = {}
     for case, kw in ROUND_CASES.items():
-        bank, ref = eng.make_bank(clients, **kw), one.make_bank(clients, **kw)
-        keys = torch.as_tensor(p["keys"]["tiered" if case == "tiered"
+        data = _half(clients) if case == "f16" else clients
+        bank, ref = eng.make_bank(data, **kw), one.make_bank(data, **kw)
+        keys = torch.as_tensor(p["keys"]["tiered" if kw["tiered"] == "tiered"
                                          else "single"])
         hier = case == "hier"
         ps, ls = eng.round_step(_tensors(p0), bank, SEL, COEFFS, LR, keys,
@@ -112,6 +121,13 @@ def _rounds(p, eng, one, clients, p0):
             one_losses=l1.numpy(), nbytes=bank.nbytes, one_nbytes=ref.nbytes,
             placement=[(r.num_clients, r.row_sharded, r.row_start,
                         r.rows_held) for r in rungs])
+    wide = [(x.astype(np.float32), y) for x, y in _half(clients)]
+    pw, lw = eng.round_step(_tensors(p0), eng.make_bank(wide, "tiered"), SEL,
+                            COEFFS, LR, torch.as_tensor(p["keys"]["tiered"]))
+    out["f16"].update(widened_params=_host(pw), widened_losses=lw.numpy(),
+                      xs_dtypes=[str(r.xs.dtype) for r in
+                                 eng.make_bank(_half(clients),
+                                               "tiered").tiers])
     try:
         eng.round_step(_tensors(p0), eng.make_bank(clients, "single"),
                        SEL[:3], COEFFS[:3], LR,
@@ -428,6 +444,17 @@ def test_round_params_are_bitwise_across_ranks(world, case):
     a, b = (out["rounds"][case] for out in world["ranks"])
     _bitwise(a["params"], b["params"], case)
     assert np.array_equal(a["losses"], b["losses"])
+
+
+def test_sharded_f16_round_is_bitwise_the_widened_round(world):
+    """The float16 ladder keeps float16 rows on every rank and its
+    sharded round (float16 rows exchanged, widened after the exchange)
+    is bitwise the sharded round of an f32 ladder of the same values."""
+    for out in world["ranks"]:
+        got = out["rounds"]["f16"]
+        assert set(got["xs_dtypes"]) == {"torch.float16"}
+        _bitwise(got["params"], got["widened_params"], "f16")
+        assert np.array_equal(got["losses"], got["widened_losses"])
 
 
 def test_banks_place_rows_by_the_reference_rule(world):

@@ -198,8 +198,12 @@ def test_bank_layout_matches_reference_bank():
     np.testing.assert_array_equal(ns.numpy(), np.asarray(rns))
     np.testing.assert_array_equal(ne.numpy(), np.asarray(rne))
     assert bank.steps_per_epoch == ref.steps_per_epoch
-    assert bank.nbytes == (xs.numel() * 4 + ys.numel() * 8
-                           + 2 * bank.num_clients * 8)
+    # the reference's dtypes and bytes: f32 features, int32 labels and
+    # masks (widened to int64 after the gather)
+    assert [t.dtype for t in (xs, ys, ns, ne)] == [torch.float32] + \
+        [torch.int32] * 3
+    assert bank.nbytes == ref.nbytes == (xs.numel() * 4 + ys.numel() * 4
+                                         + 2 * bank.num_clients * 4)
 
 
 def test_unported_bank_modes_raise():

@@ -25,6 +25,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.fl import ChannelConfig, ChannelProcess  # noqa: E402
 from repro_torch.fl import client as fc  # noqa: E402
+from repro_torch.fl import round_engine as re_  # noqa: E402
 
 LANES = 7
 
@@ -34,7 +35,7 @@ def main(device: str = "cuda") -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = cs.SMALL if device == "cpu" else cs.PAPER_SCALE
     data = cs.make_data(cfg)
-    tr = cs.build_trainer(device, cfg, data)
+    tr = cs.build_trainer(device, cfg, data, bank_mode="single")
     eng, bank = tr.engine, tr.bank
     hp = tr.controller.hp
     init = tr.task.init(torch.Generator(device=device).manual_seed(
@@ -48,21 +49,21 @@ def main(device: str = "cuda") -> int:
     sel = torch.as_tensor(np.asarray(met["selected"][0], np.int64),
                           device=device)
     k = int(sel.numel())
-    all_x, all_y, all_steps, all_sizes = bank.device_args()
-    e, rows = eng.cfg.local_epochs, int(all_x.shape[1])
+    e, rows = eng.cfg.local_epochs, bank.bucket_examples
     keys = torch.rand((k, e, rows), device=device,
                       generator=torch.Generator(device=device).manual_seed(3))
     print(json.dumps(dict(clients=sel.tolist(), rows=rows,
                           steps_per_epoch=bank.steps_per_epoch,
-                          num_steps=all_steps[sel].tolist(),
+                          num_steps=bank.num_steps[sel].tolist(),
                           lr=float(lr))), flush=True)
 
     def sgd(starts, idx, sort_keys, steps, per_client, masks):
+        # the engine's gather: f32 features, int64 labels and masks
+        xs, ys, ns, ne = re_._gather(bank, idx)
         return fc.batched_local_sgd(
-            eng.task.loss_fn, starts, torch.index_select(all_x, 0, idx),
-            torch.index_select(all_y, 0, idx), lr, eng.cfg, steps,
-            num_steps=all_steps[idx] if masks else None,
-            num_examples=all_sizes[idx] if masks else None,
+            eng.task.loss_fn, starts, xs, ys, lr, eng.cfg, steps,
+            num_steps=ns if masks else None,
+            num_examples=ne if masks else None,
             sort_keys=sort_keys, per_client=per_client)
 
     def nonfinite(d):
