@@ -14,7 +14,8 @@ The bisections have fixed trip counts (40 doublings, then
 The SUM loop and the outer loop stop on a tolerance, as the JAX
 package's ``lax.while_loop``s do: each iteration reads its convergence
 norm back to the host once (one ``.item()``), so the trip counts are the
-reference's, and a round does only the iterations it needs.
+reference's, and a round does only the iterations it needs; the tracer
+counts each such test as ``solver.loop_tests``.
 
 As in the JAX package, P2.2's concave term carries the derived Q_n
 weight: ``- sum_n Q_n E_n (1-q_n)^K``.  Every function takes ``k``, K
@@ -31,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import system_model as sm
+from repro_torch.obs import trace as obs_trace
 
 _EPS = 1e-12
 
@@ -54,7 +56,9 @@ class SolverConfig:
 
 def _above(value: torch.Tensor, tol: float) -> bool:
     """``value > tol`` read back to the host (the loop condition of a
-    ``lax.while_loop``); compared in the tensor's own float32."""
+    ``lax.while_loop``); compared in the tensor's own float32.  Each call
+    counts one ``solver.loop_tests`` in the tracer."""
+    obs_trace.count("solver.loop_tests")
     return bool(value > tol)
 
 

@@ -262,13 +262,19 @@ class RoundEngine:
     # -- the training core ---------------------------------------------------
 
     def _sgd(self, params: Params, bank, idx: torch.Tensor, lr,
-             sort_keys: torch.Tensor, per_client: bool
+             sort_keys: torch.Tensor, per_client: bool, tier: int = 0
              ) -> Tuple[Params, torch.Tensor]:
         """One ``batched_local_sgd`` over rows ``idx`` of a one-bucket
-        bank, on the first ``B`` columns of the ``[K, E, >= B]`` keys."""
-        xs, ys, ns, ne = _gather(bank, idx)
-        return self._local_sgd(params, xs, ys, ns, ne, lr, sort_keys,
-                               per_client)
+        bank (rung ``tier`` of a ladder), on the first ``B`` columns of
+        the ``[K, E, >= B]`` keys."""
+        with obs_trace.span("engine.train_tier", tier=tier,
+                            slots=int(idx.numel()),
+                            width=bank.bucket_examples,
+                            steps=self.cfg.local_epochs
+                            * bank.steps_per_epoch):
+            xs, ys, ns, ne = _gather(bank, idx)
+            return self._local_sgd(params, xs, ys, ns, ne, lr, sort_keys,
+                                   per_client)
 
     def _local_sgd(self, params: Params, xs: torch.Tensor, ys: torch.Tensor,
                    ns: Optional[torch.Tensor], ne: Optional[torch.Tensor],
@@ -305,8 +311,9 @@ class RoundEngine:
             return self._sgd(params, bank, selected, lr, sort_keys,
                              per_client)
         if tier_sel is None:
-            tier_sel = bank.tier_of_device.index_select(
-                0, selected).cpu().numpy()
+            with obs_trace.span("engine.route", slots=int(selected.numel())):
+                tier_sel = bank.tier_of_device.index_select(
+                    0, selected).cpu().numpy()
         pos = bank.pos_device.index_select(0, selected)
 
         def train_tier(t: int, m: torch.Tensor):
@@ -314,7 +321,8 @@ class RoundEngine:
                        for name, v in params.items()} if per_client
                       else params)
             return self._sgd(starts, bank.tiers[t], pos.index_select(0, m),
-                             lr, sort_keys.index_select(0, m), per_client)
+                             lr, sort_keys.index_select(0, m), per_client,
+                             tier=t)
 
         return _by_tier(np.unique(tier_sel), tier_sel, selected.device,
                         train_tier)
@@ -509,15 +517,12 @@ class RoundEngine:
             return None if v is None else torch.as_tensor(
                 np.asarray(v).astype(np.int64), device=dev)
 
-        with obs_trace.span("engine.round_stacked", k=int(xs.shape[0])):
-            deltas, losses = self._local_sgd(
-                global_params, xs, ys, mask(num_steps), mask(num_examples),
-                lr, torch.as_tensor(sort_keys, dtype=torch.float32,
-                                    device=dev))
-            coeffs = torch.as_tensor(np.asarray(coeffs, np.float32),
-                                     device=dev)
-            return fl_server.aggregate_fused(global_params, deltas, coeffs,
-                                             impl=self.impl), losses
+        deltas, losses = self._local_sgd(
+            global_params, xs, ys, mask(num_steps), mask(num_examples),
+            lr, torch.as_tensor(sort_keys, dtype=torch.float32, device=dev))
+        coeffs = torch.as_tensor(np.asarray(coeffs, np.float32), device=dev)
+        return fl_server.aggregate_fused(global_params, deltas, coeffs,
+                                         impl=self.impl), losses
 
     # -- multi-round rollout -----------------------------------------------
 
@@ -678,6 +683,8 @@ class RoundEngine:
         ``[S, num_rounds, k]``) that the caller reads back.
         """
 
+        on_card = self.device.type == "cuda"
+
         def lanes_fn(params, lanes, lr_seq, t0: int = 0, carry=None,
                      num_rounds: Optional[int] = None):
             s_count = len(lanes)
@@ -703,7 +710,7 @@ class RoundEngine:
                 control = [_control(ln, t, queues[i])
                            for i, ln in enumerate(lanes)]
                 with obs_trace.span("engine.lanes_round", t=t,
-                                    lanes=s_count, k=k):
+                                    lanes=s_count, k=k, device=on_card):
                     params, losses = round_fn(
                         params, torch.stack([c[1] for c in control]),
                         torch.stack([c[3] for c in control]), lr_seq[t],
@@ -715,7 +722,9 @@ class RoundEngine:
                     outs[i].append(out)
                 if eval_every:
                     if (t + 1) % eval_every == 0:
-                        last_ev = eval_bank.metrics_stacked(params)
+                        with obs_trace.span("engine.eval", t=t,
+                                            lanes=s_count):
+                            last_ev = eval_bank.metrics_stacked(params)
                     evals.append(last_ev)
             scalars = torch.stack([torch.stack([o[0] for o in lane])
                                    for lane in outs])
@@ -857,7 +866,7 @@ class _Lane:
     channels ``[T, N]``, alive mask ``[T, N]`` or None, replayed draws
     ``(selected, sort_keys)`` (each None or ``[T, ...]``), its controller's
     decide and select functions, local epochs and bank rows; and, for the
-    arena, its initial queues and its lane index (the ``scan.decide``
+    arena, its initial queues and its lane index (the ``scan.*``
     spans' ``lane``)."""
 
     def __init__(self, sp, k, k_act, kvec, V, lam, key, h_seq, drop_seq,
@@ -885,24 +894,26 @@ def _control(lane: _Lane, t: int, queues: torch.Tensor):
     h = lane.h_seq[t]
     with obs_trace.span("scan.decide", t=t, lane=lane.index):
         dec = lane.decide_fn(sp, h, queues, lane.V, lane.lam, kvec)
-    rep_sel, rep_keys = lane.replay
-    if rep_sel is None:
-        drawn = lane.select_fn(
-            sp, t, h, queues, dec.q,
-            draws.round_key(lane.key, t, draws.SELECT_STREAM), slots, kvec)
-    else:
-        drawn = rep_sel[t]
-    selected = torch.where(lane.active, drawn, 0)
-    if rep_keys is None:
-        sort_keys = draws.epoch_keys(
-            draws.round_key(lane.key, t, draws.CLIENT_STREAM), slots,
-            lane.epochs, lane.rows)
-    else:
-        sort_keys = rep_keys[t]
-    act = _act(lane, t, selected)
-    w = sp.data_weights
-    ratio = w[selected] / (kvec[selected] * dec.q[selected])
-    coeffs = torch.where(act > 0, ratio * act, 0.0)
+    with obs_trace.span("scan.select", t=t, lane=lane.index):
+        rep_sel, rep_keys = lane.replay
+        if rep_sel is None:
+            drawn = lane.select_fn(
+                sp, t, h, queues, dec.q,
+                draws.round_key(lane.key, t, draws.SELECT_STREAM), slots,
+                kvec)
+        else:
+            drawn = rep_sel[t]
+        selected = torch.where(lane.active, drawn, 0)
+        if rep_keys is None:
+            sort_keys = draws.epoch_keys(
+                draws.round_key(lane.key, t, draws.CLIENT_STREAM), slots,
+                lane.epochs, lane.rows)
+        else:
+            sort_keys = rep_keys[t]
+        act = _act(lane, t, selected)
+        w = sp.data_weights
+        ratio = w[selected] / (kvec[selected] * dec.q[selected])
+        coeffs = torch.where(act > 0, ratio * act, 0.0)
     return dec, selected, sort_keys, coeffs
 
 
@@ -918,35 +929,37 @@ def _outputs(lane: _Lane, t: int, dec, queues: torch.Tensor,
     """Round t's queue update and metrics row of one rollout: (new
     queues, (the :data:`SCAN_SCALARS` as one tensor, ``selected`` with
     -1 in inert slots))."""
-    sp, kvec, active, af = lane.sp, lane.kvec, lane.active, lane.af
-    n = sp.num_devices
-    h = lane.h_seq[t]
-    act = _act(lane, t, selected)
-    queues = vq.update_queues(queues, vq.energy_increment(
-        sp, h, dec.p, dec.f, dec.q, k=kvec))
-    t_n = sm.round_time(sp, h, dec.p, dec.f, k=kvec)
-    e_n = sm.round_energy(sp, h, dec.p, dec.f, k=kvec)
-    if lane.drop_seq is not None:
-        loss = (torch.sum(losses * act) /
-                torch.clamp(torch.sum(act), min=1.0))
-        live = active & (act > 0.0)
-        # all slots dropped: no upload finished this round
-        wall = torch.clamp(torch.max(torch.where(
-            live, t_n[selected], float("-inf"))), min=0.0)
-    else:
-        loss = torch.sum(losses * af) / float(lane.k_act)
-        live = active
-        wall = torch.max(torch.where(live, t_n[selected], float("-inf")))
-    # dead slots mark the extra row n, which is dropped
-    mask = torch.zeros(n + 1, dtype=torch.float32,
-                       device=h.device).index_fill_(
-        0, torch.where(live, selected, n), 1.0)[:n]
-    return queues, (torch.stack([
-        loss, wall,
-        torch.sum(e_n * mask) / torch.clamp(torch.sum(mask), min=1.0),
-        torch.mean(queues), torch.linalg.vector_norm(queues),
-        torch.min(dec.q), torch.max(dec.q), torch.sum(dec.q)]),
-        torch.where(active, selected, -1))
+    with obs_trace.span("scan.outputs", t=t, lane=lane.index):
+        sp, kvec, active, af = lane.sp, lane.kvec, lane.active, lane.af
+        n = sp.num_devices
+        h = lane.h_seq[t]
+        act = _act(lane, t, selected)
+        queues = vq.update_queues(queues, vq.energy_increment(
+            sp, h, dec.p, dec.f, dec.q, k=kvec))
+        t_n = sm.round_time(sp, h, dec.p, dec.f, k=kvec)
+        e_n = sm.round_energy(sp, h, dec.p, dec.f, k=kvec)
+        if lane.drop_seq is not None:
+            loss = (torch.sum(losses * act) /
+                    torch.clamp(torch.sum(act), min=1.0))
+            live = active & (act > 0.0)
+            # all slots dropped: no upload finished this round
+            wall = torch.clamp(torch.max(torch.where(
+                live, t_n[selected], float("-inf"))), min=0.0)
+        else:
+            loss = torch.sum(losses * af) / float(lane.k_act)
+            live = active
+            wall = torch.max(torch.where(live, t_n[selected],
+                                         float("-inf")))
+        # dead slots mark the extra row n, which is dropped
+        mask = torch.zeros(n + 1, dtype=torch.float32,
+                           device=h.device).index_fill_(
+            0, torch.where(live, selected, n), 1.0)[:n]
+        return queues, (torch.stack([
+            loss, wall,
+            torch.sum(e_n * mask) / torch.clamp(torch.sum(mask), min=1.0),
+            torch.mean(queues), torch.linalg.vector_norm(queues),
+            torch.min(dec.q), torch.max(dec.q), torch.sum(dec.q)]),
+            torch.where(active, selected, -1))
 
 
 def _stack_metrics(outs) -> Dict[str, np.ndarray]:

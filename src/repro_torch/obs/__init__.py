@@ -10,7 +10,9 @@ from repro_torch.obs import trace
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry)
 from repro_torch.obs.trace import (JsonlSink, MemorySink, clear_sinks,
-                                   event, export_chrome_trace, install_sink,
-                                   installed, load_jsonl, profiler_bridge,
-                                   remove_sink, span, to_chrome_trace)
+                                   count, event, export_chrome_trace,
+                                   install_sink, installed, load_jsonl,
+                                   profiler_bridge, remove_sink,
+                                   resolve_device, span, to_chrome_trace,
+                                   totals)
 from repro_torch.obs.watchdog import RetraceError, Watchdog

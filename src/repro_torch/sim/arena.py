@@ -787,8 +787,7 @@ class Arena:
                 if v is not None:
                     parts[f"{t}/{i}"] = v
         t0 = time.perf_counter()
-        with obs.span("arena.bank_digest", nbytes=int(bank.nbytes)):
-            digest = _content_digest(parts)
+        digest = _content_digest(parts)
         self.metrics.histogram("arena.bank_digest_s").observe(
             time.perf_counter() - t0)
         self._bank_digests[bank] = (version, digest)
@@ -905,6 +904,8 @@ class Arena:
                           k_max=int(k_max), lanes=s):
                 reduced.append({name: v.cpu().numpy()
                                 for name, v in outs.items()})
+                # the read-back drained the stream: device spans resolve
+                obs.resolve_device()
             if chunked:
                 self.metrics.histogram("arena.chunk.dispatch_s").observe(
                     t_red - t_disp)
